@@ -1,0 +1,103 @@
+"""Primitive layers: RMSNorm, rotary embeddings, gated MLP, embeddings.
+
+Follows ``repro/models/layers.py`` exactly, not Hugging Face's Gemma 3:
+plain ``scale`` RMSNorm (not ``1 + scale``), no ``sqrt(d)`` embedding
+scale, half-split RoPE, SwiGLU.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.param import ParamBuilder
+
+
+# -- RMSNorm -------------------------------------------------------------------
+
+def rmsnorm_init(b: ParamBuilder, name: str, dim: int):
+    b.scope(name).param("scale", (dim,), init="ones")
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dtype)
+
+
+# -- Rotary position embeddings --------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)                       # (head_dim/2,)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) for ``positions`` (..., seq), each (..., seq, 1, hd/2);
+    a decode step computes them once for all its layers."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    angles = positions[..., :, None].float() * freqs       # (..., s, hd/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    return apply_rope_tables(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# -- Gated (SwiGLU) MLP -----------------------------------------------------------
+
+def mlp_init(b: ParamBuilder, name: str, d_model: int, d_ff: int):
+    s = b.scope(name)
+    s.param("w_gate", (d_model, d_ff))
+    s.param("w_up", (d_model, d_ff))
+    s.param("w_down", (d_ff, d_model))
+
+
+def mlp(params, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    g = x @ params["w_gate"].to(compute_dtype)
+    u = x @ params["w_up"].to(compute_dtype)
+    return (F.silu(g) * u) @ params["w_down"].to(compute_dtype)
+
+
+# -- Embedding / LM head ------------------------------------------------------------
+
+def embed_init(b: ParamBuilder, name: str, vocab: int, d_model: int):
+    b.scope(name).param("tok", (vocab, d_model), scale=d_model ** -0.5)
+
+
+def embed(params, tokens: torch.Tensor,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    # gather, then cast: the same values as casting the table first
+    return params["tok"][tokens.long()].to(compute_dtype)
+
+
+def head_init(b: ParamBuilder, name: str, d_model: int, vocab: int):
+    b.scope(name).param("w", (d_model, vocab))
+
+
+def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
+def head(params, x: torch.Tensor, compute_dtype: torch.dtype,
+         softcap: float = 0.0) -> torch.Tensor:
+    return _softcap(x @ params["w"].to(compute_dtype), softcap)
+
+
+def tied_head(embed_params, x: torch.Tensor, compute_dtype: torch.dtype,
+              softcap: float = 0.0) -> torch.Tensor:
+    return _softcap(x @ embed_params["tok"].to(compute_dtype).T, softcap)

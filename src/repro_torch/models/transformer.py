@@ -1,0 +1,277 @@
+"""Dense decoder serving path, the counterpart of the serving half of
+``repro/models/transformer.py``: ``init_params``, ``init_cache``,
+``prefill`` (:328), ``PagedKV``, ``cache_layout`` (:462) and
+``decode_step_paged`` (:511).
+
+Only dense attention layers are ported: SSM, MoE, cross-attention and
+codebook configs raise ``NotImplementedError``.
+
+Where JAX returns fresh arrays, the port writes caches and pools in place:
+a cache is as large as the model's K/V working set, and a copy per step
+would double it. Each function returns the structure it wrote.
+
+Parameters are cast to ``compute_dtype`` at every use, as in JAX; for a
+tensor already in that dtype the cast is free, so a caller may hold one
+compute-dtype copy of the weights (the serving engine does).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, dtype_of
+from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attn.ops import paged_decode_attention
+from repro_torch.kernels.decode_attn.paged import paged_decode_attn
+from repro_torch.models import layers as L
+from repro_torch.models.attention import KVCache, attention_init, flash_attention
+from repro_torch.models.param import ParamBuilder, build
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raises unless every layer is dense self-attention + gated MLP."""
+    if cfg.n_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-codebook (audio) configs are not ported")
+    for i in range(cfg.n_layers):
+        if (cfg.layer_is_ssm(i) or cfg.layer_is_moe(i)
+                or cfg.layer_is_cross_attn(i) or not cfg.layer_is_attn(i)):
+            raise NotImplementedError(
+                f"{cfg.name}: layer {i} is not dense attention; the port "
+                f"serves dense attention layers only")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_model(b: ParamBuilder, cfg: ModelConfig):
+    L.embed_init(b, "embed", cfg.padded_vocab, cfg.d_model)
+    lb = b.scope("layers")
+    for i in range(cfg.n_layers):
+        s = lb.scope(f"L{i}")
+        L.rmsnorm_init(s, "attn_norm", cfg.d_model)
+        attention_init(s, "attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+        if cfg.d_ff > 0:
+            L.rmsnorm_init(s, "ffn_norm", cfg.d_model)
+            L.mlp_init(s, "mlp", cfg.d_model, cfg.d_ff)
+    L.rmsnorm_init(b, "final_norm", cfg.d_model)
+    if not cfg.tie_embeddings:
+        L.head_init(b, "head", cfg.d_model, cfg.padded_vocab)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                param_dtype=None) -> Dict:
+    """Random parameters from ``seed`` on ``device`` (``None``: cuda)."""
+    check_dense(cfg)
+    dtype = dtype_of(param_dtype or cfg.param_dtype)
+    return build(functools.partial(_init_model, cfg=cfg), seed, dtype,
+                 resolve_device(device))
+
+
+def cast_params(params: Dict, dtype: torch.dtype, device=None) -> Dict:
+    """The tree on ``device`` (when given) with every matrix in ``dtype``:
+    the leaves the model casts to ``compute_dtype`` at use. Vectors (the
+    RMSNorm scales, read in float32) keep their dtype. A leaf that needs no
+    change shares its storage."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype, device) for k, v in params.items()}
+    return params.to(device=device,
+                     dtype=dtype if params.dim() >= 2 else params.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces of one layer
+# ---------------------------------------------------------------------------
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _out(att: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", att, wo)`` as one matrix product."""
+    h, k, d = wo.shape
+    return att.reshape(*att.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def _qkv(ap: Dict, h: torch.Tensor, rope, dt: torch.dtype):
+    q = L.apply_rope_tables(_proj(h, ap["wq"].to(dt)), *rope)
+    k = L.apply_rope_tables(_proj(h, ap["wk"].to(dt)), *rope)
+    return q, k, _proj(h, ap["wv"].to(dt))
+
+
+def _ffn_and_out(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
+                 dt: torch.dtype) -> torch.Tensor:
+    if "mlp" in lp:
+        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps),
+                      dt)
+    return x
+
+
+def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+            dt: torch.dtype) -> torch.Tensor:
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return L.tied_head(params["embed"], x, dt, cfg.logits_softcap)
+    return L.head(params["head"], x, dt, cfg.logits_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Serving: monolithic prefill cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    """Per-layer ``KVCache`` of ``(batch, size, kv, hd)``: ``size`` is the
+    window for sliding-window layers (ring layout, slot ``p % size``),
+    ``max_len`` otherwise."""
+    check_dense(cfg)
+    dev = resolve_device(device)
+    cache: Dict[str, Dict] = {}
+    for i in range(cfg.n_layers):
+        w = cfg.window_for_layer(i)
+        size = min(w, max_len) if w is not None else max_len
+        shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+        cache[f"L{i}"] = {"kv": KVCache(
+            k=torch.zeros(shape, dtype=dtype_of(dtype), device=dev),
+            v=torch.zeros(shape, dtype=dtype_of(dtype), device=dev))}
+    return cache
+
+
+def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Fills ``cache`` (in place) from whole prompts ``tokens`` (b, s);
+    returns (last-position logits (b, 1, V), cache)."""
+    dt = dtype_of(cfg.compute_dtype)
+    x = L.embed(params["embed"], tokens, dt)
+    b, s = tokens.shape
+    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
+                         cfg.head_dim, cfg.rope_theta)
+
+    for i in range(cfg.n_layers):
+        lp = params["layers"][f"L{i}"]
+        kv = cache[f"L{i}"]["kv"]
+        w = cfg.window_for_layer(i)
+        size = kv.k.shape[1]
+        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = _qkv(lp["attn"], h, rope, dt)
+        att = flash_attention(q, k, v, causal=True, window=w)
+        x = x + _out(att, lp["attn"]["wo"].to(dt))
+        if w is not None and s >= size:
+            # ring layout: the slot of token p is p % size
+            kv.k.copy_(torch.roll(k[:, -size:], s % size, dims=1))
+            kv.v.copy_(torch.roll(v[:, -size:], s % size, dims=1))
+        else:
+            kv.k[:, :s] = k.to(kv.k.dtype)
+            kv.v[:, :s] = v.to(kv.v.dtype)
+        x = _ffn_and_out(cfg, lp, x, dt)
+
+    return _logits(cfg, params, x[:, -1:], dt), cache
+
+
+# ---------------------------------------------------------------------------
+# Serving: paged cache layout + decode
+# ---------------------------------------------------------------------------
+
+class PagedKV(NamedTuple):
+    """Per-layer K/V block pools, shape (n_pool, block_size, kv_heads,
+    head_dim). The last pool row is the trash block inactive rows write
+    into; every other row is addressed through a per-request block table."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cache_layout(cfg: ModelConfig, max_len: int, block_size: int = 16
+                 ) -> Dict:
+    """Static paged-cache geometry, as ``repro.models.cache_layout``:
+    ``"full"`` groups full-attention layers (slot ``p``, a table of
+    ``ceil(max_len / block_size)`` entries filled at admission);
+    ``"ring{R}"`` groups sliding-window layers whose window is padded to a
+    block multiple ``R`` (slot ``p % R``, static tables)."""
+    check_dense(cfg)
+    layers: Dict[str, Dict] = {}
+    groups: Dict[str, Dict] = {}
+    for i in range(cfg.n_layers):
+        w = cfg.window_for_layer(i)
+        size = min(w, max_len) if w is not None else max_len
+        if w is not None:
+            ring = _ceil_to(size, block_size)
+            group = f"ring{ring}"
+            groups.setdefault(group, {"ring": ring,
+                                      "n_blk": ring // block_size})
+        else:
+            ring = None
+            group = "full"
+            groups.setdefault(group, {
+                "ring": None,
+                "n_blk": _ceil_to(max_len, block_size) // block_size})
+        layers[f"L{i}"] = {"attn": {"group": group, "ring": ring,
+                                    "window": size}}
+    return {"layers": layers, "groups": groups, "block_size": block_size,
+            "max_len": max_len}
+
+
+def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                      pools: Dict, tables: Dict, index: torch.Tensor,
+                      active: Optional[torch.Tensor] = None, *,
+                      max_len: int, block_size: int = 16,
+                      attn_kernel: Callable = paged_decode_attn
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step against the paged cache; rows are independent
+    requests at independent positions.
+
+    tokens (n, 1); ``index`` (n,) int32 is the position each row's token is
+    written at; ``tables`` maps layout-group name to (n, n_blk) int32
+    physical block ids; ``pools`` maps ``L{i}`` to ``{"attn": PagedKV}``,
+    written in place. ``active`` (n,) bool redirects inactive rows' K/V
+    writes to the trash block. ``attn_kernel`` is the paged attention
+    function of ``kernels.decode_attn``; the engine keeps the default.
+    Returns (logits (n, 1, V), pools)."""
+    layout = cache_layout(cfg, max_len, block_size)
+    dt = dtype_of(cfg.compute_dtype)
+    x = L.embed(params["embed"], tokens, dt)
+    rope = L.rope_tables(index[:, None], cfg.head_dim, cfg.rope_theta)
+    rows = torch.arange(x.shape[0], device=x.device)
+    idx = index.long()
+    writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    for i in range(cfg.n_layers):
+        lp = params["layers"][f"L{i}"]
+        al = layout["layers"][f"L{i}"]["attn"]
+        kv: PagedKV = pools[f"L{i}"]["attn"]
+        table, ring = tables[al["group"]], al["ring"]
+        if al["group"] not in writes:     # shared by the group's layers
+            slot = torch.remainder(idx, ring) if ring is not None else idx
+            # a finished row keeps its last index, which may lie past a
+            # table sliced to the running rows' width: clamp (JAX's gather
+            # clamps too); the row is redirected to the trash block below
+            col = torch.clamp(slot // block_size, max=table.shape[1] - 1)
+            pb = table[rows, col].long()
+            if active is not None:
+                pb = torch.where(active, pb,
+                                 torch.full_like(pb, kv.k.shape[0] - 1))
+            writes[al["group"]] = (pb, torch.remainder(slot, block_size))
+        pb, off = writes[al["group"]]
+        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = _qkv(lp["attn"], h, rope, dt)
+        kv.k[pb, off] = k[:, 0].to(kv.k.dtype)
+        kv.v[pb, off] = v[:, 0].to(kv.v.dtype)
+        att = paged_decode_attention(q, kv.k, kv.v, table, index, ring=ring,
+                                     window=al["window"], kernel=attn_kernel)
+        x = x + _out(att, lp["attn"]["wo"].to(dt))
+        x = _ffn_and_out(cfg, lp, x, dt)
+
+    return _logits(cfg, params, x, dt), pools
+
+
+__all__ = ["KVCache", "PagedKV", "cache_layout", "cast_params", "check_dense",
+           "decode_step_paged", "init_cache", "init_params", "prefill"]

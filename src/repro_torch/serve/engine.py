@@ -1,0 +1,330 @@
+"""Continuous-batching serving engine on the paged KV cache, the
+counterpart of ``ContinuousEngine`` in ``repro/serve/engine.py:128-434``.
+
+Requests are admitted into and evicted from the running batch at token
+boundaries (``serve/scheduler.py``). Admission prefills a request into a
+monolithic scratch cache and scatters it into the request's reserved
+blocks (``serve/paged_cache.py``); its first token rides the batch state
+until the next collect.
+
+The JAX decode chunk is one jitted ``lax.while_loop``. Here it is a host
+loop of up to ``chunk`` decode steps. The per-row state (last token,
+index, remaining budget, done flags, output buffer) stays on the device
+and the host reads it once per chunk, in ``_collect``. The host works out
+the chunk's length from what it knows without reading the device: each
+running request's remaining budget. With requests waiting (``stop_early``)
+the chunk ends when the first running request spends its budget, as the
+JAX loop's early exit does; otherwise it runs until every budget is spent
+or ``chunk`` steps. A request that emits ``eos_id`` stops on the device at
+once (its later steps write to the trash block) and is collected at the
+chunk's end: the JAX loop may end such a chunk earlier, which changes no
+request's tokens.
+
+Greedy decoding is an argmax in float32. Sampling uses Gumbel-max with
+noise from a counter-based hash of (engine seed, request seed, absolute
+position, vocab id): a pure function of the request, never of the batch it
+rides in, so sampled output does not depend on the schedule. JAX's
+``fold_in`` bits cannot be matched, so sampled tokens differ from the JAX
+engine's; greedy tokens are held to it.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, dtype_of
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import (cast_params, check_dense,
+                                            decode_step_paged, init_cache,
+                                            prefill)
+from repro_torch.serve.paged_cache import PagedCache
+from repro_torch.serve.scheduler import Request, Scheduler
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``(x * c) mod 2**32`` for x in [0, 2**32), on Python ints or int64
+    tensors, without overflowing int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _hash32(x):
+    """murmur3's 32-bit finalizer on values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _request_key(engine_seed: int, request_seed: int) -> int:
+    return _hash32(_hash32(engine_seed & _M32) ^ (request_seed & _M32))
+
+
+def sample_rows(logits: torch.Tensor, temps: torch.Tensor,
+                keys: torch.Tensor, pos: torch.Tensor,
+                any_sampled: bool) -> torch.Tensor:
+    """Per-row sampling: argmax where temp <= 0, else Gumbel-max on
+    ``logits / temp`` with noise hashed from (key, position, vocab id).
+    logits (n, V) float32 -> (n,) int32."""
+    greedy = logits.argmax(dim=-1)
+    if not any_sampled:
+        return greedy.to(torch.int32)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    row = _hash32((keys + _mul32(pos.long() & _M32, 0x9E3779B1)) & _M32)
+    bits = _hash32(row[:, None] ^ vocab[None, :])
+    u = ((bits >> 8).float() + 0.5) / float(1 << 24)      # in (0, 1)
+    gumbel = -torch.log(-torch.log(u))
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+    cat = (logits / safe_t[:, None] + gumbel).argmax(dim=-1)
+    return torch.where(temps > 0, cat, greedy).to(torch.int32)
+
+
+class ContinuousEngine:
+    """Continuous-batching engine on the paged KV cache.
+
+    ``n_slots`` concurrent requests share per-layer block pools; admission
+    reserves each request's whole token budget from the free list, so
+    decode never allocates. Finished rows keep riding the batch (K/V writes
+    go to the trash block) until the host recycles their slot at the end of
+    the chunk. ``eos_id``, when set, is a stop token: a row that emits it
+    finishes whatever its remaining budget. ``device=None`` means cuda.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Dict, n_slots: int = 8,
+                 max_len: int = 2048, block_size: int = 16,
+                 cache_dtype=torch.bfloat16, chunk: int = 32,
+                 full_blocks: Optional[int] = None, seed: int = 0,
+                 eos_id: Optional[int] = None, device=None):
+        check_dense(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.compute_dtype = dtype_of(cfg.compute_dtype)
+        self.params = self._on_device(params)
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.block_size = block_size
+        self.cache_dtype = dtype_of(cache_dtype)
+        self.chunk = chunk
+        self.cache = PagedCache(cfg, n_slots, max_len, block_size,
+                                dtype=self.cache_dtype,
+                                full_blocks=full_blocks, device=self.device)
+        self.scheduler = Scheduler(n_slots)
+        self.tokens_generated = 0
+        self.decode_steps = 0
+        self.n_swaps = 0
+        self.eos_id = eos_id
+        self.seed = seed
+
+        n, dev = n_slots, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._st: Dict[str, torch.Tensor] = {
+            "last_tok": torch.zeros((n, 1), **i32),
+            "index": torch.zeros((n,), **i32),
+            "remaining": torch.zeros((n,), **i32),
+            "active": torch.zeros((n,), dtype=torch.bool, device=dev),
+            # chunk steps + the admission-time first token of a fresh row
+            "out_buf": torch.zeros((n, chunk + 1), **i32),
+            "out_pos": torch.zeros((n,), **i32),
+            "keys": torch.zeros((n,), dtype=torch.int64, device=dev),
+            "temps": torch.zeros((n,), dtype=torch.float32, device=dev),
+        }
+        self._rows = torch.arange(n, device=dev)
+        # host copies of what the host set itself: remaining budget (not
+        # counting stop tokens) and temperature of each slot's request
+        self._remaining = np.zeros(n, np.int64)
+        self._temps = np.zeros(n, np.float32)
+        # prefill scratch caches keyed (batch, prompt bucket)
+        self._mono_scratch: Dict[tuple, Dict] = {}
+
+    def _on_device(self, params: Dict) -> Dict:
+        # One compute-dtype copy of the weights on the card: the model's
+        # per-use casts to compute_dtype are then free (JAX casts its f32
+        # params at every use instead).
+        return cast_params(params, self.compute_dtype, self.device)
+
+    # -- request API --------------------------------------------------------
+
+    def submit(self, prompt: np.ndarray, n_new: int,
+               temperature: float = 0.0, seed: int = 0) -> int:
+        """prompt: (s,) int32. Returns a request id; drive with step()/run().
+        The whole token budget is validated here."""
+        prompt = np.asarray(prompt, np.int32)
+        s = prompt.shape[-1]
+        if n_new < 1:
+            raise ValueError(f"n_new must be >= 1, got {n_new}")
+        if s + n_new > self.max_len:
+            raise ValueError(
+                f"prompt ({s}) + n_new ({n_new}) = {s + n_new} tokens "
+                f"exceeds the cache budget max_len={self.max_len}")
+        need = self.cache.blocks_needed(s + n_new)
+        total = self.cache._group_phys.get("full", 0)
+        if need > total > 0:
+            raise ValueError(
+                f"request needs {need} cache blocks but the pool only has "
+                f"{total}: raise full_blocks or max_len")
+        return self.scheduler.submit(prompt, n_new, temperature, seed)
+
+    def swap_params(self, params: Dict) -> None:
+        """Serve ``params`` from the next decode step on; in-flight request
+        state is untouched."""
+        self.params = self._on_device(params)
+        self.n_swaps += 1
+
+    @property
+    def n_running(self) -> int:
+        return len(self.scheduler.running)
+
+    # -- drive --------------------------------------------------------------
+
+    def _admit_all(self) -> List[Request]:
+        """Admit every waiting request that fits (FIFO, stop at the first
+        that does not). Admissions sharing a prompt length share one batched
+        prefill into a bucketed scratch cache; each request's prefill K/V is
+        then scattered into its reserved blocks and its first token set in
+        the batch state, to be collected with the next chunk."""
+        admitted: List[Request] = []
+        while True:
+            req = self.scheduler.next_admit()
+            if req is None or not self.cache.can_admit(req.total_budget):
+                break
+            r = self.scheduler.admit()
+            self.cache.reserve(r.slot, r.total_budget)
+            admitted.append(r)
+        by_len: Dict[int, List[Request]] = {}
+        for r in admitted:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        st, dev = self._st, self.device
+        for n_prompt, group in by_len.items():
+            k = len(group)
+            bucket = min(self.max_len,
+                         1 << max(3, (n_prompt - 1).bit_length()))
+            if (k, bucket) not in self._mono_scratch:
+                self._mono_scratch[(k, bucket)] = init_cache(
+                    self.cfg, k, bucket, self.cache_dtype, dev)
+            prompts = torch.from_numpy(
+                np.stack([r.prompt for r in group])).to(dev)
+            logits, mono = prefill(self.cfg, self.params, prompts,
+                                   self._mono_scratch[(k, bucket)])
+            for i, r in enumerate(group):
+                self.cache.write_prefill(r.slot, mono, n_prompt, row=i)
+            slots = [r.slot for r in group]
+            temps = np.asarray([r.temperature for r in group], np.float32)
+            keys = torch.tensor([_request_key(self.seed, r.seed)
+                                 for r in group], dtype=torch.int64,
+                                device=dev)
+            temps_t = torch.from_numpy(temps).to(dev)
+            tok = sample_rows(logits[:, -1].float(), temps_t, keys,
+                              torch.full((k,), n_prompt, device=dev),
+                              bool((temps > 0).any()))
+            sl = torch.tensor(slots, device=dev)
+            n_new = torch.tensor([r.n_new for r in group], dtype=torch.int32,
+                                 device=dev)
+            st["last_tok"][sl, 0] = tok
+            st["index"][sl] = n_prompt
+            st["remaining"][sl] = n_new - 1
+            st["active"][sl] = n_new > 1
+            st["out_buf"][sl, 0] = tok
+            st["out_pos"][sl] = 1
+            st["keys"][sl] = keys
+            st["temps"][sl] = temps_t
+            for r in group:
+                self._remaining[r.slot] = r.n_new - 1
+                self._temps[r.slot] = r.temperature
+        return admitted
+
+    def _chunk_steps(self, stop_early: bool) -> int:
+        rem = [int(self._remaining[s]) for s in self.scheduler.running
+               if self._remaining[s] > 0]
+        if not rem:
+            return 0
+        return min(self.chunk, min(rem) if stop_early else max(rem))
+
+    def _decode_once(self, tables: Dict[str, torch.Tensor],
+                     any_sampled: bool) -> None:
+        st = self._st
+        logits, _ = decode_step_paged(
+            self.cfg, self.params, st["last_tok"], self.cache.pools, tables,
+            st["index"], st["active"], max_len=self.max_len,
+            block_size=self.block_size)
+        self.decode_steps += 1
+        tok = sample_rows(logits[:, -1].float(), st["temps"], st["keys"],
+                          st["index"] + 1, any_sampled)
+        act = st["active"]
+        st["last_tok"] = torch.where(act[:, None], tok[:, None],
+                                     st["last_tok"])
+        opc = st["out_pos"].clamp(max=st["out_buf"].shape[1] - 1).long()
+        st["out_buf"][self._rows, opc] = torch.where(
+            act, tok, st["out_buf"][self._rows, opc])
+        inc = act.to(torch.int32)
+        st["index"] += inc
+        st["out_pos"] += inc
+        st["remaining"] -= inc
+        act = act & (st["remaining"] > 0)
+        if self.eos_id is not None:        # done-flag on the device
+            act = act & (tok != self.eos_id)
+        st["active"] = act
+
+    def _collect(self) -> List[Request]:
+        st = self._st
+        host = torch.cat([st["out_buf"], st["out_pos"][:, None],
+                          st["active"][:, None].to(torch.int32)],
+                         dim=1).cpu().numpy()          # the chunk's one read
+        out_buf, out_pos, active = host[:, :-2], host[:, -2], host[:, -1]
+        finished: List[Request] = []
+        for slot, req in list(self.scheduler.running.items()):
+            k = int(out_pos[slot])
+            if k:
+                req.tokens.extend(int(t) for t in out_buf[slot, :k])
+                self.tokens_generated += k
+            if not active[slot]:         # budget spent or stop token emitted
+                self.cache.release(slot)
+                finished.append(self.scheduler.evict(slot))
+        st["out_pos"].zero_()
+        return finished
+
+    def step(self) -> List[Request]:
+        """One scheduling round: admit waiting requests into free slots, run
+        one decode chunk, collect tokens and recycle finished slots. Returns
+        the requests that finished this round."""
+        self._admit_all()
+        if not self.scheduler.running:
+            return []
+        n_steps = self._chunk_steps(stop_early=bool(self.scheduler.queue))
+        if n_steps:
+            # attend only over full-group table columns that reserved blocks
+            # back (the kernel takes a contiguous table)
+            tables = self.cache.tables
+            full = tables.get("full")
+            w = self.cache.used_width()
+            if full is not None and w is not None and w < full.shape[1]:
+                tables = {**tables, "full": full[:, :w].contiguous()}
+            running = list(self.scheduler.running)
+            any_sampled = bool((self._temps[running] > 0).any())
+            for _ in range(n_steps):
+                self._decode_once(tables, any_sampled)
+            for s in running:
+                self._remaining[s] = max(0, self._remaining[s] - n_steps)
+        return self._collect()
+
+    def run(self) -> Dict[int, np.ndarray]:
+        """Drain queue + running batch; returns {rid: generated tokens}."""
+        while not self.scheduler.idle:
+            self.step()
+        return {rid: np.asarray(r.tokens, np.int32)
+                for rid, r in self.scheduler.finished.items()}
+
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """Submit one request per row (row i seeded ``seed + i``), drain,
+        return (b, n_new) in submission order."""
+        prompts = np.asarray(prompts, np.int32)
+        rids = [self.submit(p, n_new, temperature, seed + i)
+                for i, p in enumerate(prompts)]
+        done = self.run()
+        return np.stack([done[r] for r in rids])
