@@ -1,8 +1,9 @@
 """PyTorch port of the ``repro`` package, for an NVIDIA H100.
 
 The JAX package ``repro`` is the reference; every module here mirrors its
-counterpart there (``configs/``, ``models/``, ``serve/``, ``kernels/``) and
-is held to it by ``tests/test_torch_*.py``. This package imports torch and
+counterpart there (``configs/``, ``core/``, ``data/``, ``models/``,
+``optim/``, ``train/``, ``serve/``, ``kernels/``) and is held to it by
+``tests/test_torch_*.py``. This package imports torch and
 numpy only: never ``jax`` and never ``repro``.
 
 Entry points take ``device=None``, which means ``"cuda"``; they raise when

@@ -1,5 +1,6 @@
-"""The port's ``ModelConfig``: the fields and predicates the dense serving
-path reads, with the same names and meaning as ``repro/configs/base.py``.
+"""The port's configs, with the same names, fields and defaults as
+``repro/configs/base.py``: ``ModelConfig`` (the fields and predicates the
+dense serving path reads), ``WASGDConfig`` and ``TrainConfig``.
 
 The MoE, SSM, cross-attention and codebook fields are kept so that a config
 can say what it is; the port's model raises ``NotImplementedError`` on any
@@ -93,3 +94,46 @@ def dtype_of(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+@dataclasses.dataclass(frozen=True)
+class WASGDConfig:
+    """The paper's knobs (Alg. 1); see ``repro/configs/base.py`` for each
+    field. ``policy`` is a worker-assessment spec (``core/weights.py``) and
+    ``backend`` a ``"<schedule>:<codec>"`` aggregation spec
+    (``core/backends.py``); both are validated when the config is built
+    (the backend when a rule is built)."""
+    beta: float = 0.9
+    a_tilde: float = 1.0
+    tau: int = 4
+    strategy: str = "boltzmann"
+    policy: str = ""
+    m_estimate: int = 100
+    record_chunks: int = 4
+    order_search: bool = True
+    order_keep_score: float = -1.0
+    a_schedule: str = "constant"
+    anneal_rate: float = 0.05
+    quantize_comm: bool = False
+    comm_dtype: str = "float32"
+    hierarchical: bool = False
+    n_pods: int = 1
+    sharded_aggregate: bool = False
+    backend: str = ""
+    async_mode: str = "host_sim"
+
+    def __post_init__(self):
+        from repro_torch.core.weights import validate_config_spec
+        validate_config_spec(self.strategy, self.policy)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-3
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+    optimizer: str = "sgd"            # sgd | momentum | adamw
+    global_batch: int = 256
+    seq_len: int = 4096
+    wasgd: WASGDConfig = WASGDConfig()
+    seed: int = 0

@@ -27,6 +27,7 @@ BUILD_DIR = _KERNELS / "_build"
 SOURCES: Dict[str, Path] = {
     "paged_decode_attn": _KERNELS / "decode_attn" / "csrc"
     / "paged_decode_attn.cu",
+    "wagg_fused": _KERNELS / "wagg" / "csrc" / "wagg_fused.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

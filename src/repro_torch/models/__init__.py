@@ -1,4 +1,7 @@
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.cnn import (classification_loss, cnn6_apply,
+                                   init_cnn6, init_mlp, mlp_apply)
+from repro_torch.models.convert import (cnn6_from_jax, cnn6_to_jax,
+                                       params_from_numpy)
 from repro_torch.models.transformer import (
     PagedKV,
     cache_layout,
@@ -15,9 +18,16 @@ __all__ = [
     "cache_layout",
     "cast_params",
     "check_dense",
+    "classification_loss",
+    "cnn6_apply",
+    "cnn6_from_jax",
+    "cnn6_to_jax",
     "decode_step_paged",
     "init_cache",
+    "init_cnn6",
+    "init_mlp",
     "init_params",
+    "mlp_apply",
     "params_from_numpy",
     "prefill",
 ]

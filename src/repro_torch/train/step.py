@@ -1,0 +1,187 @@
+"""One WASGD round: ``tau`` per-worker local SGD steps followed by one
+communication, the counterpart of ``repro/train/step.py``.
+
+    rule(params, axes, h, comm_state) -> (params, comm_state, theta, metrics)
+
+Shape contract: every batch leaf has leading dim B = p * tau * b_local,
+laid out worker-major; it is reshaped to (p, tau, b_local, ...) and then
+swapped to (tau, p, b_local, ...), so step t hands worker w its own
+samples. Per-worker gradients come from ``torch.func.vmap`` of
+``grad_and_value`` over the worker-stacked parameters: each worker's
+gradient of its own loss (the JAX package takes the gradient of the mean
+over workers and scales it by p; the two agree up to rounding).
+"""
+from __future__ import annotations
+
+import types
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.core import aggregate as agg
+from repro_torch.core import backends
+from repro_torch.core.energy import record_mask
+from repro_torch.core.order import judge_scores
+from repro_torch.core.weights import omega, policy_from_config, theta_entropy
+from repro_torch.optim import Optimizer
+from repro_torch.train.state import TrainState
+from repro_torch.tree import tree_leaves, tree_map
+
+LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]
+
+NOT_PORTED = {
+    "async": "async_mode='on_device' (the Alg. 4 masked round) is not "
+             "ported yet (ROADMAP.md queue 1.9)",
+    "baselines": "the baseline rules (spsgd, easgd, omwu, mmwu, seq) are not "
+                 "ported yet (ROADMAP.md queue 1.4)",
+}
+
+
+def _check_sync(wcfg) -> None:
+    if wcfg.async_mode == "on_device":
+        raise NotImplementedError(NOT_PORTED["async"])
+
+
+def wasgd_rule(wcfg) -> Callable:
+    """Eq. 10 communication rule: theta from the configured policy (its
+    state is ``comm_state``), the aggregate through the configured
+    ``schedule:codec`` spec. Unknown or unported specs fail here, when the
+    rule is built."""
+    _check_sync(wcfg)
+    name = backends.backend_name_from_config(wcfg)
+    if backends.resolve_spec(name)[0] == "hierarchical" and wcfg.n_pods < 2:
+        raise ValueError("'hierarchical' aggregation schedule needs "
+                         f"WASGDConfig.n_pods >= 2 (got {wcfg.n_pods})")
+    pol = policy_from_config(wcfg)
+
+    def rule(params, axes, h, comm_state):
+        theta, comm_state = pol(h, None, comm_state)
+        new_params = backends.aggregate_from_config(wcfg, params, axes, theta)
+        return new_params, comm_state, theta, {}
+    return rule
+
+
+def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
+                 n_workers: int) -> types.SimpleNamespace:
+    """The round's building blocks: batch reshape, the tau-step local
+    loop, per-worker L2 norms, and the state/metrics assembly."""
+    in_dims = agg.worker_in_axes(axes)
+    tau = wcfg.tau
+    mask = record_mask(tau, wcfg.m_estimate, wcfg.record_chunks)
+    grad_fn = vmap(grad_and_value(loss_fn, has_aux=True),
+                   in_dims=(in_dims, 0))
+
+    def worker_grads(params, mb):
+        """Per-worker gradients and losses (p,). A shared leaf (no worker
+        axis) takes the mean of the workers' gradients, as the gradient of
+        the mean loss gives it in the JAX package."""
+        grads, (losses, _) = grad_fn(params, mb)
+        grads = tree_map(lambda g, d: g if d == 0 else g.mean(dim=0), grads,
+                         in_dims)
+        return grads, losses
+
+    def reshape_batch(batch):
+        def r(x):
+            b = x.shape[0]
+            if b % (tau * n_workers):
+                raise ValueError(f"batch {b} not divisible by tau*p = "
+                                 f"{tau}*{n_workers}")
+            x = x.reshape(n_workers, tau, b // (tau * n_workers),
+                          *x.shape[1:])
+            return x.transpose(0, 1)            # (tau, p, b_local, ...)
+        return tree_map(r, batch)
+
+    def worker_l2(tree_a, tree_b=None):
+        """Per-worker L2 norm over the worker-stacked leaves: (p,)."""
+        leaves_ax = tree_leaves(axes)
+        la = tree_leaves(tree_a)
+        lb = tree_leaves(tree_b) if tree_b is not None else la
+        total = torch.zeros(n_workers, dtype=torch.float32,
+                            device=la[0].device)
+        for xa, xb, ax in zip(la, lb, leaves_ax):
+            if not agg.is_worker_leaf(ax):
+                continue
+            d = xa.float()
+            if tree_b is not None:
+                d = d - xb.float()
+            total = total + torch.square(d).reshape(n_workers, -1).sum(dim=1)
+        return torch.sqrt(total)
+
+    def run_scan(state, mb):
+        """tau local steps; returns (params, opt_state, energy) and the
+        (tau,) per-step mean losses."""
+        params, opt_state, energy = (state.params, state.opt_state,
+                                     state.energy)
+        step_losses = []
+        for t in range(tau):
+            grads, losses = worker_grads(params,
+                                         tree_map(lambda x: x[t], mb))
+            params, opt_state = optimizer.update(grads, opt_state, params)
+            if mask[t]:
+                energy = energy + losses
+            step_losses.append(losses.mean())
+        return (params, opt_state, energy), torch.stack(step_losses)
+
+    def assemble(state, params, opt_state, comm_state, round_losses, energy,
+                 theta, rule_metrics):
+        new_state = TrainState(
+            step=state.step + 1,
+            params=params,
+            opt_state=opt_state,
+            energy=torch.zeros_like(state.energy),
+            comm_state=comm_state,
+        )
+        metrics = {
+            "loss": round_losses.mean(),
+            "loss_last": round_losses[-1],
+            "h": energy,
+            "theta": theta,
+            "scores": judge_scores(energy),
+            "theta_entropy": theta_entropy(theta),
+            "omega": omega(theta),
+            **rule_metrics,
+        }
+        return new_state, metrics
+
+    return types.SimpleNamespace(
+        mask=mask, reshape_batch=reshape_batch, worker_grads=worker_grads,
+        worker_l2=worker_l2, run_scan=run_scan, assemble=assemble)
+
+
+def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
+                     wcfg, n_workers: int,
+                     rule: Optional[Callable] = None) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)`` for one round.
+    (The JAX builder's ``pipeline=``/``overlap=`` seam and its mesh
+    schedules are not ported yet.)"""
+    _check_sync(wcfg)
+    if rule is None:
+        rule = wasgd_rule(wcfg)
+    parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers)
+
+    def train_step(state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict]:
+        mb = parts.reshape_batch(batch)
+        (params, opt_state, energy), round_losses = parts.run_scan(state, mb)
+        params, comm_state, theta, rule_metrics = rule(
+            params, axes, energy, state.comm_state)
+        return parts.assemble(state, params, opt_state, comm_state,
+                              round_losses, energy, theta, rule_metrics)
+
+    return train_step
+
+
+def init_comm_state(rule_name: str, params: Dict, axes: Dict,
+                    n_workers: int, wcfg=None):
+    """A rule's communication state: the policy state of the wasgd/wasgd+
+    rules (``()`` for a stateless policy), on the params' device. (The
+    JAX function's ``prev=`` membership re-shard is not ported yet.)"""
+    if rule_name not in ("wasgd", "wasgd+"):
+        raise NotImplementedError(f"rule {rule_name!r}: "
+                                  f"{NOT_PORTED['baselines']}")
+    if wcfg is None:
+        return ()
+    _check_sync(wcfg)
+    return policy_from_config(wcfg).init_state(
+        n_workers, tree_leaves(params)[0].device)
