@@ -6,9 +6,10 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel to its plain PyTorch version on the card, times them, serves
 full-width gemma3-1b (random weights from a seed) through
-``ContinuousEngine``, trains the paper's CNN6 with synchronous WASGD+
-through ``Trainer.run``, and checks that the served and the trained paths
-went through their kernels. Prints one JSON object per phase:
+``ContinuousEngine``, trains the paper's CNN6 and then full-width,
+full-depth gemma3-1b with synchronous WASGD+ through ``Trainer.run``, and
+checks that the served and the trained paths went through their kernels.
+Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
   kernel_check  paged_decode_attn vs its plain version over layouts, dtypes
@@ -19,10 +20,19 @@ went through their kernels. Prints one JSON object per phase:
                 mask x p x N
   wagg_time     wagg_fused, plain version, two-call library reference and
                 bound at the CNN6 round's leaves and at a gemma3-1b MLP leaf
-  agree         full-width decode steps through the kernel vs through the
-                plain version: logits agree, all finite
+  rmsnorm_check rmsnorm (forward and backward) vs its plain version over
+                dtype x d x rows x groups, and unaligned rows
+  rmsnorm_time  rmsnorm, plain version, F.rms_norm and bound at the LM
+                training shape and at the decode shape
+  ce_check      fused_ce (forward and backward) vs its plain version over
+                V x T, out-of-vocab labels and unaligned rows
+  ce_time       fused_ce, plain version, F.cross_entropy and bound at one
+                local step's gemma3-1b logits
+  agree         full-width decode steps through the kernels vs through the
+                plain versions: logits agree, all finite
   serve         ContinuousEngine on gemma3-1b: tokens, tokens/s, peak memory,
-                launches == 26 x decode steps
+                launches == 26 x decode steps (paged_decode_attn) and 53 x
+                (decode steps + prefills) (rmsnorm)
   serve_profile device busy time and idle share of a serve run (profiler)
   train_agree   one CNN6 round through pallas_wagg vs through einsum, in
                 the f32 and int8 codecs: params agree
@@ -30,6 +40,13 @@ went through their kernels. Prints one JSON object per phase:
                 tau=8, 30 rounds: seconds per round, losses, peak memory,
                 launches == rounds x 6 worker leaves
   train_profile device busy time and idle share of 5 training rounds
+  lm_agree      one local step of full-width gemma3-1b: per-worker losses
+                and gradients through the kernels vs the plain versions,
+                f32 and bf16 compute
+  lm_train      Trainer.run, WASGD+, gemma3-1b at full width and depth,
+                p=4, tau=4, 10 rounds after 2: s/round, tokens/s, losses,
+                peak memory, launches of rmsnorm, fused_ce and wagg_fused
+  lm_train_profile device busy time, idle share and top kernels of 2 rounds
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -69,6 +86,23 @@ CNN6_LEAVES = 6
 WAGG_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 LM_LEAF = (4, 1152 * 6912)      # p=4 workers x one gemma3-1b MLP matrix
 
+# WASGD+ training of gemma3-1b at full width and depth (the quickstart's
+# settings: SGD lr 0.03, beta 0.9, Boltzmann): seq_len 640 exceeds the
+# local layers' 512-token window. The data is make_tokens' bigram language,
+# 32 sequences that the workers revisit every few rounds.
+LM = {"p": 4, "tau": 4, "b_local": 1, "seq_len": 640, "lr": 0.03,
+      "warmup_rounds": 2, "rounds": 10, "n_seq": 32, "n_segments": 2,
+      "order_seed": 7, "backend": "pallas_wagg:f32", "beta": 0.9}
+LM_AGREE_P = 2                  # workers in lm_agree (two gradient trees)
+# rmsnorm vs its plain version, relative to max|plain|: f32 the order of
+# the sum of squares; bf16 output one ulp (2^-8); gradients: two formulas
+# of the same derivative (the Function's, autograd's of the plain ops)
+RMS_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+RMS_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# fused_ce vs its plain version, absolute: nll and lse of order 20 summed
+# over up to 262,144 terms in another order; dlogits lie in [-1, 1]
+CE_TOL = {"nll": 1e-4, "dlogits": 1e-5}
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -99,7 +133,8 @@ def ptxas_summary(lines):
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             start = max(name.find("paged_decode"), name.find("wagg_fused"),
-                        0)
+                        name.find("rmsnorm_kernel"),
+                        name.find("fused_ce_kernel"), 0)
             entry = name[start:name.find("EvPK")]
         elif "Used" in ln and entry is not None:
             out.append([entry, ln.split(":", 1)[1].strip()])
@@ -276,11 +311,13 @@ def phase_kernel_time(dev):
 
 
 def phase_agree(cfg, params_f32, dev):
-    """A few full-width decode steps through the kernel and through the
-    plain version, on the same caches and tokens."""
+    """A few full-width decode steps through the kernels (paged_decode_attn
+    and rmsnorm) and through their plain versions, on the same caches and
+    tokens."""
     import torch
     from repro_torch.kernels.decode_attn import (paged_decode_attn,
                                                  paged_decode_attn_ref)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
     from repro_torch.models import (cast_params, decode_step_paged,
                                     init_cache, prefill)
     from repro_torch.serve import PagedCache
@@ -308,9 +345,10 @@ def phase_agree(cfg, params_f32, dev):
             tok = torch.from_numpy(feed[t]).to(dev)
             lg = [decode_step_paged(c, params, tok, cache.pools, cache.tables,
                                     index, max_len=MAX_LEN, block_size=BLOCK,
-                                    attn_kernel=kern)[0].float()
-                  for cache, kern in zip(caches, (paged_decode_attn,
-                                                  paged_decode_attn_ref))]
+                                    attn_kernel=kern, norm=norm)[0].float()
+                  for cache, kern, norm in zip(
+                      caches, (paged_decode_attn, paged_decode_attn_ref),
+                      (rmsnorm, rmsnorm_ref))]
             if not (bool(torch.isfinite(lg[0]).all())
                     and bool(torch.isfinite(lg[1]).all())):
                 raise AssertionError(f"agree/{dtype}: non-finite logits")
@@ -328,7 +366,8 @@ def phase_agree(cfg, params_f32, dev):
     return {"phase": "agree", "prompts": [len(p) for p in prompts],
             "decode_steps": steps, "finite": True, "checks": results,
             "limit_reason": "f32: summation order; bf16: one-ulp differences "
-                            "in attention outputs carried through 26 layers"}
+                            "in attention and norm outputs carried through "
+                            "26 layers"}
 
 
 def serve_requests(cfg, seed):
@@ -350,17 +389,24 @@ def run_engine(eng, reqs):
 def phase_serve(cfg, eng):
     import torch
     from repro_torch.kernels.decode_attn import paged_decode_attn
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
     n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    n_norms = 2 * cfg.n_layers + 1
     run_engine(eng, [(p[:16], 4) for p, _ in serve_requests(cfg, 99)[:2]])
     reqs = serve_requests(cfg, 0)
     torch.cuda.reset_peak_memory_stats()
-    paged_decode_attn.launches = 0
-    eng.decode_steps = 0
+    paged_decode_attn.launches = rmsnorm_fwd.launches = 0
+    eng.decode_steps = eng.prefills = 0
     outs, wall = run_engine(eng, reqs)
     launches, steps = paged_decode_attn.launches, eng.decode_steps
+    norms, prefills = rmsnorm_fwd.launches, eng.prefills
     if launches == 0 or launches != n_attn * steps:
         raise AssertionError(f"serve: {launches} kernel launches for {steps} "
                              f"decode steps x {n_attn} attention layers")
+    if norms == 0 or norms != n_norms * (steps + prefills):
+        raise AssertionError(f"serve: {norms} rmsnorm launches for {steps} "
+                             f"decode steps + {prefills} prefills x "
+                             f"{n_norms} norms")
     for (p, n), toks in zip(reqs, outs):
         if toks.shape != (n,) or toks.min() < 0 \
                 or toks.max() >= cfg.padded_vocab:
@@ -370,23 +416,17 @@ def phase_serve(cfg, eng):
     return {"phase": "serve", "arch": cfg.name, "dtype": cfg.compute_dtype,
            "n_slots": N_SLOTS, "max_len": MAX_LEN, "block_size": BLOCK,
            "chunk": CHUNK, "requests": REQUESTS, "decode_steps": steps,
-           "attn_layers": n_attn, "launches": launches, "tokens": tokens,
+           "attn_layers": n_attn, "launches": launches,
+           "prefills": prefills, "rmsnorm_launches": norms, "tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def phase_serve_profile(cfg, eng):
-    """One more serve run under torch.profiler: device busy time (sum of
-    kernel times on the one stream) against the wall of an unprofiled run
-    of the same requests."""
+def device_summary(prof, wall_s, top_n):
+    """Device busy time (the sum of the kernels' times), idle share against
+    the unprofiled wall ``wall_s``, launches and the ``top_n`` kernels of
+    a torch.profiler run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    reqs = serve_requests(cfg, 0)
-    _, wall = run_engine(eng, reqs)
-    # device activity only: host events of a run this long take minutes
-    # to post-process
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall_prof = run_engine(eng, reqs)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -395,14 +435,29 @@ def phase_serve_profile(cfg, eng):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    return {"phase": "serve_profile", "wall_ms": wall * 1e3,
-            "wall_ms_profiled": wall_prof * 1e3, "device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / (wall * 1e3)
+    top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / (wall_s * 1e3)
                                   if busy_ms > 0 else None),
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "device_ms": dev_us(e) / 1e3} for e in top]}
+
+
+def phase_serve_profile(cfg, eng):
+    """One more serve run under torch.profiler: device busy time (sum of
+    kernel times on the one stream) against the wall of an unprofiled run
+    of the same requests."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = serve_requests(cfg, 0)
+    _, wall = run_engine(eng, reqs)
+    # device activity only: host events of a run this long take minutes
+    # to post-process
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = run_engine(eng, reqs)
+    return {"phase": "serve_profile", "wall_ms": wall * 1e3,
+            "wall_ms_profiled": wall_prof * 1e3,
+            **device_summary(prof, wall, 10)}
 
 
 def wagg_inputs(p, n, x_dtype, payload, mask, gen, dev):
@@ -710,7 +765,6 @@ def phase_train_profile(dev):
     """A fresh trainer: 2 warm-up rounds, 5 rounds unprofiled (wall), then
     5 under torch.profiler on device activity: busy time against that
     wall."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     rounds = 5
     tr, dataset = new_trainer(dev)
@@ -718,23 +772,429 @@ def phase_train_profile(dev):
     wall, _ = run_trainer(tr, dataset, rounds)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_prof, _ = run_trainer(tr, dataset, rounds)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {"phase": "train_profile", "rounds": rounds,
             "wall_ms": wall * 1e3, "wall_ms_profiled": wall_prof * 1e3,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / (wall * 1e3)
-                                  if busy_ms > 0 else None),
-            "kernel_launches": sum(e.count for e in kernels),
-            "top_kernels": [{"name": e.key[:90], "count": e.count,
-                             "device_ms": dev_us(e) / 1e3} for e in top]}
+            **device_summary(prof, wall, 12)}
+
+
+def rmsnorm_case(x, s, gen):
+    """One rmsnorm case: forward through the kernel against the plain
+    version; backward through the Function (kernel forward, PyTorch
+    backward) against autograd of the plain version, for the same output
+    cotangent. Returns the errors relative to max|plain|."""
+    import torch
+    from repro_torch.kernels.rmsnorm import (RMSNormFunction, rmsnorm_fwd,
+                                             rmsnorm_fwd_ref)
+    y, rstd = rmsnorm_fwd(x, s)
+    y_ref, rstd_ref = rmsnorm_fwd_ref(x, s)
+    g = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    grads = []
+    for fn in (lambda a, b: RMSNormFunction.apply(a, b, 1e-6)[0],
+               lambda a, b: rmsnorm_fwd_ref(a, b)[0]):
+        xa, sa = x.clone().requires_grad_(), s.clone().requires_grad_()
+        fn(xa, sa).backward(g)
+        grads.append((xa.grad, sa.grad))
+    torch.cuda.synchronize()
+    for name, t in (("y", y), ("rstd", rstd), ("dx", grads[0][0]),
+                    ("dscale", grads[0][1])):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"rmsnorm: non-finite {name}")
+    if y.dtype != x.dtype or y.shape != x.shape:
+        raise AssertionError(f"rmsnorm: output {y.shape} {y.dtype}")
+    return {"y": rel_err(y, y_ref), "rstd": rel_err(rstd, rstd_ref),
+            "dx": rel_err(grads[0][0], grads[1][0]),
+            "dscale": rel_err(grads[0][1], grads[1][1])}
+
+
+def phase_rmsnorm_check(dev):
+    """rmsnorm against its plain version over dtype x d x rows x groups:
+    d = 1152 (gemma3-1b), 2048 (stablelm-1.6b), 1000 (16-byte vectors) and
+    1001 (the one-element path); rows 1, 4, 2560 (one local step of the LM
+    run), 2561; G = 1 (one scale) or 4 (x (4, rows, d), a scale per
+    worker). Two cases start one element past an aligned base."""
+    import torch
+    from repro_torch.kernels.rmsnorm.rmsnorm import vector_width
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst, n_cases, paths = {}, 0, set()
+
+    def record(key, errs, dname):
+        nonlocal n_cases
+        for k, e in errs.items():
+            tol = (RMS_TOL[dname] if k in ("y", "rstd") else
+                   RMS_GRAD_TOL[dname] if k == "dx" else 1e-4)
+            if not e <= tol:
+                raise AssertionError(f"rmsnorm {key} {k}: rel_err {e} > {tol}")
+            worst[f"{dname}/{k}"] = max(worst.get(f"{dname}/{k}", 0.0), e)
+        n_cases += 1
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for d in (1152, 2048, 1000, 1001):
+            for rows in (1, 4, 2560, 2561):
+                for groups in (1, 4):
+                    shape = (rows, d) if groups == 1 else (groups, rows, d)
+                    x = torch.randn(shape, generator=gen, device=dev).to(dt)
+                    s = 1.0 + 0.5 * torch.randn(
+                        (d,) if groups == 1 else (groups, d), generator=gen,
+                        device=dev)
+                    paths.add((dname, d, vector_width(d, x)))
+                    record(f"{dname}/d{d}/rows{rows}/G{groups}",
+                           rmsnorm_case(x, s, gen), dname)
+                    del x, s
+        buf = torch.randn(4 * 1152 + 1, generator=gen, device=dev).to(dt)
+        x = buf[1:].view(4, 1152)
+        s = 1.0 + 0.5 * torch.randn(1152, generator=gen, device=dev)
+        paths.add((dname, "1152 unaligned", vector_width(1152, x)))
+        record(f"{dname}/unaligned", rmsnorm_case(x, s, gen), dname)
+    return {"phase": "rmsnorm_check", "cases": n_cases,
+            "d": [1152, 2048, 1000, 1001], "rows": [1, 4, 2560, 2561],
+            "groups": [1, 4], "paths": sorted(map(str, paths)),
+            "worst_rel_err": worst,
+            "tol": {"y/rstd": RMS_TOL, "dx": RMS_GRAD_TOL, "dscale": 1e-4},
+            "tol_reason": "rel. to max|plain|; y/rstd f32: order of the sum "
+                          "of squares; bf16 output: one ulp (2^-8); dx and "
+                          "dscale: the Function's formula against autograd "
+                          "of the plain ops, dscale summed over <= 2561 rows"}
+
+
+def norm_work(rows, d, x_bytes, groups):
+    """Bytes one call must move (x read, y written, the scales read, rstd
+    written) and its float32 operations (4 per element)."""
+    return 2 * rows * d * x_bytes + groups * d * 4 + rows * 4, 4 * rows * d
+
+
+def phase_rmsnorm_time(dev):
+    """rmsnorm at one local step of the LM run (x (4, 640, 1152) bf16, a
+    scale per worker: G = 4, the vmap rule's launch) and at a decode step
+    of the serve run (x (4, 1, 1152) bf16, one scale), each over working
+    sets that together exceed the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd, rmsnorm_fwd_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    d = 1152
+    res = {}
+    for name, xshape, groups, n_sets in (
+            ("train", (4, 640, d), 4, 16), ("decode", (4, 1, d), 1, 64)):
+        sets = [(torch.randn(xshape, generator=gen, device=dev)
+                 .to(torch.bfloat16),
+                 1.0 + 0.5 * torch.randn((groups, d) if groups > 1 else (d,),
+                                         generator=gen, device=dev))
+                for _ in range(n_sets)]
+        # the library call takes one weight (d,) in x's dtype
+        lib_w = [s.reshape(-1, d)[0].to(torch.bfloat16) for _, s in sets]
+
+        def kern(i):
+            return lambda: rmsnorm_fwd(*sets[i])
+
+        def plain(i):
+            return lambda: rmsnorm_fwd_ref(*sets[i])
+
+        def library(i):
+            return lambda: F.rms_norm(sets[i][0], (d,), lib_w[i], 1e-6)
+
+        idx = range(n_sets)
+        ms = graph_ms([kern(i) for i in idx], n_sets)
+        plain_ms = graph_ms([plain(i) for i in idx], n_sets)
+        library_ms = graph_ms([library(i) for i in idx], n_sets)
+        x, s = sets[0]
+        y, rstd = rmsnorm_fwd(x, s)
+        y_ref, _ = rmsnorm_fwd_ref(x, s)
+        err = assert_close(f"rmsnorm_time/{name}", y, y_ref,
+                           RMS_TOL["bfloat16"] * y_ref.float().abs().max())
+        rows = x.numel() // d
+        bytes_moved, flops = norm_work(rows, d, 2, groups)
+        t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_o = flops / F32_FLOP_PER_S * 1e3
+        res[name] = {"x": list(xshape), "dtype": "bfloat16", "groups": groups,
+                     "bytes": bytes_moved, "flops": flops,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "library": "F.rms_norm(x, (d,), one bf16 weight)",
+                     "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "working_sets": n_sets}
+        del sets, lib_w
+    return {"phase": "rmsnorm_time",
+            "method": "CUDA graph of one call per working set, 10 replays, "
+                      "CUDA events", **res}
+
+
+def phase_ce_check(dev):
+    """fused_ce against its plain version over V = 262,144 (gemma3-1b),
+    100,352 (stablelm-1.6b), 1000 and 1001 (the one-element path) x T = 1,
+    7, 2560: nll and lse, and the backward through the Function (kernel
+    forward, PyTorch backward) against autograd of the plain version. At
+    T = 7 two labels lie outside [0, V) (nll = lse). One case starts one
+    element past an aligned base."""
+    import torch
+    from repro_torch.kernels.fused_ce import (FusedCEFunction, fused_ce_fwd,
+                                              fused_ce_fwd_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    worst = {"nll": 0.0, "lse": 0.0, "dlogits": 0.0}
+    n_cases = 0
+
+    def case(logits, labels, key):
+        nonlocal n_cases
+        nll, lse = fused_ce_fwd(logits, labels)
+        nll_ref, lse_ref = fused_ce_fwd_ref(logits, labels)
+        g = torch.rand(labels.shape, generator=gen, device=dev)
+        grads = []
+        for fn in (lambda a: FusedCEFunction.apply(a, labels)[0],
+                   lambda a: fused_ce_fwd_ref(a, labels)[0]):
+            a = logits.clone().requires_grad_()
+            fn(a).backward(g)
+            grads.append(a.grad)
+            del a
+        torch.cuda.synchronize()
+        for name, out, ref, tol in (
+                ("nll", nll, nll_ref, CE_TOL["nll"]),
+                ("lse", lse, lse_ref, CE_TOL["nll"]),
+                ("dlogits", grads[0], grads[1], CE_TOL["dlogits"])):
+            worst[name] = max(worst[name], assert_close(
+                f"fused_ce {key} {name}", out, ref, tol))
+        outside = (labels < 0) | (labels >= logits.shape[-1])
+        if not torch.equal(nll[outside], lse[outside]):
+            raise AssertionError(f"fused_ce {key}: out-of-vocab label's nll "
+                                 f"is not its lse")
+        n_cases += 1
+
+    for v in (262144, 100352, 1000, 1001):
+        for t in (1, 7, 2560):
+            logits = 4.0 * torch.randn(t, v, generator=gen, device=dev)
+            labels = torch.randint(0, v, (t,), generator=gen, device=dev)
+            if t == 7:
+                labels[0], labels[1] = -1, v
+            case(logits, labels, f"V{v}/T{t}")
+            del logits, labels
+            torch.cuda.empty_cache()
+    buf = 4.0 * torch.randn(7 * 1000 + 1, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (7,), generator=gen, device=dev)
+    case(buf[1:].view(7, 1000), labels, "V1000/T7/unaligned")
+    return {"phase": "ce_check", "cases": n_cases,
+            "V": [262144, 100352, 1000, 1001], "T": [1, 7, 2560],
+            "worst_abs_err": worst, "tol": CE_TOL,
+            "tol_reason": "f32; nll/lse of order 20: the sum of exps over "
+                          "<= 262,144 terms in another order; dlogits in "
+                          "[-1, 1]: exp(l - lse) with lse differing in its "
+                          "last bits"}
+
+
+def phase_ce_time(dev):
+    """fused_ce at one local step of the LM run: 2560 x 262,144 float32
+    logits (2.68 GB, far past the L2)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_ce import fused_ce_fwd, fused_ce_fwd_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    t, v = LM["p"] * LM["b_local"] * LM["seq_len"], 262144
+    logits = 4.0 * torch.randn(t, v, generator=gen, device=dev)
+    labels = torch.randint(0, v, (t,), generator=gen, device=dev)
+    ms = graph_ms([lambda: fused_ce_fwd(logits, labels)], 4, replays=5)
+    plain_ms = graph_ms([lambda: fused_ce_fwd_ref(logits, labels)], 4,
+                        replays=5)
+    library_ms = graph_ms([lambda: F.cross_entropy(logits, labels.long(),
+                                                   reduction="none")], 4,
+                          replays=5)
+    nll, _ = fused_ce_fwd(logits, labels)
+    nll_ref, _ = fused_ce_fwd_ref(logits, labels)
+    lib = F.cross_entropy(logits, labels.long(), reduction="none")
+    err = assert_close("ce_time", nll, nll_ref, CE_TOL["nll"])
+    bytes_moved = t * v * 4 + t * 4 + 2 * t * 4
+    flops = 4 * t * v                     # max, subtract, exp, add
+    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_o = flops / F32_FLOP_PER_S * 1e3
+    return {"phase": "ce_time", "T": t, "V": v, "dtype": "float32",
+            "bytes": bytes_moved, "flops": flops, "max_abs_err": err,
+            "library_max_abs_err": (lib - nll_ref).abs().max().item(),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "F.cross_entropy(logits, labels, reduction='none')",
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "method": "CUDA graph of 4 calls, 5 replays, CUDA events"}
+
+
+def lm_batch_on(cfg, p, seed, dev):
+    """A (p, b_local, seq_len) batch of make_tokens' bigram language."""
+    import torch
+    from repro_torch.data import lm_batch
+    b = lm_batch(seed, p * LM["b_local"], LM["seq_len"], cfg.vocab_size)
+    return {k: torch.as_tensor(v).to(dev).reshape(p, LM["b_local"], -1)
+            for k, v in b.items()}
+
+
+def tree_sq(tree_a, tree_b=None):
+    """Per-worker squared L2 norm over the leaves of a worker-stacked tree
+    (of tree_a - tree_b when tree_b is given): (p,) float64."""
+    from repro_torch.tree import tree_leaves
+    la = tree_leaves(tree_a)
+    lb = tree_leaves(tree_b) if tree_b is not None else [None] * len(la)
+    total = 0.0
+    for a, b in zip(la, lb):
+        d = a.double() if b is None else a.double() - b.double()
+        total = total + d.reshape(d.shape[0], -1).square().sum(dim=1)
+    return total
+
+
+def phase_lm_agree(cfg, dev):
+    """One local step of full-width gemma3-1b on p = 2 workers (seq 640,
+    b_local 1), as the round takes it (``worker_grads`` of
+    ``train/step.py``: autograd through the vmapped loss over
+    worker-stacked params): per-worker losses and gradients through the
+    kernels and through the plain versions, on the same params and batch,
+    in f32 and bf16 compute. The kernels' path must launch each norm once
+    for both workers (the vmap rules) and fused_ce once."""
+    import functools
+    import torch
+    from repro_torch.configs import WASGDConfig
+    from repro_torch.core import replicate_workers
+    from repro_torch.kernels.fused_ce import fused_ce_fwd, fused_ce_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd, rmsnorm_ref
+    from repro_torch.models import init_params, loss_fn, param_axes
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.step import _round_parts
+    from repro_torch.tree import tree_leaves
+    p = LM_AGREE_P
+    base = init_params(cfg, seed=1, device=dev)
+    params, axes = replicate_workers(base, param_axes(base), p)
+    del base
+    mb = lm_batch_on(cfg, p, 1, dev)
+    n_norms = 2 * cfg.n_layers + 1
+    checks = []
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        out = {}
+        for path, kw in (("kernels", {}),
+                         ("plain", {"norm": rmsnorm_ref,
+                                    "ce": fused_ce_ref})):
+            parts = _round_parts(functools.partial(loss_fn, c, **kw),
+                                 make_optimizer("sgd", LM["lr"]), axes,
+                                 WASGDConfig(tau=1), p)
+            rmsnorm_fwd.launches = fused_ce_fwd.launches = 0
+            grads, losses = parts.worker_grads(params, mb)
+            torch.cuda.synchronize()
+            out[path] = (grads, losses,
+                         (rmsnorm_fwd.launches, fused_ce_fwd.launches))
+            del grads, losses
+        (gk, lk, nk), (gp, lp, npl) = out["kernels"], out["plain"]
+        if nk != (n_norms, 1) or npl != (0, 0):
+            raise AssertionError(f"lm_agree/{dtype}: launches (rmsnorm, "
+                                 f"fused_ce) {nk} through the kernels, {npl} "
+                                 f"through the plain versions; want "
+                                 f"({n_norms}, 1) and (0, 0)")
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in [lk, lp] + tree_leaves(gk))
+        loss_rel = ((lk - lp).abs() / lp.abs()).max().item()
+        grad_rel = (tree_sq(gk, gp) / tree_sq(gp)).sqrt().max().item()
+        if not (finite and loss_rel <= limit and grad_rel <= limit):
+            raise AssertionError(f"lm_agree/{dtype}: finite {finite}, loss "
+                                 f"rel_err {loss_rel}, grad rel_err "
+                                 f"{grad_rel} (limit {limit})")
+        checks.append({"compute_dtype": dtype, "losses": lk.tolist(),
+                       "loss_rel_err": loss_rel, "grad_rel_l2_err": grad_rel,
+                       "limit": limit, "launches_rmsnorm_fused_ce": list(nk)})
+        del out, gk, gp
+        torch.cuda.empty_cache()
+    return {"phase": "lm_agree", "arch": cfg.name, "p": p,
+            "b_local": LM["b_local"], "seq_len": LM["seq_len"],
+            "finite": True, "checks": checks,
+            "limit_reason": "per worker: loss relative error, and the L2 "
+                            "norm of the gradient difference over all "
+                            "leaves relative to the gradient's; f32: "
+                            "summation order through 26 layers; bf16: "
+                            "one-ulp differences of the norm outputs "
+                            "carried through 26 layers and the backward"}
+
+
+def lm_dataset(cfg):
+    from repro_torch.data import OrderedDataset, make_tokens
+    toks = make_tokens(0, LM["n_seq"], LM["seq_len"], cfg.vocab_size)
+    return OrderedDataset({"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+                          LM["p"], LM["tau"], LM["b_local"],
+                          n_segments=LM["n_segments"], seed=LM["order_seed"])
+
+
+def new_lm_trainer(cfg, dev):
+    from repro_torch.configs import TrainConfig, WASGDConfig
+    from repro_torch.models import init_params, param_axes
+    from repro_torch.train import Trainer, make_lm_loss
+    tcfg = TrainConfig(learning_rate=LM["lr"], optimizer="sgd",
+                       wasgd=WASGDConfig(tau=LM["tau"], beta=LM["beta"],
+                                         backend=LM["backend"]))
+    params = init_params(cfg, seed=0, device=dev)
+    return Trainer(make_lm_loss(cfg), params, param_axes(params), tcfg,
+                   LM["p"], rule="wasgd+", device=dev)
+
+
+def run_lm_rounds(tr, ds, batches, rounds, done):
+    """``rounds`` more rounds of ``tr`` over ``batches`` (one iterator of
+    ``ds`` for the whole run; ``done`` rounds came before). Returns wall
+    seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(batches, rounds, order_state=ds.order,
+           segment_fn=lambda r: ds.segment_of_round(r + done))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_lm_train(cfg, tr, ds, batches):
+    import torch
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.tree import tree_leaves
+    warm, rounds, tau = LM["warmup_rounds"], LM["rounds"], LM["tau"]
+    warm_s = run_lm_rounds(tr, ds, batches, warm, 0)
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_fwd.launches = fused_ce_fwd.launches = wagg_fused.launches = 0
+    wall = run_lm_rounds(tr, ds, batches, rounds, warm)
+    launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "fused_ce": fused_ce_fwd.launches,
+                "wagg_fused": wagg_fused.launches}
+    n_leaves = len(tree_leaves(tr.state.params))
+    want = {"rmsnorm": rounds * tau * (2 * cfg.n_layers + 1),
+            "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves}
+    if launches != want:
+        raise AssertionError(f"lm_train: launches {launches}, want {want}")
+    losses = tr.losses()
+    measured = losses[warm:]
+    if not (np.isfinite(losses).all() and measured[-1] < measured[0]):
+        raise AssertionError(f"lm_train: losses {losses}")
+    for x in tree_leaves(tr.state.params):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("lm_train: non-finite params")
+    theta = np.stack([h["theta"] for h in tr.history])
+    tokens = rounds * LM["p"] * tau * LM["b_local"] * LM["seq_len"]
+    return {"phase": "lm_train", "arch": cfg.name,
+            "params": sum(x[0].numel() for x in tree_leaves(tr.state.params)),
+            "compute_dtype": cfg.compute_dtype, **LM, "rule": "wasgd+",
+            "optimizer": "sgd", "launches": launches,
+            "worker_leaves": n_leaves, "seconds_per_round": wall / rounds,
+            "wall_s": wall, "warmup_s": warm_s, "tokens_per_s": tokens / wall,
+            "loss_first": float(measured[0]), "loss_last": float(measured[-1]),
+            "losses": [float(x) for x in losses],
+            "theta_min": float(theta.min()), "theta_max": float(theta.max()),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_lm_train_profile(cfg, tr, ds, batches):
+    """2 more rounds unprofiled (wall), then 2 under torch.profiler on
+    device activity: busy time against that wall, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    rounds = 2
+    done = LM["warmup_rounds"] + LM["rounds"]
+    wall = run_lm_rounds(tr, ds, batches, rounds, done)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_prof = run_lm_rounds(tr, ds, batches, rounds, done + rounds)
+    return {"phase": "lm_train_profile", "rounds": rounds,
+            "wall_ms": wall * 1e3, "wall_ms_profiled": wall_prof * 1e3,
+            **device_summary(prof, wall, 15)}
 
 
 def main():
@@ -768,6 +1228,11 @@ def main():
     timing = run_phase(phase_kernel_time, dev)
     run_phase(phase_wagg_check, dev)
     wagg_timing = run_phase(phase_wagg_time, dev)
+    run_phase(phase_rmsnorm_check, dev)
+    norm_timing = run_phase(phase_rmsnorm_time, dev)
+    run_phase(phase_ce_check, dev)
+    ce_timing = run_phase(phase_ce_time, dev)
+    torch.cuda.empty_cache()
 
     cfg = get_config(ARCH)
     params = init_params(cfg, seed=0, device=dev)          # float32
@@ -784,10 +1249,21 @@ def main():
     run_phase(phase_train_agree, dev)
     train = run_phase(phase_train, dev)
     run_phase(phase_train_profile, dev)
+    torch.cuda.empty_cache()
+
+    run_phase(phase_lm_agree, cfg, dev)
+    torch.cuda.empty_cache()
+    tr, ds = new_lm_trainer(cfg, dev), lm_dataset(cfg)
+    batches = ds.batches()
+    lm = run_phase(phase_lm_train, cfg, tr, ds, batches)
+    run_phase(phase_lm_train_profile, cfg, tr, ds, batches)
+    del tr
+    torch.cuda.empty_cache()
 
     t = timing["ring512"]
     w = wagg_timing["cnn6_round/none"]
-    lm = wagg_timing["lm_mlp_leaf/none"]
+    lm_leaf = wagg_timing["lm_mlp_leaf/none"]
+    nt = norm_timing["train"]
     emit({"kernels": [{
         "name": "paged_decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/"
@@ -806,8 +1282,34 @@ def main():
         "library": w["library"], "shape": w["leaves"],
         "note": "one call = one CNN6 round's aggregation (6 launches, "
                 "f32 x, no payload); lm_mlp_leaf: p=4 x 1152*6912 f32",
-        "lm_mlp_leaf": {k: lm[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}}]})
+        "lm_mlp_leaf": {k: lm_leaf[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+        "lm_train_launches": lm["launches"]["wagg_fused"]}, {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
+        "launches": lm["launches"]["rmsnorm"],
+        "max_abs_err": nt["max_abs_err"], "ms": nt["ms"],
+        "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
+        "bound_by": nt["bound_by"], "library_ms": nt["library_ms"],
+        "library": nt["library"], "shape": nt["x"],
+        "note": "one local step of the LM run: x (4, 640, 1152) bf16, a "
+                "scale per worker; launches from lm_train",
+        "decode": {k: norm_timing["decode"][k] for k in (
+            "x", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "serve_launches": serve["rmsnorm_launches"]}, {
+        "name": "fused_ce", "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
+        "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
+        "launches": lm["launches"]["fused_ce"],
+        "max_abs_err": ce_timing["max_abs_err"], "ms": ce_timing["ms"],
+        "plain_ms": ce_timing["plain_ms"], "bound_ms": ce_timing["bound_ms"],
+        "bound_by": ce_timing["bound_by"],
+        "library_ms": ce_timing["library_ms"],
+        "library": ce_timing["library"],
+        "shape": [ce_timing["T"], ce_timing["V"]],
+        "note": "one local step of the LM run: 2560 x 262144 f32 logits; "
+                "launches from lm_train"}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

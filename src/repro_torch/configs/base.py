@@ -1,6 +1,7 @@
 """The port's configs, with the same names, fields and defaults as
 ``repro/configs/base.py``: ``ModelConfig`` (the fields and predicates the
-dense serving path reads), ``WASGDConfig`` and ``TrainConfig``.
+dense serving and training paths read), ``WASGDConfig`` and
+``TrainConfig``.
 
 The MoE, SSM, cross-attention and codebook fields are kept so that a config
 can say what it is; the port's model raises ``NotImplementedError`` on any
@@ -17,6 +18,19 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    """The JAX fields that change only the schedule or the memory, not the
+    numbers, are kept so that every arch config carries over as it is:
+
+    * ``unroll_attn_scan`` and ``windowed_qblock`` pick how JAX's attention
+      walks the key blocks; the port takes the same ``flash_attention``
+      for every value.
+    * ``sharded_ce`` picks JAX's one-hot or gather form of the same
+      per-token CE; the port's ``loss_fn`` takes ``fused_ce`` for both.
+    * ``remat`` (True in every full config) recomputes each block in the
+      backward pass. ``torch.utils.checkpoint`` does not compose with the
+      ``torch.func.vmap``/``grad`` of the training round (its saved-tensor
+      hooks), so the port keeps every activation and does not raise on it.
+    """
     name: str
     family: str                       # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
@@ -44,8 +58,14 @@ class ModelConfig:
     # Numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    sharded_ce: bool = False            # JAX: one-hot CE form; the port's
+                                        # loss takes fused_ce either way
     tie_embeddings: bool = False
+    remat: bool = True                  # JAX: checkpoint each block; read,
+                                        # not applied, by the port (below)
     logits_softcap: float = 0.0
+    unroll_attn_scan: bool = False      # schedule only: same flash_attention
+    windowed_qblock: bool = False       # schedule only: same flash_attention
 
     source: str = ""
 

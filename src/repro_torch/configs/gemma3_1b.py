@@ -37,5 +37,6 @@ def smoke_config() -> ModelConfig:
         global_attn_every=2,
         tie_embeddings=True,
         logits_softcap=30.0,
+        remat=False,
         source=CONFIG.source,
     )

@@ -1,4 +1,6 @@
 from repro_torch.data.pipeline import OrderedDataset
-from repro_torch.data.synthetic import make_classification, make_images
+from repro_torch.data.synthetic import (lm_batch, make_classification,
+                                        make_images, make_tokens)
 
-__all__ = ["OrderedDataset", "make_classification", "make_images"]
+__all__ = ["OrderedDataset", "lm_batch", "make_classification", "make_images",
+           "make_tokens"]

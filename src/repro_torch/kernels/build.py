@@ -28,6 +28,8 @@ SOURCES: Dict[str, Path] = {
     "paged_decode_attn": _KERNELS / "decode_attn" / "csrc"
     / "paged_decode_attn.cu",
     "wagg_fused": _KERNELS / "wagg" / "csrc" / "wagg_fused.cu",
+    "rmsnorm": _KERNELS / "rmsnorm" / "csrc" / "rmsnorm.cu",
+    "fused_ce": _KERNELS / "fused_ce" / "csrc" / "fused_ce.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

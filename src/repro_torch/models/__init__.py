@@ -8,8 +8,11 @@ from repro_torch.models.transformer import (
     cast_params,
     check_dense,
     decode_step_paged,
+    forward,
     init_cache,
     init_params,
+    loss_fn,
+    param_axes,
     prefill,
 )
 
@@ -23,11 +26,14 @@ __all__ = [
     "cnn6_from_jax",
     "cnn6_to_jax",
     "decode_step_paged",
+    "forward",
     "init_cache",
     "init_cnn6",
     "init_mlp",
     "init_params",
+    "loss_fn",
     "mlp_apply",
+    "param_axes",
     "params_from_numpy",
     "prefill",
 ]

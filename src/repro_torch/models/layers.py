@@ -6,10 +6,16 @@ scale, half-split RoPE, SwiGLU.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.models.param import ParamBuilder
+
+# (x, scale, eps) -> y: the RMSNorm function a model call goes through
+NormFn = Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
 
 
 # -- RMSNorm -------------------------------------------------------------------
@@ -18,12 +24,14 @@ def rmsnorm_init(b: ParamBuilder, name: str, dim: int):
     b.scope(name).param("scale", (dim,), init="ones")
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    dtype = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"].float()).to(dtype)
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6,
+            norm: NormFn = rmsnorm_kernel) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` in x's dtype, the reduction
+    in float32. ``norm`` is the ``kernels.rmsnorm`` op (the CUDA kernel on
+    a CUDA tensor, its plain version on the CPU, differentiable also under
+    ``torch.func``); ``kernels.rmsnorm.rmsnorm_ref`` is the plain version
+    that ``chip_smoke.py`` holds it to."""
+    return norm(x, params["scale"], eps)
 
 
 # -- Rotary position embeddings --------------------------------------------------

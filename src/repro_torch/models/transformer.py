@@ -1,7 +1,8 @@
-"""Dense decoder serving path, the counterpart of the serving half of
-``repro/models/transformer.py``: ``init_params``, ``init_cache``,
-``prefill`` (:328), ``PagedKV``, ``cache_layout`` (:462) and
-``decode_step_paged`` (:511).
+"""Dense decoder, the counterpart of ``repro/models/transformer.py``: the
+training forward (``forward`` :149 over the dense branch of
+``_apply_layer`` :94, and ``loss_fn`` :178) and the serving path
+(``init_params``, ``init_cache``, ``prefill`` :328, ``PagedKV``,
+``cache_layout`` :462 and ``decode_step_paged`` :511).
 
 Only dense attention layers are ported: SSM, MoE, cross-attention and
 codebook configs raise ``NotImplementedError``.
@@ -13,6 +14,14 @@ would double it. Each function returns the structure it wrote.
 Parameters are cast to ``compute_dtype`` at every use, as in JAX; for a
 tensor already in that dtype the cast is free, so a caller may hold one
 compute-dtype copy of the weights (the serving engine does).
+
+Every RMSNorm goes through ``kernels.rmsnorm`` and the loss's per-token
+NLL through ``kernels.fused_ce``: the CUDA kernels on a CUDA tensor, their
+plain versions on the CPU. ``forward``, ``loss_fn`` and
+``decode_step_paged`` take the norm (and ``loss_fn`` the CE) as keyword
+arguments that default to the kernels; only ``chip_smoke.py``'s agreement
+phases pass the plain versions. The training forward keeps every
+activation: JAX's ``remat`` is read but not applied (``configs/base.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attn.ops import paged_decode_attention
 from repro_torch.kernels.decode_attn.paged import paged_decode_attn
+from repro_torch.kernels.fused_ce import fused_ce
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.models import layers as L
 from repro_torch.models.attention import KVCache, attention_init, flash_attention
 from repro_torch.models.param import ParamBuilder, build
@@ -72,6 +83,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                  resolve_device(device))
 
 
+def param_axes(params: Dict) -> Dict:
+    """The axes tree the ``Trainer`` takes with ``params``: no named axis on
+    any leaf, so ``core.replicate_workers`` gives every leaf the worker
+    axis (a dense model has no expert leaves to keep single-copy)."""
+    if isinstance(params, dict):
+        return {k: param_axes(v) for k, v in params.items()}
+    return (None,) * params.dim()
+
+
 def cast_params(params: Dict, dtype: torch.dtype, device=None) -> Dict:
     """The tree on ``device`` (when given) with every matrix in ``dtype``:
     the leaves the model casts to ``compute_dtype`` at use. Vectors (the
@@ -106,19 +126,69 @@ def _qkv(ap: Dict, h: torch.Tensor, rope, dt: torch.dtype):
 
 
 def _ffn_and_out(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
-                 dt: torch.dtype) -> torch.Tensor:
+                 dt: torch.dtype, norm: L.NormFn) -> torch.Tensor:
     if "mlp" in lp:
-        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps),
-                      dt)
+        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps,
+                                           norm), dt)
     return x
 
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
-            dt: torch.dtype) -> torch.Tensor:
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            dt: torch.dtype, norm: L.NormFn) -> torch.Tensor:
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, norm)
     if cfg.tie_embeddings:
         return L.tied_head(params["embed"], x, dt, cfg.logits_softcap)
     return L.head(params["head"], x, dt, cfg.logits_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Training / scoring forward
+# ---------------------------------------------------------------------------
+
+def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, rope, i: int,
+                 dt: torch.dtype, norm: L.NormFn) -> torch.Tensor:
+    """The dense branch of JAX's ``_apply_layer``: causal self-attention
+    over the whole sequence (the layer's window, if any), then the gated
+    MLP, each behind its RMSNorm and residual."""
+    h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+    q, k, v = _qkv(lp["attn"], h, rope, dt)
+    att = flash_attention(q, k, v, causal=True, window=cfg.window_for_layer(i))
+    x = x + _out(att, lp["attn"]["wo"].to(dt))
+    return _ffn_and_out(cfg, lp, x, dt, norm)
+
+
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            norm: L.NormFn = rmsnorm_kernel
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (b, s) -> (logits (b, s, V) in ``compute_dtype``, the MoE
+    auxiliary loss, zero for a dense model), as JAX's ``forward``. 2 norms
+    a layer and the final one: 2 * n_layers + 1 calls of ``norm``."""
+    check_dense(cfg)
+    dt = dtype_of(cfg.compute_dtype)
+    x = L.embed(params["embed"], tokens, dt)
+    b, s = tokens.shape
+    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
+                         cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = _apply_layer(cfg, params["layers"][f"L{i}"], x, rope, i, dt, norm)
+    moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x, dt, norm), moe_loss
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
+            norm: L.NormFn = rmsnorm_kernel,
+            ce: Callable = fused_ce) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy of ``batch`` (``tokens``, ``labels``, both
+    (b, s)), as JAX's ``loss_fn``: (loss, {"ce", "moe_loss"}). The logits
+    are widened to float32 and ``ce`` (default: the ``fused_ce`` kernel;
+    ``kernels.fused_ce.fused_ce_ref`` is its plain version) gives each
+    token's ``logsumexp - label logit``. JAX's two CE forms
+    (``cfg.sharded_ce``: one-hot contraction, or ``log_softmax`` and a
+    gather) are that same function, so both take ``ce`` here."""
+    logits, moe_loss = forward(cfg, params, batch["tokens"], norm=norm)
+    nll = ce(logits.float(), batch["labels"])
+    loss_ce = nll.mean()
+    return loss_ce + moe_loss, {"ce": loss_ce, "moe_loss": moe_loss}
 
 
 # ---------------------------------------------------------------------------
@@ -169,9 +239,9 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         else:
             kv.k[:, :s] = k.to(kv.k.dtype)
             kv.v[:, :s] = v.to(kv.v.dtype)
-        x = _ffn_and_out(cfg, lp, x, dt)
+        x = _ffn_and_out(cfg, lp, x, dt, rmsnorm_kernel)
 
-    return _logits(cfg, params, x[:, -1:], dt), cache
+    return _logits(cfg, params, x[:, -1:], dt, rmsnorm_kernel), cache
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +294,8 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                       pools: Dict, tables: Dict, index: torch.Tensor,
                       active: Optional[torch.Tensor] = None, *,
                       max_len: int, block_size: int = 16,
-                      attn_kernel: Callable = paged_decode_attn
+                      attn_kernel: Callable = paged_decode_attn,
+                      norm: L.NormFn = rmsnorm_kernel
                       ) -> Tuple[torch.Tensor, Dict]:
     """One decode step against the paged cache; rows are independent
     requests at independent positions.
@@ -261,17 +332,18 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                  torch.full_like(pb, kv.k.shape[0] - 1))
             writes[al["group"]] = (pb, torch.remainder(slot, block_size))
         pb, off = writes[al["group"]]
-        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
         q, k, v = _qkv(lp["attn"], h, rope, dt)
         kv.k[pb, off] = k[:, 0].to(kv.k.dtype)
         kv.v[pb, off] = v[:, 0].to(kv.v.dtype)
         att = paged_decode_attention(q, kv.k, kv.v, table, index, ring=ring,
                                      window=al["window"], kernel=attn_kernel)
         x = x + _out(att, lp["attn"]["wo"].to(dt))
-        x = _ffn_and_out(cfg, lp, x, dt)
+        x = _ffn_and_out(cfg, lp, x, dt, norm)
 
-    return _logits(cfg, params, x, dt), pools
+    return _logits(cfg, params, x, dt, norm), pools
 
 
 __all__ = ["KVCache", "PagedKV", "cache_layout", "cast_params", "check_dense",
-           "decode_step_paged", "init_cache", "init_params", "prefill"]
+           "decode_step_paged", "forward", "init_cache", "init_params",
+           "loss_fn", "param_axes", "prefill"]

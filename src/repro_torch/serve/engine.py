@@ -117,6 +117,7 @@ class ContinuousEngine:
         self.scheduler = Scheduler(n_slots)
         self.tokens_generated = 0
         self.decode_steps = 0
+        self.prefills = 0                # batched prefill calls
         self.n_swaps = 0
         self.eos_id = eos_id
         self.seed = seed
@@ -211,6 +212,7 @@ class ContinuousEngine:
                 np.stack([r.prompt for r in group])).to(dev)
             logits, mono = prefill(self.cfg, self.params, prompts,
                                    self._mono_scratch[(k, bucket)])
+            self.prefills += 1
             for i, r in enumerate(group):
                 self.cache.write_prefill(r.slot, mono, n_prompt, row=i)
             slots = [r.slot for r in group]

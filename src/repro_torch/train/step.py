@@ -6,10 +6,10 @@ communication, the counterpart of ``repro/train/step.py``.
 Shape contract: every batch leaf has leading dim B = p * tau * b_local,
 laid out worker-major; it is reshaped to (p, tau, b_local, ...) and then
 swapped to (tau, p, b_local, ...), so step t hands worker w its own
-samples. Per-worker gradients come from ``torch.func.vmap`` of
-``grad_and_value`` over the worker-stacked parameters: each worker's
-gradient of its own loss (the JAX package takes the gradient of the mean
-over workers and scales it by p; the two agree up to rounding).
+samples. Per-worker gradients come from autograd through
+``torch.func.vmap`` of the loss over the worker-stacked parameters: each
+worker's gradient of its own loss (the JAX package takes the gradient of
+the mean over workers and scales it by p; the two agree up to rounding).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import types
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import vmap
 
 from repro_torch.core import aggregate as agg
 from repro_torch.core import backends
@@ -26,7 +26,7 @@ from repro_torch.core.order import judge_scores
 from repro_torch.core.weights import omega, policy_from_config, theta_entropy
 from repro_torch.optim import Optimizer
 from repro_torch.train.state import TrainState
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_assign, tree_leaves, tree_map
 
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]
 
@@ -69,17 +69,33 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
     in_dims = agg.worker_in_axes(axes)
     tau = wcfg.tau
     mask = record_mask(tau, wcfg.m_estimate, wcfg.record_chunks)
-    grad_fn = vmap(grad_and_value(loss_fn, has_aux=True),
-                   in_dims=(in_dims, 0))
+    worker_losses = vmap(loss_fn, in_dims=(in_dims, 0))
 
     def worker_grads(params, mb):
-        """Per-worker gradients and losses (p,). A shared leaf (no worker
-        axis) takes the mean of the workers' gradients, as the gradient of
-        the mean loss gives it in the JAX package."""
-        grads, (losses, _) = grad_fn(params, mb)
-        grads = tree_map(lambda g, d: g if d == 0 else g.mean(dim=0), grads,
-                         in_dims)
-        return grads, losses
+        """Per-worker gradients and losses (p,). Autograd runs through the
+        vmapped loss: worker w's loss reads only worker w's slice of a
+        worker leaf, so the gradient of the summed losses holds each
+        worker's own gradient. A shared leaf (no worker axis) receives the
+        sum of the workers' gradients, divided by p: their mean, as the
+        gradient of the mean loss gives it in the JAX package.
+        (``vmap(torch.func.grad_and_value(loss))`` gives the same
+        gradients, but runs its backward with ``create_graph=True``, which
+        keeps the backward's intermediates alive until it ends: the
+        gemma3-1b round of ``chip_smoke.py`` peaks at 72 GiB on an H100
+        that way, at 45 GiB this way.)"""
+        with torch.enable_grad():
+            tracked = tree_map(lambda x: x.detach().requires_grad_(),
+                               params)
+            losses, _ = worker_losses(tracked, mb)
+            flat = iter(torch.autograd.grad(
+                losses.sum(), tree_leaves(tracked), allow_unused=True))
+
+        def grad_of(x, d):
+            g = next(flat)
+            g = torch.zeros_like(x) if g is None else g
+            return g if d == 0 else g / n_workers
+
+        return tree_map(grad_of, tracked, in_dims), losses.detach()
 
     def reshape_batch(batch):
         def r(x):
@@ -110,14 +126,24 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
 
     def run_scan(state, mb):
         """tau local steps; returns (params, opt_state, energy) and the
-        (tau,) per-step mean losses."""
+        (tau,) per-step mean losses. Each step's new parameters replace
+        the leaves of the ``state.params`` dicts (no tensor is written
+        in place): the round consumes its input state, as the JAX Trainer
+        donates it to the jitted step (``donate_argnums=(0,)``). Otherwise
+        the round-start parameters and the previous step's gradients
+        would stay alive through every later step, two more copies of
+        the worker-stacked parameters."""
         params, opt_state, energy = (state.params, state.opt_state,
                                      state.energy)
         step_losses = []
         for t in range(tau):
             grads, losses = worker_grads(params,
                                          tree_map(lambda x: x[t], mb))
-            params, opt_state = optimizer.update(grads, opt_state, params)
+            new_params, opt_state = optimizer.update(grads, opt_state,
+                                                     params)
+            del grads
+            tree_assign(params, new_params)
+            del new_params
             if mask[t]:
                 energy = energy + losses
             step_losses.append(losses.mean())
