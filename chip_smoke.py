@@ -6,9 +6,11 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel to its plain PyTorch version on the card, times them, serves
 full-width gemma3-1b (random weights from a seed) through
-``ContinuousEngine``, trains the paper's CNN6 and then full-width,
-full-depth gemma3-1b with synchronous WASGD+ through ``Trainer.run``, and
-checks that the served and the trained paths went through their kernels.
+``ContinuousEngine`` and the legacy ``ServeEngine``, serves full-width
+mamba2-370m through ``ContinuousEngine``, trains the paper's CNN6 and then
+full-width, full-depth gemma3-1b with synchronous WASGD+ through
+``Trainer.run``, and checks that the served and the trained paths went
+through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -28,12 +30,31 @@ Prints one JSON object per phase:
                 V x T, out-of-vocab labels and unaligned rows
   ce_time       fused_ce, plain version, F.cross_entropy and bound at one
                 local step's gemma3-1b logits
+  decode_attn_check  decode_attn vs its plain version over g x hd, S,
+                dtypes, cache_len and window
+  decode_attn_time   decode_attn, plain version, SDPA and bound at the
+                legacy serve run's two cache shapes
+  ssd_check     ssd_chunk vs its plain version (dtypes, widths, padded
+                tails, steep decay) and ssd_chunked_kernel vs ssd_chunked
+  ssd_time      ssd_chunk, plain version and bound at mamba2-370m's
+                prefill shapes (b 1 and b 4, 512 tokens)
   agree         full-width decode steps through the kernels vs through the
                 plain versions: logits agree, all finite
+  legacy_agree  full-width decode_step (monolithic cache) through
+                decode_attn and rmsnorm vs the plain versions; ServeEngine
+                and ContinuousEngine greedy tokens equal in f32
   serve         ContinuousEngine on gemma3-1b: tokens, tokens/s, peak memory,
                 launches == 26 x decode steps (paged_decode_attn) and 53 x
                 (decode steps + prefills) (rmsnorm)
   serve_profile device busy time and idle share of a serve run (profiler)
+  legacy_serve  ServeEngine on gemma3-1b, 4 x 480 tokens + 96 new: tokens/s,
+                launches == 26 x decode steps (decode_attn)
+  ssm_agree     full-width mamba2-370m prefill and paged decode through
+                ssd_chunk and rmsnorm vs the plain versions; 48 ssd_chunk
+                launches a prefill
+  ssm_serve     ContinuousEngine on mamba2-370m: tokens/s, peak memory,
+                launches == 48 x prefills (ssd_chunk)
+  ssm_serve_profile  device busy time, idle share and top kernels
   train_agree   one CNN6 round through pallas_wagg vs through einsum, in
                 the f32 and int8 codecs: params agree
   train         Trainer.run, WASGD+, CNN6 at its published width, p=8,
@@ -102,6 +123,13 @@ RMS_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # fused_ce vs its plain version, absolute: nll and lse of order 20 summed
 # over up to 262,144 terms in another order; dlogits lie in [-1, 1]
 CE_TOL = {"nll": 1e-4, "dlogits": 1e-5}
+# the legacy ServeEngine on gemma3-1b: 4 prompts of 480 tokens, 96 new; the
+# local layers' 512-token ring wraps
+LEGACY = {"b": 4, "prompt": 480, "n_new": 96, "max_len": 1024}
+# mamba2-370m served through ContinuousEngine with the settings above
+SSM_ARCH = "mamba2-370m"
+# ssd_chunk vs its plain version, relative to max|plain|
+SSD_TOL = 1e-5
 
 
 def emit(obj):
@@ -132,9 +160,11 @@ def ptxas_summary(lines):
     for ln in lines:
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            start = max(name.find("paged_decode"), name.find("wagg_fused"),
-                        name.find("rmsnorm_kernel"),
-                        name.find("fused_ce_kernel"), 0)
+            starts = [name.find(k) for k in (
+                "paged_decode", "decode_partial", "decode_combine",
+                "wagg_fused", "rmsnorm_kernel", "fused_ce_kernel",
+                "ssd_chunk_kernel")]
+            start = next((i for i in starts if i >= 0), 0)
             entry = name[start:name.find("EvPK")]
         elif "Used" in ln and entry is not None:
             out.append([entry, ln.split(":", 1)[1].strip()])
@@ -1197,6 +1227,616 @@ def phase_lm_train_profile(cfg, tr, ds, batches):
             **device_summary(prof, wall, 15)}
 
 
+# -- decode_attn (contiguous cache) and the legacy ServeEngine ---------------
+
+def decode_inputs(b, S, kv, g, hd, q_dtype, kv_dtype, gen, dev):
+    import torch
+    q = torch.randn(b, kv, g, hd, generator=gen, device=dev).to(q_dtype)
+    k = torch.randn(b, S, kv, hd, generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn(b, S, kv, hd, generator=gen, device=dev).to(kv_dtype)
+    return q, k, v
+
+
+def phase_decode_attn_check(dev):
+    """decode_attn against its plain version over g x hd, S (512, and 1000:
+    no multiple of the split), dtypes, cache_len (1, mid-cache, S) and a
+    window; one case reads cache_len from device memory."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    worst = {}
+    n_cases = 0
+    b, kv = 3, 2
+    for g, hd in ((1, 64), (4, 256), (8, 128)):
+        for S in (512, 1000):
+            for qd, kd in ((torch.bfloat16, torch.bfloat16),
+                           (torch.float32, torch.bfloat16),
+                           (torch.float32, torch.float32)):
+                q, k, v = decode_inputs(b, S, kv, g, hd, qd, kd, gen, dev)
+                for cache_len in (1, S // 2 + 3, S):
+                    for window in (None, 100):
+                        out = decode_attn(q, k, v, cache_len, window=window)
+                        ref = decode_attn_ref(q, k, v, cache_len,
+                                              window=window)
+                        torch.cuda.synchronize()
+                        key = str(qd).split(".")[1]
+                        name = (f"g{g}_hd{hd}_S{S}_len{cache_len}_w{window}_"
+                                f"{key}/{str(kd).split('.')[1]}")
+                        worst[key] = max(worst.get(key, 0.0), assert_close(
+                            name, out, ref, TOL[key]))
+                        n_cases += 1
+    q, k, v = decode_inputs(b, 1000, kv, 4, 256, torch.bfloat16,
+                            torch.bfloat16, gen, dev)
+    out = decode_attn(q, k, v, torch.tensor(777, dtype=torch.int32,
+                                            device=dev), window=300)
+    ref = decode_attn_ref(q, k, v, 777, window=300)
+    worst["bfloat16"] = max(worst["bfloat16"], assert_close(
+        "device_cache_len", out, ref, TOL["bfloat16"]))
+    return {"phase": "decode_attn_check", "cases": n_cases + 1,
+            "b": b, "kv": kv, "g_hd": [[1, 64], [4, 256], [8, 128]],
+            "S": [512, 1000], "worst_abs_err": worst, "tol": TOL,
+            "tol_reason": "bf16 output: one bf16 ulp of a value below 4 is "
+                          "at most 2^-6; f32: summation order over <= 1000 "
+                          "positions"}
+
+
+def decode_work(b, kv, g, hd, cache_len, elem):
+    """Bytes one call must move (q read and the output written, the valid
+    K and V rows read once) and its operations (q.k and p.v)."""
+    return (2 * b * kv * g * hd * elem + 2 * b * cache_len * kv * hd * elem,
+            4 * b * cache_len * kv * g * hd)
+
+
+def phase_decode_attn_time(dev):
+    """decode_attn at the legacy serve run's two shapes (gemma3-1b, b = 4,
+    bf16): a local layer's 512-position ring, full after the wrap, and a
+    global layer's 1024-position cache at a mid-run cache_len of 528; the
+    plain version and SDPA on the same caches with the same boolean mask
+    (K/V expanded to the query heads)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    b, kv, g, hd = LEGACY["b"], 1, 4, 256
+    n_sets = 32
+    res = {}
+    for layer, S, cache_len in (("ring512", 512, 512),
+                                ("global1024", 1024, 528)):
+        sets = [decode_inputs(b, S, kv, g, hd, torch.bfloat16,
+                              torch.bfloat16, gen, dev)
+                for _ in range(n_sets)]
+        mask = (torch.arange(S, device=dev) < cache_len)[None, None, None]
+        lib_sets = [(q.reshape(b, kv * g, 1, hd),
+                     k.transpose(1, 2).expand(b, kv * g, S, hd).contiguous(),
+                     v.transpose(1, 2).expand(b, kv * g, S, hd).contiguous())
+                    for q, k, v in sets]
+
+        def kern(s):
+            return lambda: decode_attn(*s, cache_len)
+
+        def plain(s):
+            return lambda: decode_attn_ref(*s, cache_len)
+
+        def library(s):
+            return lambda: F.scaled_dot_product_attention(*s, attn_mask=mask)
+
+        ms = graph_ms([kern(s) for s in sets], n_sets)
+        plain_ms = graph_ms([plain(s) for s in sets], n_sets)
+        library_ms = graph_ms([library(s) for s in lib_sets], n_sets)
+        out = decode_attn(*sets[0], cache_len)
+        ref = decode_attn_ref(*sets[0], cache_len)
+        lib = F.scaled_dot_product_attention(*lib_sets[0], attn_mask=mask)
+        err = assert_close(f"decode_attn_time/{layer}", out, ref,
+                           TOL["bfloat16"])
+        lib_err = (lib.reshape(out.shape).float() - ref.float()).abs().max()
+        bytes_moved, flops = decode_work(b, kv, g, hd, cache_len, 2)
+        t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_o = flops / F32_FLOP_PER_S * 1e3
+        res[layer] = {
+            "shape": {"b": b, "kv": kv, "g": g, "hd": hd, "S": S,
+                      "cache_len": cache_len, "dtypes": "bfloat16/bfloat16"},
+            "bytes": bytes_moved, "flops": flops, "max_abs_err": err,
+            "library_max_abs_err": float(lib_err), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(boolean mask, K/V "
+                       "expanded)",
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "working_sets": n_sets}
+        del sets, lib_sets
+    return {"phase": "decode_attn_time",
+            "method": "CUDA graph of 32 calls on 32 distinct working sets "
+                      "(> 50 MB L2), 10 replays, CUDA events", **res}
+
+
+def phase_legacy_agree(cfg, params_f32, dev):
+    """A few full-width decode_step steps of gemma3-1b on the monolithic
+    cache through the kernels (decode_attn, rmsnorm) and through their
+    plain versions, on the same caches and tokens, in f32 and bf16; then
+    the two engines in f32 on one 480-token prompt: ServeEngine's greedy
+    tokens must equal ContinuousEngine's."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.models import cast_params, decode_step, init_cache, \
+        prefill
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    # 608 tokens at the real size: past the 512-token ring
+    steps, b, s = 4, 2, LEGACY["prompt"] + LEGACY["max_len"] // 8
+    rng = np.random.default_rng(4)
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+    feed = rng.integers(0, cfg.vocab_size, (steps, b, 1)).astype(np.int32)
+    checks = []
+    n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    for dtype, limit in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        c = dataclasses.replace(cfg, compute_dtype=str(dtype).split(".")[1])
+        params = cast_params(params_f32, dtype)
+        caches = [init_cache(c, b, LEGACY["max_len"], dtype, dev)
+                  for _ in range(2)]
+        for cache in caches:
+            prefill(c, params, prompt, cache)
+        worst = 0.0
+        decode_attn.launches = 0
+        for t in range(steps):
+            tok = torch.from_numpy(feed[t]).to(dev)
+            lg = [decode_step(c, params, tok, cache, s + t, attn=attn,
+                              norm=norm)[0].float()
+                  for cache, attn, norm in zip(
+                      caches, (decode_attn, decode_attn_ref),
+                      (rmsnorm, rmsnorm_ref))]
+            if not all(bool(torch.isfinite(x).all()) for x in lg):
+                raise AssertionError(f"legacy_agree/{dtype}: non-finite")
+            if lg[0].shape != (b, 1, cfg.padded_vocab):
+                raise AssertionError(f"legacy_agree: shape {lg[0].shape}")
+            worst = max(worst, ((lg[0] - lg[1]).abs().max()
+                                / lg[1].abs().max()).item())
+        if decode_attn.launches != n_attn * steps:
+            raise AssertionError(f"legacy_agree: {decode_attn.launches} "
+                                 f"decode_attn launches, want "
+                                 f"{n_attn * steps}")
+        if not worst <= limit:
+            raise AssertionError(f"legacy_agree/{dtype}: rel_err {worst} > "
+                                 f"{limit}")
+        checks.append({"dtype": str(dtype).split(".")[1], "rel_err": worst,
+                       "limit": limit})
+        del params, caches
+        torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p0 = prompt[:1].cpu().numpy()[:, :LEGACY["prompt"]]
+    n_new = 16
+    legacy = ServeEngine(c32, params_f32, max_len=LEGACY["max_len"],
+                         cache_dtype=torch.float32, device=dev)
+    toks_legacy = legacy.generate(p0, n_new)[0]
+    del legacy
+    cont = ContinuousEngine(c32, params_f32, n_slots=1,
+                            max_len=LEGACY["max_len"], block_size=BLOCK,
+                            cache_dtype=torch.float32, chunk=CHUNK,
+                            device=dev)
+    toks_cont = cont.generate(p0, n_new)[0]
+    del cont
+    torch.cuda.empty_cache()
+    if not np.array_equal(toks_legacy, toks_cont):
+        raise AssertionError(f"legacy_agree: f32 engines differ: "
+                             f"{toks_legacy} vs {toks_cont}")
+    return {"phase": "legacy_agree", "arch": cfg.name, "batch": b,
+            "prompt": s, "decode_steps": steps, "finite": True,
+            "checks": checks, "engines_f32": {
+                "prompt": LEGACY["prompt"], "n_new": n_new,
+                "tokens_equal": True, "tokens": toks_legacy.tolist()},
+            "limit_reason": "f32: summation order; bf16: one-ulp differences "
+                            "in attention and norm outputs carried through "
+                            "26 layers"}
+
+
+def phase_legacy_serve(cfg, params, cont_eng, dev):
+    """ServeEngine.generate on gemma3-1b at full width and depth, bf16:
+    b = 4 prompts of 480 tokens, 96 new, max_len 1024 (the local layers'
+    512-token ring wraps). decode_attn launches == 26 x decode steps. Row
+    0's greedy tokens against ContinuousEngine's for the same prompt, as
+    a matching prefix: bf16 prefill at batch 4 and batch 1 differ in
+    their last bits, which can flip a near-tie of random weights."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.serve import ServeEngine
+    b, n_prompt, n_new = LEGACY["b"], LEGACY["prompt"], LEGACY["n_new"]
+    n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    n_norms = 2 * cfg.n_layers + 1
+    eng = ServeEngine(cfg, params, max_len=LEGACY["max_len"], device=dev)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (b, n_prompt)).astype(np.int32)
+    eng.generate(prompts[:, :16], 4)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_attn.launches = rmsnorm_fwd.launches = 0
+    eng.decode_steps = eng.prefills = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = decode_attn.launches, eng.decode_steps
+    norms = rmsnorm_fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if steps != n_new - 1 or launches != n_attn * steps:
+        raise AssertionError(f"legacy_serve: {launches} decode_attn launches "
+                             f"for {steps} decode steps x {n_attn} layers")
+    if norms != n_norms * (steps + 1):
+        raise AssertionError(f"legacy_serve: {norms} rmsnorm launches")
+    if toks.shape != (b, n_new) or toks.min() < 0 \
+            or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"legacy_serve: bad output {toks.shape}")
+    cont = cont_eng.generate(prompts[:1], n_new)[0]
+    agree = int(np.argmax(np.append(toks[0] != cont, True)))
+    return {"phase": "legacy_serve", "arch": cfg.name,
+            "dtype": cfg.compute_dtype, "batch": b, "prompt": n_prompt,
+            "n_new": n_new, "max_len": LEGACY["max_len"],
+            "decode_steps": steps, "attn_layers": n_attn,
+            "launches": launches, "rmsnorm_launches": norms,
+            "tokens": int(toks.size), "wall_s": wall,
+            "tokens_per_s": toks.size / wall, "peak_mem_gib": peak,
+            "row0_prefix_equal_to_continuous": agree,
+            "row0_tokens_first8": toks[0, :8].tolist(),
+            "continuous_tokens_first8": cont[:8].tolist()}
+
+
+# -- ssd_chunk and mamba2-370m serving ----------------------------------------
+
+def ssd_inputs(b, nc, L, nh, hd, ds, x_dtype, gen, dev, pad_tail=0):
+    """xs, B, C in ``x_dtype``; dt > 0 and a < 0 in f32, as prefill gives
+    them; the last ``pad_tail`` steps padded as prefill pads (dt = 0)."""
+    import torch
+    xs = torch.randn(b, nc, L, nh, hd, generator=gen, device=dev)
+    dt = 0.01 + 0.3 * torch.rand(b, nc, L, nh, generator=gen, device=dev)
+    a = -torch.exp(2 * torch.rand(nh, generator=gen, device=dev) - 1)
+    B = torch.randn(b, nc, L, ds, generator=gen, device=dev)
+    C = torch.randn(b, nc, L, ds, generator=gen, device=dev)
+    if pad_tail:
+        for t in (xs, dt, B, C):
+            t[:, -1, L - pad_tail:] = 0
+    return xs.to(x_dtype), dt, a, B.to(x_dtype), C.to(x_dtype)
+
+
+def rel_close(name, out, ref, tol):
+    """max|out - ref| / max|ref| <= tol, all finite."""
+    import torch
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max().clamp(min=1e-30)).item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: rel_err {err} > {tol}")
+    return err
+
+
+def phase_ssd_check(dev):
+    """ssd_chunk against its plain version over f32/bf16 inputs, smoke and
+    full widths, padded tails and a steep decay; ssd_chunked_kernel (the
+    kernel plus the inter-chunk recurrence) against the plain ssd_chunked
+    at full width with and without an init_state."""
+    import torch
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk, ssd_chunk_ref,
+                                               ssd_chunked_kernel)
+    from repro_torch.models import ssd_chunked
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    worst = 0.0
+    n_cases = 0
+    shapes = [(2, 3, 16, 8, 32, 16),      # mamba2 smoke: L 16, hd 32, ds 16
+              (1, 8, 64, 32, 64, 128),    # mamba2-370m, a 512-token prompt
+              (2, 2, 32, 4, 128, 64)]     # the other L and hd the kernel takes
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for pad in (0, 7):
+                args = ssd_inputs(*shape, dtype, gen, dev, pad_tail=pad)
+                outs, refs = ssd_chunk(*args), ssd_chunk_ref(*args)
+                torch.cuda.synchronize()
+                for part, o, r in zip(("y", "states", "totals"), outs, refs):
+                    worst = max(worst, rel_close(
+                        f"ssd_chunk {shape} {dtype} pad{pad} {part}", o, r,
+                        SSD_TOL))
+                n_cases += 1
+    steep = list(ssd_inputs(1, 2, 64, 4, 64, 128, torch.float32, gen, dev))
+    steep[1].fill_(10.0)
+    steep[2].fill_(-3.0)                  # exp(+30 per step) above the diagonal
+    for part, o, r in zip(("y", "states", "totals"), ssd_chunk(*steep),
+                          ssd_chunk_ref(*steep)):
+        worst = max(worst, rel_close(f"ssd_chunk steep {part}", o, r,
+                                     SSD_TOL))
+    n_cases += 1
+    b, s, nh, hd, ds, L = 2, 512, 32, 64, 128, 64
+    for dtype, with_init in ((torch.bfloat16, False), (torch.float32, True)):
+        xs, dt, a, B, C = ssd_inputs(b, s // L, L, nh, hd, ds, dtype, gen,
+                                     dev, pad_tail=9)
+        args = (xs.reshape(b, s, nh, hd), dt.reshape(b, s, nh), a,
+                B.reshape(b, s, ds), C.reshape(b, s, ds), L)
+        init = (torch.randn(b, nh, ds, hd, generator=gen, device=dev)
+                if with_init else None)
+        before = ssd_chunk.launches
+        y, st = ssd_chunked_kernel(*args, init_state=init)
+        if ssd_chunk.launches != before + 1:
+            raise AssertionError("ssd_chunked_kernel: no launch")
+        y_ref, st_ref = ssd_chunked(*args, init_state=init)
+        worst = max(worst, rel_close(f"ssd_chunked {dtype} y", y, y_ref,
+                                     SSD_TOL),
+                    rel_close(f"ssd_chunked {dtype} state", st, st_ref,
+                              SSD_TOL))
+        n_cases += 1
+    return {"phase": "ssd_check", "cases": n_cases, "shapes": shapes,
+            "worst_rel_err": worst, "tol": SSD_TOL,
+            "tol_reason": "relative to max|plain|: f32 sums of <= 128 "
+                          "products (and the chained chunk states) in "
+                          "another order; bf16 inputs are widened to f32 by "
+                          "both versions"}
+
+
+def ssd_work(b, nc, L, nh, hd, ds, x_elem):
+    """Bytes one call must move (xs, B, C, dt, a read once; y, states,
+    totals written once) and the operations the function needs: C B^T on
+    and below the diagonal once per chunk, and per head the masked product
+    with x and the state product (2 FLOP a multiply-add), plus the decays
+    and the cumulative sum."""
+    tri = L * (L + 1) // 2
+    bytes_moved = (b * nc * L * nh * hd * x_elem + 2 * b * nc * L * ds * x_elem
+                   + b * nc * L * nh * 4 + nh * 4
+                   + b * nc * L * nh * hd * 4 + b * nc * nh * ds * hd * 4
+                   + b * nc * nh * 4)
+    flops = b * nc * (2 * tri * ds
+                      + nh * (2 * tri * hd + 2 * L * ds * hd + 3 * tri
+                              + 4 * L))
+    return bytes_moved, flops
+
+
+def phase_ssd_time(dev):
+    """ssd_chunk and its plain version at mamba2-370m's widths (L 64, nh
+    32, hd 64, ds 128, bf16 xs/B/C as prefill gives them): the serve run's
+    longest prefill (one 480-token prompt padded to 512: b 1, nc 8) and a
+    batch of four 512-token prompts (b 4, nc 8). No single PyTorch call
+    computes this function: no library time."""
+    import torch
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    L, nh, hd, ds = 64, 32, 64, 128
+    res = {}
+    for name, b, n_sets in (("prefill_b1", 1, 16), ("prefill_b4", 4, 8)):
+        nc = 8
+        sets = [ssd_inputs(b, nc, L, nh, hd, ds, torch.bfloat16, gen, dev,
+                           pad_tail=32) for _ in range(n_sets)]
+        ms = graph_ms([(lambda s=s: ssd_chunk(*s)) for s in sets], n_sets)
+        plain_ms = graph_ms([(lambda s=s: ssd_chunk_ref(*s)) for s in sets],
+                            n_sets)
+        outs, refs = ssd_chunk(*sets[0]), ssd_chunk_ref(*sets[0])
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        rel = max(rel_close(f"ssd_time/{name}", o, r, SSD_TOL)
+                  for o, r in zip(outs, refs))
+        bytes_moved, flops = ssd_work(b, nc, L, nh, hd, ds, 2)
+        t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_o = flops / F32_FLOP_PER_S * 1e3
+        res[name] = {"shape": {"b": b, "nc": nc, "L": L, "nh": nh, "hd": hd,
+                               "ds": ds, "x_dtype": "bfloat16"},
+                     "bytes": bytes_moved, "flops": flops,
+                     "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "working_sets": n_sets}
+        del sets
+    return {"phase": "ssd_time",
+            "method": "CUDA graph of one call per working set, 10 replays, "
+                      "CUDA events", **res}
+
+
+def phase_ssm_agree(cfg, params_f32, dev):
+    """mamba2-370m at full width and depth: two prompts (300 and 37
+    tokens: a padded tail, and a prompt shorter than a chunk).
+
+    f32: prefill into a paged cache and 4 decode_step_paged steps through
+    the kernels (ssd_chunk, rmsnorm) and through their plain versions
+    (ssd_chunked, rmsnorm_ref): logits within 1e-4 relative. Every SSM
+    layer launches ssd_chunk once per prefill.
+
+    bf16: a random-weight Mamba2 of 48 layers amplifies a last-bit change
+    of one layer's output into a change of several percent of its logits
+    (the plain path against itself with the SSD output moved by 1e-6
+    relative is measured here as ``sensitivity``), so the end-to-end bf16
+    logits are reported, not held to a tolerance. The kernel is held in
+    place instead: the plain bf16 prefill hands every SSM layer's own
+    bf16 inputs to both ssd_chunked_kernel and ssd_chunked and goes on
+    with the plain output. Each output element must agree with the plain
+    one within a tolerance of the sum of its terms' magnitudes (the state
+    sums 64 products a chunk and cancels, so an error relative to
+    max|state| says less about the order of float32 sums): SSD_TOL plus 4
+    ulps of the layer's largest |cumsum(dt a)|, the decay exponents'
+    rounding."""
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunked_kernel
+    from repro_torch.models import (cast_params, decode_step_paged,
+                                    init_cache, prefill, ssd_chunked)
+    from repro_torch.serve import PagedCache
+    steps = 4
+    rng = np.random.default_rng(6)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))
+                                .astype(np.int32)).to(dev) for n in (300, 37)]
+    feed = rng.integers(0, cfg.vocab_size, (steps, 2, 1)).astype(np.int32)
+    n_ssm = sum(cfg.layer_is_ssm(i) for i in range(cfg.n_layers))
+    paths = ((ssd_chunked_kernel, rmsnorm), (ssd_chunked, rmsnorm_ref))
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def run_paths(c, params, dtype, ssds):
+        """Prefill both prompts and decode ``steps`` steps along each path;
+        returns the worst relative logit difference of prefill and decode
+        between the paths."""
+        caches = [PagedCache(c, 2, MAX_LEN, BLOCK, dtype=dtype, device=dev)
+                  for _ in paths]
+        worst = {"prefill": 0.0, "decode": 0.0}
+        for slot, p in enumerate(prompts):
+            lg = []
+            for cache, ssd, (_, norm) in zip(caches, ssds, paths):
+                mono = init_cache(c, 1, MAX_LEN, dtype, dev)
+                lg.append(prefill(c, params, p, mono, norm=norm,
+                                  ssd=ssd)[0].float())
+                cache.reserve(slot, p.shape[1] + steps)
+                cache.write_prefill(slot, mono, p.shape[1])
+            worst["prefill"] = max(worst["prefill"], rel(lg[0], lg[1]))
+        index = torch.tensor([p.shape[1] for p in prompts],
+                             dtype=torch.int32, device=dev)
+        for t in range(steps):
+            tok = torch.from_numpy(feed[t]).to(dev)
+            lg = [decode_step_paged(c, params, tok, cache.pools, cache.tables,
+                                    index, max_len=MAX_LEN, block_size=BLOCK,
+                                    norm=norm)[0].float()
+                  for cache, (_, norm) in zip(caches, paths)]
+            if not all(bool(torch.isfinite(x).all()) for x in lg):
+                raise AssertionError(f"ssm_agree/{dtype}: non-finite logits")
+            if lg[0].shape != (2, 1, cfg.padded_vocab):
+                raise AssertionError(f"ssm_agree: shape {lg[0].shape}")
+            worst["decode"] = max(worst["decode"], rel(lg[0], lg[1]))
+            index += 1
+        return worst
+
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    ssd_chunk.launches = 0
+    f32 = run_paths(c, params_f32, torch.float32, [s for s, _ in paths])
+    if ssd_chunk.launches != n_ssm * len(prompts):
+        raise AssertionError(f"ssm_agree: {ssd_chunk.launches} ssd_chunk "
+                             f"launches for {len(prompts)} prefills x "
+                             f"{n_ssm} SSM layers")
+    if not max(f32.values()) <= 1e-4:
+        raise AssertionError(f"ssm_agree/float32: rel_err {f32} > 1e-4")
+    torch.cuda.empty_cache()
+
+    c = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    params = cast_params(params_f32, torch.bfloat16)
+    layer_err = []
+
+    def both(xs, dt, a, B, C, chunk):
+        y, st = ssd_chunked_kernel(xs, dt, a, B, C, chunk)
+        y_ref, st_ref = ssd_chunked(xs, dt, a, B, C, chunk)
+        # the sums of the terms' magnitudes: the same scan on |x|, |B|, |C|
+        # (every decay and dt is >= 0)
+        mags = ssd_chunked(xs.abs(), dt, a, B.abs(), C.abs(), chunk)
+        # each term's decay is exp(cum_i - cum_j); the two versions sum
+        # cum in another order, so an exponent may differ by a few ulps of
+        # the largest |cum| of the layer (some 200 here: 1 ulp = 1.5e-5)
+        cum = torch.cumsum((dt * a).reshape(dt.shape[0], -1, chunk,
+                                            dt.shape[-1]), dim=2)
+        tol = SSD_TOL + 4 * 2.0 ** -23 * cum.abs().max().item()
+        errs = []
+        for name, o, r, m in zip(("y", "state"), (y, st), (y_ref, st_ref),
+                                 mags):
+            if not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"ssm_agree/bf16 layer {name}: "
+                                     f"non-finite")
+            errs.append(((o - r).abs() / (m + 1e-30)).max().item())
+            if not errs[-1] <= tol:
+                raise AssertionError(f"ssm_agree/bf16 layer {name}: error "
+                                     f"over the terms' magnitude "
+                                     f"{errs[-1]} > {tol}")
+        layer_err.append((max(errs), tol))
+        return y_ref, st_ref
+
+    def nudged(*args, **kw):
+        y, st = ssd_chunked(*args, **kw)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(len(layer_err))
+        return y * (1 + 1e-6 * torch.randn(y.shape, generator=gen,
+                                           device=dev)), st
+
+    ssd_chunk.launches = 0
+    for p in prompts:
+        prefill(c, params, p, init_cache(c, 1, MAX_LEN, torch.bfloat16, dev),
+                norm=rmsnorm_ref, ssd=both)
+    if ssd_chunk.launches != n_ssm * len(prompts) \
+            or len(layer_err) != n_ssm * len(prompts):
+        raise AssertionError(f"ssm_agree/bf16: {ssd_chunk.launches} launches, "
+                             f"{len(layer_err)} layers compared")
+    bf16 = run_paths(c, params, torch.bfloat16, [s for s, _ in paths])
+    floor = run_paths(c, params, torch.bfloat16, [nudged, ssd_chunked])
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": "ssm_agree", "arch": cfg.name,
+            "prompts": [p.shape[1] for p in prompts], "decode_steps": steps,
+            "finite": True, "ssd_chunk_launches_per_path": n_ssm * 2,
+            "float32": {"rel_err": f32, "limit": 1e-4},
+            "bfloat16": {"layer_ssd_err_over_magnitude":
+                         max(e for e, _ in layer_err),
+                         "layer_limit_range": [min(t for _, t in layer_err),
+                                               max(t for _, t in layer_err)],
+                         "layers_compared": len(layer_err),
+                         "logits_rel_err": bf16,
+                         "sensitivity": floor},
+            "limit_reason": "f32 logits relative to max|plain|: summation "
+                            "order through 48 layers; bf16 layers: both "
+                            "versions compute in f32 from the same bf16 "
+                            "inputs, error over the sum of the terms' "
+                            "magnitudes, within SSD_TOL + 4 ulps of the "
+                            "layer's max |cumsum(dt a)|; bf16 logits: "
+                            "reported beside the "
+                            "model's own sensitivity, no limit"}
+
+
+def phase_ssm_serve(cfg, eng):
+    """ContinuousEngine on mamba2-370m at full width and depth, bf16, the
+    serve smoke's six requests: ssd_chunk launches == 48 x prefills and
+    rmsnorm launches == 49 x (decode steps + prefills)."""
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    n_ssm = sum(cfg.layer_is_ssm(i) for i in range(cfg.n_layers))
+    n_norms = cfg.n_layers + 1
+    run_engine(eng, [(p[:16], 4) for p, _ in serve_requests(cfg, 99)[:2]])
+    reqs = serve_requests(cfg, 0)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_chunk.launches = rmsnorm_fwd.launches = 0
+    eng.decode_steps = eng.prefills = 0
+    outs, wall = run_engine(eng, reqs)
+    launches, prefills = ssd_chunk.launches, eng.prefills
+    steps, norms = eng.decode_steps, rmsnorm_fwd.launches
+    if launches == 0 or launches != n_ssm * prefills:
+        raise AssertionError(f"ssm_serve: {launches} ssd_chunk launches for "
+                             f"{prefills} prefills x {n_ssm} SSM layers")
+    if norms != n_norms * (steps + prefills):
+        raise AssertionError(f"ssm_serve: {norms} rmsnorm launches for "
+                             f"{steps} steps + {prefills} prefills x "
+                             f"{n_norms}")
+    for (p, n), toks in zip(reqs, outs):
+        if toks.shape != (n,) or toks.min() < 0 \
+                or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"ssm_serve: bad output for request "
+                                 f"({len(p)}, {n}): {toks}")
+    tokens = sum(len(t) for t in outs)
+    return {"phase": "ssm_serve", "arch": cfg.name,
+            "dtype": cfg.compute_dtype, "n_slots": N_SLOTS,
+            "max_len": MAX_LEN, "block_size": BLOCK, "chunk": CHUNK,
+            "requests": REQUESTS, "decode_steps": steps,
+            "ssm_layers": n_ssm, "prefills": prefills, "launches": launches,
+            "rmsnorm_launches": norms, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_ssm_serve_profile(cfg, eng):
+    """A shorter mamba2 serve run under torch.profiler (device activity):
+    the (480, 96) and (32, 64) requests cut to 32 new tokens each, some
+    2,700 launches a decode step (post-processing the whole run's 360,000
+    events takes the profiler about 90 s). Busy time against the wall of
+    an unprofiled run of the same requests, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = [(p, 32) for p, _ in serve_requests(cfg, 0)[:3:2]]
+    _, wall = run_engine(eng, reqs)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = run_engine(eng, reqs)
+    return {"phase": "ssm_serve_profile", "wall_ms": wall * 1e3,
+            "wall_ms_profiled": wall_prof * 1e3,
+            **device_summary(prof, wall, 12)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1232,18 +1872,35 @@ def main():
     norm_timing = run_phase(phase_rmsnorm_time, dev)
     run_phase(phase_ce_check, dev)
     ce_timing = run_phase(phase_ce_time, dev)
+    run_phase(phase_decode_attn_check, dev)
+    da_timing = run_phase(phase_decode_attn_time, dev)
+    run_phase(phase_ssd_check, dev)
+    ssd_timing = run_phase(phase_ssd_time, dev)
     torch.cuda.empty_cache()
 
     cfg = get_config(ARCH)
     params = init_params(cfg, seed=0, device=dev)          # float32
     run_phase(phase_agree, cfg, params, dev)
+    run_phase(phase_legacy_agree, cfg, params, dev)
     eng = ContinuousEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
                            block_size=BLOCK, chunk=CHUNK, device=dev)
     del params                          # the engine keeps its bf16 copy
     torch.cuda.empty_cache()
     serve = run_phase(phase_serve, cfg, eng)
     run_phase(phase_serve_profile, cfg, eng)
+    legacy = run_phase(phase_legacy_serve, cfg, eng.params, eng, dev)
     del eng
+    torch.cuda.empty_cache()
+
+    scfg = get_config(SSM_ARCH)
+    sparams = init_params(scfg, seed=0, device=dev)        # float32
+    run_phase(phase_ssm_agree, scfg, sparams, dev)
+    seng = ContinuousEngine(scfg, sparams, n_slots=N_SLOTS, max_len=MAX_LEN,
+                            block_size=BLOCK, chunk=CHUNK, device=dev)
+    del sparams
+    ssm_serve = run_phase(phase_ssm_serve, scfg, seng)
+    run_phase(phase_ssm_serve_profile, scfg, seng)
+    del seng
     torch.cuda.empty_cache()
 
     run_phase(phase_train_agree, dev)
@@ -1309,7 +1966,39 @@ def main():
         "library": ce_timing["library"],
         "shape": [ce_timing["T"], ce_timing["V"]],
         "note": "one local step of the LM run: 2560 x 262144 f32 logits; "
-                "launches from lm_train"}]})
+                "launches from lm_train"}, {
+        "name": "decode_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn/decode_attn.py:78",
+        "launches": legacy["launches"],
+        "max_abs_err": da_timing["global1024"]["max_abs_err"],
+        "ms": da_timing["global1024"]["ms"],
+        "plain_ms": da_timing["global1024"]["plain_ms"],
+        "bound_ms": da_timing["global1024"]["bound_ms"],
+        "bound_by": da_timing["global1024"]["bound_by"],
+        "library_ms": da_timing["global1024"]["library_ms"],
+        "library": da_timing["global1024"]["library"],
+        "shape": da_timing["global1024"]["shape"],
+        "note": "a global layer of the legacy serve run (b 4, 1024-position "
+                "cache, cache_len 528, bf16); launches from legacy_serve",
+        "ring512": {k: da_timing["ring512"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}, {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_chunk/ssd_chunk.py:61",
+        "launches": ssm_serve["launches"],
+        "max_abs_err": ssd_timing["prefill_b1"]["max_abs_err"],
+        "ms": ssd_timing["prefill_b1"]["ms"],
+        "plain_ms": ssd_timing["prefill_b1"]["plain_ms"],
+        "bound_ms": ssd_timing["prefill_b1"]["bound_ms"],
+        "bound_by": ssd_timing["prefill_b1"]["bound_by"],
+        "library_ms": None, "shape": ssd_timing["prefill_b1"]["shape"],
+        "note": "the mamba2-370m serve run's longest prefill (480 tokens "
+                "padded to 512: b 1, nc 8); no single PyTorch call computes "
+                "it; launches from ssm_serve",
+        "prefill_b4": {k: ssd_timing["prefill_b4"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """The port's configs, with the same names, fields and defaults as
-``repro/configs/base.py``: ``ModelConfig`` (the fields and predicates the
-dense serving and training paths read), ``WASGDConfig`` and
+``repro/configs/base.py``: ``SSMConfig``, ``ModelConfig`` (the fields and
+predicates the serving and training paths read), ``WASGDConfig`` and
 ``TrainConfig``.
 
-The MoE, SSM, cross-attention and codebook fields are kept so that a config
-can say what it is; the port's model raises ``NotImplementedError`` on any
-of them (``models.transformer.check_dense``).
+The MoE, cross-attention and codebook fields are kept so that a config can
+say what it is; the port's model raises ``NotImplementedError`` on any of
+them (``models.transformer.check_supported``).
 """
 from __future__ import annotations
 
@@ -14,6 +14,25 @@ import math
 from typing import Any, Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) mixer configuration, field for field as
+    ``repro/configs/base.py:32``."""
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 64
+    conv_width: int = 4
+    dt_min: float = 1e-3
+    dt_max: float = 1e-1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +68,12 @@ class ModelConfig:
     cross_attn_every: int = 0           # >0 (vlm): not served by the port
     n_codebooks: int = 0                # audio: not served by the port
 
-    # MoE / SSM sub-configs (not served by the port)
+    # MoE sub-config (not served by the port) and the SSM one
     moe: Optional[Any] = None
     moe_every: int = 1
-    ssm: Optional[Any] = None
-    attn_every: int = 0
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 0                 # hybrid: attention every n-th layer
+                                        # (0 with ssm set: pure SSM)
 
     # Numerics
     param_dtype: str = "float32"

@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense archs it can serve and
-train so far."""
+"""Architecture registry of the port: the archs it can serve (and, for
+the dense ones, train) so far."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES: Dict[str, str] = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

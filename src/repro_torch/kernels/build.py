@@ -30,6 +30,8 @@ SOURCES: Dict[str, Path] = {
     "wagg_fused": _KERNELS / "wagg" / "csrc" / "wagg_fused.cu",
     "rmsnorm": _KERNELS / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "fused_ce": _KERNELS / "fused_ce" / "csrc" / "fused_ce.cu",
+    "decode_attn": _KERNELS / "decode_attn" / "csrc" / "decode_attn.cu",
+    "ssd_chunk": _KERNELS / "ssd_chunk" / "csrc" / "ssd_chunk.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

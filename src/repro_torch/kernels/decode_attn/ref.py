@@ -1,17 +1,40 @@
-"""Plain PyTorch version of the paged decode-attention kernel.
+"""Plain PyTorch versions of the two decode-attention kernels.
 
-Same signature and masking as ``repro/kernels/decode_attn/paged.py:141``
-(``paged_decode_attn_ref``): gather the block table, run masked softmax
-attention in float32, return ``q.dtype``. The CPU path of the port runs
-it, and ``chip_smoke.py`` holds the CUDA kernel to it on the card.
+``decode_attn_ref`` has the contract of
+``repro/kernels/decode_attn/ref.py:12``: one query token against a
+contiguous cache, valid positions ``pos < cache_len`` (and, with a window,
+``cache_len - 1 - pos < window``). ``paged_decode_attn_ref`` has the
+signature and masking of ``repro/kernels/decode_attn/paged.py:141``: gather
+the block table first. Both run masked softmax attention in float32 and
+return ``q.dtype``. The CPU path of the port runs them, and
+``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 NEG_INF = -1e30
+
+
+def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cache_len: Union[int, torch.Tensor], *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (b, kv, g, hd); k, v: (b, S, kv, hd); ``cache_len`` a scalar
+    (int or 0-d tensor) for the whole batch -> (b, kv, g, hd)."""
+    hd = q.shape[-1]
+    S = k.shape[1]
+    qf = q.float() * hd ** -0.5
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k.float())
+    pos = torch.arange(S, device=q.device)
+    valid = pos < cache_len         # an int stays on the host: no copy
+    if window is not None:
+        valid &= (cache_len - 1 - pos) < window
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.to(q.dtype)
 
 
 def check_ring(ring: Optional[int], n_blk: int, bs: int) -> None:

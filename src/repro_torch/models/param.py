@@ -42,6 +42,10 @@ class ParamBuilder:
             v = torch.zeros(shape, dtype=self.dtype, device=self.device)
         elif init == "ones":
             v = torch.ones(shape, dtype=self.dtype, device=self.device)
+        elif init == "uniform":         # in [-scale, scale), default 1
+            lim = scale if scale is not None else 1.0
+            v = (torch.rand(shape, generator=self.generator, dtype=self.dtype,
+                            device=self.device) * 2 - 1) * lim
         else:
             raise ValueError(f"unknown init {init!r}")
         self.params[name] = v

@@ -1,11 +1,13 @@
-"""Dense decoder, the counterpart of ``repro/models/transformer.py``: the
-training forward (``forward`` :149 over the dense branch of
+"""Decoder assembly, the counterpart of ``repro/models/transformer.py``:
+the training forward (``forward`` :149 over the dense branch of
 ``_apply_layer`` :94, and ``loss_fn`` :178) and the serving path
-(``init_params``, ``init_cache``, ``prefill`` :328, ``PagedKV``,
-``cache_layout`` :462 and ``decode_step_paged`` :511).
+(``init_params``, ``init_cache``, ``prefill`` :328, ``decode_step`` :254,
+``PagedKV``, ``cache_layout`` :462 and ``decode_step_paged`` :511).
 
-Only dense attention layers are ported: SSM, MoE, cross-attention and
-codebook configs raise ``NotImplementedError``.
+Dense attention layers and Mamba2 SSM layers are ported
+(``check_supported``); MoE, cross-attention and codebook configs raise
+``NotImplementedError``. The training forward takes dense layers only:
+SSM training needs a backward through ``ssd_chunk``, which is not ported.
 
 Where JAX returns fresh arrays, the port writes caches and pools in place:
 a cache is as large as the model's K/V working set, and a copy per step
@@ -13,15 +15,17 @@ would double it. Each function returns the structure it wrote.
 
 Parameters are cast to ``compute_dtype`` at every use, as in JAX; for a
 tensor already in that dtype the cast is free, so a caller may hold one
-compute-dtype copy of the weights (the serving engine does).
+compute-dtype copy of the weights (the serving engines do).
 
-Every RMSNorm goes through ``kernels.rmsnorm`` and the loss's per-token
-NLL through ``kernels.fused_ce``: the CUDA kernels on a CUDA tensor, their
-plain versions on the CPU. ``forward``, ``loss_fn`` and
-``decode_step_paged`` take the norm (and ``loss_fn`` the CE) as keyword
-arguments that default to the kernels; only ``chip_smoke.py``'s agreement
-phases pass the plain versions. The training forward keeps every
-activation: JAX's ``remat`` is read but not applied (``configs/base.py``).
+Every RMSNorm goes through ``kernels.rmsnorm``, the loss's per-token NLL
+through ``kernels.fused_ce``, every SSM layer's prefill through
+``kernels.ssd_chunk`` and every attention layer of ``decode_step`` through
+``kernels.decode_attn``: the CUDA kernels on a CUDA tensor, their plain
+versions on the CPU. The functions take these as keyword arguments
+(``norm``, ``ce``, ``ssd``, ``attn``, ``attn_kernel``) that default to the
+kernels; only ``chip_smoke.py``'s agreement phases pass the plain
+versions. The training forward keeps every activation: JAX's ``remat`` is
+read but not applied (``configs/base.py``).
 """
 from __future__ import annotations
 
@@ -32,43 +36,72 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
-from repro_torch.kernels.decode_attn.ops import paged_decode_attention
+from repro_torch.kernels.decode_attn.decode_attn import decode_attn
+from repro_torch.kernels.decode_attn.ops import (decode_attention,
+                                                 paged_decode_attention)
 from repro_torch.kernels.decode_attn.paged import paged_decode_attn
 from repro_torch.kernels.fused_ce import fused_ce
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.ssd_chunk import ssd_chunked_kernel
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import KVCache, attention_init, flash_attention
 from repro_torch.models.param import ParamBuilder, build
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raises unless every layer is dense self-attention + gated MLP."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raises unless every layer is dense self-attention (with its gated
+    MLP) or a Mamba2 SSM mixer: MoE, cross-attention and codebook configs
+    are not ported."""
     if cfg.n_codebooks:
         raise NotImplementedError(
             f"{cfg.name}: multi-codebook (audio) configs are not ported")
     for i in range(cfg.n_layers):
-        if (cfg.layer_is_ssm(i) or cfg.layer_is_moe(i)
-                or cfg.layer_is_cross_attn(i) or not cfg.layer_is_attn(i)):
+        if cfg.layer_is_moe(i) or cfg.layer_is_cross_attn(i):
             raise NotImplementedError(
-                f"{cfg.name}: layer {i} is not dense attention; the port "
-                f"serves dense attention layers only")
+                f"{cfg.name}: layer {i} is MoE or cross-attention; the port "
+                f"serves dense attention and SSM layers only")
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    check_supported(cfg)
+    if any(cfg.layer_is_ssm(i) for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: training SSM layers needs a backward through "
+            f"ssd_chunk, which is not ported; the port serves them only")
+
+
+def _has_attn(cfg: ModelConfig) -> bool:
+    return any(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
+def _init_layer(b: ParamBuilder, cfg: ModelConfig, i: int):
+    """The leaves of ``repro/models/transformer.py:39`` for dense and SSM
+    layers: an MLP after attention, and after an SSM mixer only in a
+    hybrid model."""
+    s = b.scope(f"L{i}")
+    d = cfg.d_model
+    if cfg.layer_is_attn(i):
+        L.rmsnorm_init(s, "attn_norm", d)
+        attention_init(s, "attn", d, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    if cfg.layer_is_ssm(i):
+        L.rmsnorm_init(s, "ssm_norm", d)
+        SSM.ssm_init(s, "ssm", d, cfg.ssm)
+    if cfg.d_ff > 0 and (cfg.layer_is_attn(i) or cfg.family == "hybrid"):
+        L.rmsnorm_init(s, "ffn_norm", d)
+        L.mlp_init(s, "mlp", d, cfg.d_ff)
+
+
 def _init_model(b: ParamBuilder, cfg: ModelConfig):
     L.embed_init(b, "embed", cfg.padded_vocab, cfg.d_model)
     lb = b.scope("layers")
     for i in range(cfg.n_layers):
-        s = lb.scope(f"L{i}")
-        L.rmsnorm_init(s, "attn_norm", cfg.d_model)
-        attention_init(s, "attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim)
-        if cfg.d_ff > 0:
-            L.rmsnorm_init(s, "ffn_norm", cfg.d_model)
-            L.mlp_init(s, "mlp", cfg.d_model, cfg.d_ff)
+        _init_layer(lb, cfg, i)
     L.rmsnorm_init(b, "final_norm", cfg.d_model)
     if not cfg.tie_embeddings:
         L.head_init(b, "head", cfg.d_model, cfg.padded_vocab)
@@ -77,7 +110,7 @@ def _init_model(b: ParamBuilder, cfg: ModelConfig):
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 param_dtype=None) -> Dict:
     """Random parameters from ``seed`` on ``device`` (``None``: cuda)."""
-    check_dense(cfg)
+    check_supported(cfg)
     dtype = dtype_of(param_dtype or cfg.param_dtype)
     return build(functools.partial(_init_model, cfg=cfg), seed, dtype,
                  resolve_device(device))
@@ -162,8 +195,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) -> (logits (b, s, V) in ``compute_dtype``, the MoE
     auxiliary loss, zero for a dense model), as JAX's ``forward``. 2 norms
-    a layer and the final one: 2 * n_layers + 1 calls of ``norm``."""
-    check_dense(cfg)
+    a layer and the final one: 2 * n_layers + 1 calls of ``norm``. Dense
+    layers only (``_check_trainable``)."""
+    _check_trainable(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
     b, s = tokens.shape
@@ -192,56 +226,126 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
 
 
 # ---------------------------------------------------------------------------
-# Serving: monolithic prefill cache
+# Serving: monolithic cache, prefill and decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict:
-    """Per-layer ``KVCache`` of ``(batch, size, kv, hd)``: ``size`` is the
-    window for sliding-window layers (ring layout, slot ``p % size``),
-    ``max_len`` otherwise."""
-    check_dense(cfg)
+    """Per-layer caches: attention layers a ``KVCache`` of ``(batch, size,
+    kv, hd)`` in ``dtype``, where ``size`` is the window for sliding-window
+    layers (ring layout, slot ``p % size``) and ``max_len`` otherwise; SSM
+    layers an ``SSMState`` in float32."""
+    check_supported(cfg)
     dev = resolve_device(device)
     cache: Dict[str, Dict] = {}
     for i in range(cfg.n_layers):
-        w = cfg.window_for_layer(i)
-        size = min(w, max_len) if w is not None else max_len
-        shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
-        cache[f"L{i}"] = {"kv": KVCache(
-            k=torch.zeros(shape, dtype=dtype_of(dtype), device=dev),
-            v=torch.zeros(shape, dtype=dtype_of(dtype), device=dev))}
+        entry: Dict = {}
+        if cfg.layer_is_attn(i):
+            w = cfg.window_for_layer(i)
+            size = min(w, max_len) if w is not None else max_len
+            shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+            entry["kv"] = KVCache(
+                k=torch.zeros(shape, dtype=dtype_of(dtype), device=dev),
+                v=torch.zeros(shape, dtype=dtype_of(dtype), device=dev))
+        if cfg.layer_is_ssm(i):
+            entry["ssm"] = SSM.init_ssm_state(batch, cfg.d_model, cfg.ssm,
+                                              torch.float32, dev)
+        cache[f"L{i}"] = entry
     return cache
 
 
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """The rotary tables of ``positions``, or None for a model without
+    attention layers."""
+    if not _has_attn(cfg):
+        return None
+    return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            cache: Dict) -> Tuple[torch.Tensor, Dict]:
+            cache: Dict, *, norm: L.NormFn = rmsnorm_kernel,
+            ssd: SSM.SSDFn = ssd_chunked_kernel
+            ) -> Tuple[torch.Tensor, Dict]:
     """Fills ``cache`` (in place) from whole prompts ``tokens`` (b, s);
-    returns (last-position logits (b, 1, V), cache)."""
+    returns (last-position logits (b, 1, V), cache). SSM layers run
+    ``ssd`` (default: the ``ssd_chunk`` kernel's forward) and keep their
+    final state and the last ``conv_width - 1`` pre-convolution inputs."""
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
     b, s = tokens.shape
-    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
-                         cfg.head_dim, cfg.rope_theta)
+    rope = _rope(cfg, torch.arange(s, device=x.device).expand(b, s))
 
     for i in range(cfg.n_layers):
         lp = params["layers"][f"L{i}"]
-        kv = cache[f"L{i}"]["kv"]
-        w = cfg.window_for_layer(i)
-        size = kv.k.shape[1]
-        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        q, k, v = _qkv(lp["attn"], h, rope, dt)
-        att = flash_attention(q, k, v, causal=True, window=w)
-        x = x + _out(att, lp["attn"]["wo"].to(dt))
-        if w is not None and s >= size:
-            # ring layout: the slot of token p is p % size
-            kv.k.copy_(torch.roll(k[:, -size:], s % size, dims=1))
-            kv.v.copy_(torch.roll(v[:, -size:], s % size, dims=1))
-        else:
-            kv.k[:, :s] = k.to(kv.k.dtype)
-            kv.v[:, :s] = v.to(kv.v.dtype)
-        x = _ffn_and_out(cfg, lp, x, dt, rmsnorm_kernel)
+        entry = cache[f"L{i}"]
+        if cfg.layer_is_attn(i):
+            kv = entry["kv"]
+            w = cfg.window_for_layer(i)
+            size = kv.k.shape[1]
+            h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+            q, k, v = _qkv(lp["attn"], h, rope, dt)
+            att = flash_attention(q, k, v, causal=True, window=w)
+            x = x + _out(att, lp["attn"]["wo"].to(dt))
+            if w is not None and s >= size:
+                # ring layout: the slot of token p is p % size
+                kv.k.copy_(torch.roll(k[:, -size:], s % size, dims=1))
+                kv.v.copy_(torch.roll(v[:, -size:], s % size, dims=1))
+            else:
+                kv.k[:, :s] = k.to(kv.k.dtype)
+                kv.v[:, :s] = v.to(kv.v.dtype)
+        if cfg.layer_is_ssm(i):
+            h = L.rmsnorm(lp["ssm_norm"], x, cfg.norm_eps, norm)
+            y, st = SSM.ssm_prefill(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
+                                    ssd)
+            x = x + y
+            entry["ssm"].s.copy_(st.s)
+            entry["ssm"].conv.copy_(st.conv)
+        x = _ffn_and_out(cfg, lp, x, dt, norm)
 
-    return _logits(cfg, params, x[:, -1:], dt, rmsnorm_kernel), cache
+    return _logits(cfg, params, x[:, -1:], dt, norm), cache
+
+
+def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                cache: Dict, index: int, *, attn: Callable = decode_attn,
+                norm: L.NormFn = rmsnorm_kernel
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One new token per sequence against the monolithic cache, as JAX's
+    ``decode_step``: tokens (b, 1); ``index`` is the number of tokens
+    already in the cache, the same for every row (the host's loop counter,
+    so no step reads the device). Attention layers write the new K/V at
+    slot ``index`` (``index % size`` on ring layers) and attend over
+    ``min(index + 1, size)`` positions with ``attn`` (default: the
+    ``decode_attn`` kernel), without a window; SSM layers step their state.
+    The cache is written in place. Returns (logits (b, 1, V), cache)."""
+    check_supported(cfg)
+    dt = dtype_of(cfg.compute_dtype)
+    x = L.embed(params["embed"], tokens, dt)
+    rope = _rope(cfg, torch.full((x.shape[0], 1), index, device=x.device))
+
+    for i in range(cfg.n_layers):
+        lp = params["layers"][f"L{i}"]
+        entry = cache[f"L{i}"]
+        if cfg.layer_is_attn(i):
+            kv = entry["kv"]
+            size = kv.k.shape[1]
+            h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+            q, k, v = _qkv(lp["attn"], h, rope, dt)
+            slot = index if cfg.window_for_layer(i) is None else index % size
+            kv.k[:, slot] = k[:, 0].to(kv.k.dtype)
+            kv.v[:, slot] = v[:, 0].to(kv.v.dtype)
+            att = decode_attention(q, kv.k, kv.v, min(index + 1, size),
+                                   window=None, kernel=attn)
+            x = x + _out(att, lp["attn"]["wo"].to(dt))
+        if cfg.layer_is_ssm(i):
+            h = L.rmsnorm(lp["ssm_norm"], x, cfg.norm_eps, norm)
+            y, st = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
+                                  state=entry["ssm"])
+            x = x + y
+            entry["ssm"].s.copy_(st.s)
+            entry["ssm"].conv.copy_(st.conv)
+        x = _ffn_and_out(cfg, lp, x, dt, norm)
+
+    return _logits(cfg, params, x, dt, norm), cache
 
 
 # ---------------------------------------------------------------------------
@@ -266,26 +370,32 @@ def cache_layout(cfg: ModelConfig, max_len: int, block_size: int = 16
     ``"full"`` groups full-attention layers (slot ``p``, a table of
     ``ceil(max_len / block_size)`` entries filled at admission);
     ``"ring{R}"`` groups sliding-window layers whose window is padded to a
-    block multiple ``R`` (slot ``p % R``, static tables)."""
-    check_dense(cfg)
+    block multiple ``R`` (slot ``p % R``, static tables). SSM layers are
+    marked ``"ssm": True`` and hold per-slot state instead of blocks; a
+    model without attention layers has no groups."""
+    check_supported(cfg)
     layers: Dict[str, Dict] = {}
     groups: Dict[str, Dict] = {}
     for i in range(cfg.n_layers):
-        w = cfg.window_for_layer(i)
-        size = min(w, max_len) if w is not None else max_len
-        if w is not None:
-            ring = _ceil_to(size, block_size)
-            group = f"ring{ring}"
-            groups.setdefault(group, {"ring": ring,
-                                      "n_blk": ring // block_size})
-        else:
-            ring = None
-            group = "full"
-            groups.setdefault(group, {
-                "ring": None,
-                "n_blk": _ceil_to(max_len, block_size) // block_size})
-        layers[f"L{i}"] = {"attn": {"group": group, "ring": ring,
-                                    "window": size}}
+        ent: Dict = {}
+        if cfg.layer_is_attn(i):
+            w = cfg.window_for_layer(i)
+            size = min(w, max_len) if w is not None else max_len
+            if w is not None:
+                ring = _ceil_to(size, block_size)
+                group = f"ring{ring}"
+                groups.setdefault(group, {"ring": ring,
+                                          "n_blk": ring // block_size})
+            else:
+                ring = None
+                group = "full"
+                groups.setdefault(group, {
+                    "ring": None,
+                    "n_blk": _ceil_to(max_len, block_size) // block_size})
+            ent["attn"] = {"group": group, "ring": ring, "window": size}
+        if cfg.layer_is_ssm(i):
+            ent["ssm"] = True
+        layers[f"L{i}"] = ent
     return {"layers": layers, "groups": groups, "block_size": block_size,
             "max_len": max_len}
 
@@ -302,48 +412,64 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
     tokens (n, 1); ``index`` (n,) int32 is the position each row's token is
     written at; ``tables`` maps layout-group name to (n, n_blk) int32
-    physical block ids; ``pools`` maps ``L{i}`` to ``{"attn": PagedKV}``,
-    written in place. ``active`` (n,) bool redirects inactive rows' K/V
-    writes to the trash block. ``attn_kernel`` is the paged attention
-    function of ``kernels.decode_attn``; the engine keeps the default.
-    Returns (logits (n, 1, V), pools)."""
+    physical block ids; ``pools`` maps ``L{i}`` to ``{"attn": PagedKV}``
+    and/or ``{"ssm": SSMState}`` (one state row per slot), written in
+    place. ``active`` (n,) bool redirects inactive rows' K/V writes to the
+    trash block and freezes their SSM state. ``attn_kernel`` is the paged
+    attention function of ``kernels.decode_attn``; the engine keeps the
+    default. Returns (logits (n, 1, V), pools)."""
     layout = cache_layout(cfg, max_len, block_size)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
-    rope = L.rope_tables(index[:, None], cfg.head_dim, cfg.rope_theta)
+    rope = _rope(cfg, index[:, None])
     rows = torch.arange(x.shape[0], device=x.device)
     idx = index.long()
     writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     for i in range(cfg.n_layers):
         lp = params["layers"][f"L{i}"]
-        al = layout["layers"][f"L{i}"]["attn"]
-        kv: PagedKV = pools[f"L{i}"]["attn"]
-        table, ring = tables[al["group"]], al["ring"]
-        if al["group"] not in writes:     # shared by the group's layers
-            slot = torch.remainder(idx, ring) if ring is not None else idx
-            # a finished row keeps its last index, which may lie past a
-            # table sliced to the running rows' width: clamp (JAX's gather
-            # clamps too); the row is redirected to the trash block below
-            col = torch.clamp(slot // block_size, max=table.shape[1] - 1)
-            pb = table[rows, col].long()
-            if active is not None:
-                pb = torch.where(active, pb,
-                                 torch.full_like(pb, kv.k.shape[0] - 1))
-            writes[al["group"]] = (pb, torch.remainder(slot, block_size))
-        pb, off = writes[al["group"]]
-        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
-        q, k, v = _qkv(lp["attn"], h, rope, dt)
-        kv.k[pb, off] = k[:, 0].to(kv.k.dtype)
-        kv.v[pb, off] = v[:, 0].to(kv.v.dtype)
-        att = paged_decode_attention(q, kv.k, kv.v, table, index, ring=ring,
-                                     window=al["window"], kernel=attn_kernel)
-        x = x + _out(att, lp["attn"]["wo"].to(dt))
+        lay = layout["layers"][f"L{i}"]
+        if "attn" in lay:
+            al = lay["attn"]
+            kv: PagedKV = pools[f"L{i}"]["attn"]
+            table, ring = tables[al["group"]], al["ring"]
+            if al["group"] not in writes:     # shared by the group's layers
+                slot = torch.remainder(idx, ring) if ring is not None else idx
+                # a finished row keeps its last index, which may lie past a
+                # table sliced to the running rows' width: clamp (JAX's
+                # gather clamps too); the row is redirected to the trash
+                # block below
+                col = torch.clamp(slot // block_size, max=table.shape[1] - 1)
+                pb = table[rows, col].long()
+                if active is not None:
+                    pb = torch.where(active, pb,
+                                     torch.full_like(pb, kv.k.shape[0] - 1))
+                writes[al["group"]] = (pb, torch.remainder(slot, block_size))
+            pb, off = writes[al["group"]]
+            h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+            q, k, v = _qkv(lp["attn"], h, rope, dt)
+            kv.k[pb, off] = k[:, 0].to(kv.k.dtype)
+            kv.v[pb, off] = v[:, 0].to(kv.v.dtype)
+            att = paged_decode_attention(q, kv.k, kv.v, table, index,
+                                         ring=ring, window=al["window"],
+                                         kernel=attn_kernel)
+            x = x + _out(att, lp["attn"]["wo"].to(dt))
+        if "ssm" in lay:
+            old = pools[f"L{i}"]["ssm"]
+            h = L.rmsnorm(lp["ssm_norm"], x, cfg.norm_eps, norm)
+            y, st = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
+                                  state=old)
+            x = x + y
+            for new_t, old_t in zip(st, old):
+                if active is not None:      # inactive rows keep their state
+                    keep = active.reshape((-1,) + (1,) * (new_t.dim() - 1))
+                    new_t = torch.where(keep, new_t, old_t)
+                old_t.copy_(new_t)
         x = _ffn_and_out(cfg, lp, x, dt, norm)
 
     return _logits(cfg, params, x, dt, norm), pools
 
 
-__all__ = ["KVCache", "PagedKV", "cache_layout", "cast_params", "check_dense",
-           "decode_step_paged", "forward", "init_cache", "init_params",
-           "loss_fn", "param_axes", "prefill"]
+__all__ = ["KVCache", "PagedKV", "cache_layout", "cast_params",
+           "check_supported", "decode_step", "decode_step_paged", "forward",
+           "init_cache", "init_params", "loss_fn", "param_axes", "prefill"]

@@ -1,5 +1,7 @@
-"""Continuous-batching serving engine on the paged KV cache, the
-counterpart of ``ContinuousEngine`` in ``repro/serve/engine.py:128-434``.
+"""Serving engines, the counterparts of ``repro/serve/engine.py``:
+``ContinuousEngine`` (:128-434), continuous batching on the paged KV
+cache, and the legacy ``ServeEngine`` (:50-114), a monolithic cache and a
+host token loop. Both serve dense-attention and SSM archs.
 
 Requests are admitted into and evicted from the running batch at token
 boundaries (``serve/scheduler.py``). Admission prefills a request into a
@@ -26,6 +28,14 @@ position, vocab id): a pure function of the request, never of the batch it
 rides in, so sampled output does not depend on the schedule. JAX's
 ``fold_in`` bits cannot be matched, so sampled tokens differ from the JAX
 engine's; greedy tokens are held to it.
+
+``ServeEngine`` prefills a batch of equal-length prompts into a
+monolithic cache and decodes one token a step for every row
+(``models.transformer.decode_step``, whose attention layers run the
+``decode_attn`` kernel). Its host loop knows the position, so it passes
+``cache_len`` to the kernel as an argument; the tokens stay on the device
+until the end, unless ``eos_id`` is set, when each step's tokens are read
+to decide whether every row has stopped (as in JAX).
 """
 from __future__ import annotations
 
@@ -36,9 +46,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import (cast_params, check_dense,
-                                            decode_step_paged, init_cache,
-                                            prefill)
+from repro_torch.models.transformer import (cast_params, check_supported,
+                                            decode_step, decode_step_paged,
+                                            init_cache, prefill)
 from repro_torch.serve.paged_cache import PagedCache
 from repro_torch.serve.scheduler import Request, Scheduler
 
@@ -85,6 +95,80 @@ def sample_rows(logits: torch.Tensor, temps: torch.Tensor,
     return torch.where(temps > 0, cat, greedy).to(torch.int32)
 
 
+class ServeEngine:
+    """Legacy engine: a monolithic ``(b, max_len, ...)`` cache and a
+    Python token loop, as ``repro/serve/engine.py:50``. Media
+    (cross-attention) inputs are not ported. ``device=None`` means cuda.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Dict, max_len: int = 2048,
+                 cache_dtype=torch.bfloat16, device=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # one compute-dtype copy of the weights, as ContinuousEngine keeps
+        self.params = cast_params(params, dtype_of(cfg.compute_dtype),
+                                  self.device)
+        self.max_len = max_len
+        self.cache_dtype = dtype_of(cache_dtype)
+        self.decode_steps = 0
+        self.prefills = 0
+
+    def generate(self, prompt: np.ndarray, n_new: int,
+                 media: Optional[np.ndarray] = None,
+                 temperature: float = 0.0, seed: int = 0,
+                 eos_id: Optional[int] = None) -> np.ndarray:
+        """prompt: (b, s) int32. Greedy (an argmax in float32) if
+        ``temperature`` <= 0, else Gumbel-max sampling keyed by (``seed``,
+        row, absolute position). Returns (b, n) int32 tokens, n = n_new
+        unless ``eos_id`` stopped every row earlier; with ``eos_id`` a
+        row's tokens after its first stop token are the stop token."""
+        if media is not None:
+            raise NotImplementedError(
+                "media (cross-attention) inputs are not ported")
+        prompt = np.asarray(prompt, np.int32)
+        b, s = prompt.shape[:2]
+        if s + n_new > self.max_len:
+            raise ValueError(
+                f"prompt ({s}) + n_new ({n_new}) = {s + n_new} tokens "
+                f"exceeds the cache budget max_len={self.max_len}")
+        cfg, dev = self.cfg, self.device
+        cache = init_cache(cfg, b, self.max_len, self.cache_dtype, dev)
+        logits, cache = prefill(cfg, self.params,
+                                torch.from_numpy(prompt).to(dev), cache)
+        self.prefills += 1
+        keys = torch.tensor([_request_key(seed, row) for row in range(b)],
+                            dtype=torch.int64, device=dev)
+        temps = torch.full((b,), float(temperature), device=dev)
+        sampled = temperature > 0
+
+        def sample(lg, pos):
+            return sample_rows(lg[:, -1].float(), temps, keys,
+                               torch.full((b,), pos, device=dev),
+                               sampled)[:, None]
+
+        out = [sample(logits, s)]
+        done = (out[-1][:, 0] == eos_id).cpu().numpy() \
+            if eos_id is not None else None
+        index = s
+        for _ in range(n_new - 1):
+            if done is not None and done.all():
+                break
+            logits, cache = decode_step(cfg, self.params, out[-1], cache,
+                                        index)
+            self.decode_steps += 1
+            out.append(sample(logits, index + 1))
+            if done is not None:
+                done |= (out[-1][:, 0] == eos_id).cpu().numpy()
+            index += 1
+        toks = torch.cat(out, dim=1).cpu().numpy()
+        if eos_id is not None:
+            hit = toks == eos_id
+            past_eos = np.cumsum(hit, axis=1) - hit   # strictly after first
+            toks = np.where(past_eos > 0, eos_id, toks)
+        return toks
+
+
 class ContinuousEngine:
     """Continuous-batching engine on the paged KV cache.
 
@@ -101,7 +185,7 @@ class ContinuousEngine:
                  cache_dtype=torch.bfloat16, chunk: int = 32,
                  full_blocks: Optional[int] = None, seed: int = 0,
                  eos_id: Optional[int] = None, device=None):
-        check_dense(cfg)
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = dtype_of(cfg.compute_dtype)

@@ -18,6 +18,10 @@ per *layout group* (``models.transformer.cache_layout``):
 
 Recycling a slot needs no zeroing: the validity masks already exclude a
 previous tenant's stale blocks.
+
+SSM layers carry a per-slot recurrent state ``(n_slots, ...)`` in float32
+instead of blocks: admission overwrites the slot's row, and the decode
+step freezes inactive rows.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
+from repro_torch.models.ssm import init_ssm_state
 from repro_torch.models.transformer import PagedKV, cache_layout
 
 
@@ -71,12 +76,18 @@ class PagedCache:
         dt = dtype_of(dtype)
         self.pools: Dict[str, Dict] = {}
         for i in range(cfg.n_layers):
-            al = self.layout["layers"][f"L{i}"]["attn"]
-            shape = (self._group_phys[al["group"]] + 1, block_size,
-                     cfg.n_kv_heads, cfg.head_dim)
-            self.pools[f"L{i}"] = {"attn": PagedKV(
-                k=torch.zeros(shape, dtype=dt, device=self.device),
-                v=torch.zeros(shape, dtype=dt, device=self.device))}
+            lay = self.layout["layers"][f"L{i}"]
+            ent: Dict = {}
+            if "attn" in lay:
+                shape = (self._group_phys[lay["attn"]["group"]] + 1,
+                         block_size, cfg.n_kv_heads, cfg.head_dim)
+                ent["attn"] = PagedKV(
+                    k=torch.zeros(shape, dtype=dt, device=self.device),
+                    v=torch.zeros(shape, dtype=dt, device=self.device))
+            if "ssm" in lay:
+                ent["ssm"] = init_ssm_state(n_slots, cfg.d_model, cfg.ssm,
+                                            torch.float32, self.device)
+            self.pools[f"L{i}"] = ent
 
     # -- block tables -------------------------------------------------------
 
@@ -142,11 +153,18 @@ class PagedCache:
         ``0..n_prompt-1``; ring layers re-place the retained tail from the
         mono ring layout (slot ``p % size``) onto the padded ring (slot
         ``p % R``). Index arrays are built on the host, once for each
-        layout group."""
+        layout group. SSM layers copy the row's state into the slot's."""
         bs = self.block_size
         idx: Dict[tuple, tuple] = {}
         for i in range(self.cfg.n_layers):
-            al = self.layout["layers"][f"L{i}"]["attn"]
+            lay = self.layout["layers"][f"L{i}"]
+            if "ssm" in lay:
+                pool, st = self.pools[f"L{i}"]["ssm"], mono_cache[f"L{i}"]["ssm"]
+                pool.s[slot] = st.s[row]
+                pool.conv[slot] = st.conv[row]
+            if "attn" not in lay:
+                continue
+            al = lay["attn"]
             kv = mono_cache[f"L{i}"]["kv"]
             size_m = kv.k.shape[1]
             if (al["group"], size_m) not in idx:

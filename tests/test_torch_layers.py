@@ -19,7 +19,7 @@ from repro.models import attention as JA
 from repro.models import init_params as jax_init_params
 from repro.models import layers as JL
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
-from repro_torch.models import (check_dense, init_cache, init_params,
+from repro_torch.models import (check_supported, init_cache, init_params,
                                 params_from_numpy)
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
@@ -55,7 +55,9 @@ def test_gemma3_config_matches_jax_field_for_field(which):
 @pytest.mark.parametrize("arch", JAX_ARCH_IDS)
 def test_layer_predicates_match_jax(arch):
     """Every arch's layer schedule reads the same through the port's
-    config; only dense archs pass ``check_dense``."""
+    config; dense and SSM archs pass ``check_supported``, and MoE, hybrid
+    (jamba: MoE), vision (cross-attention) and audio (codebooks) archs
+    raise."""
     jcfg = jax_get_config(arch)
     cfg = _port_cfg(jcfg)
     assert cfg.padded_vocab == jcfg.padded_vocab
@@ -64,12 +66,11 @@ def test_layer_predicates_match_jax(arch):
                      "layer_is_global_attn", "layer_is_cross_attn",
                      "window_for_layer"):
             assert getattr(cfg, pred)(i) == getattr(jcfg, pred)(i), (pred, i)
-    dense = jcfg.family == "dense"
-    if dense:
-        check_dense(cfg)
+    if jcfg.family in ("dense", "ssm"):
+        check_supported(cfg)
     else:
         with pytest.raises(NotImplementedError):
-            check_dense(cfg)
+            check_supported(cfg)
 
 
 # -- layers -------------------------------------------------------------------
