@@ -14,24 +14,27 @@ through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
-  kernel_check  paged_decode_attn vs its plain version over layouts, dtypes
-                and shapes
+  kernel_check  paged_decode_attn vs its plain version over layouts, all four
+                (q, cache) dtype pairs, g 1/4/7/8 and hd 64/80/128/256;
+                one launch a call
   kernel_time   paged_decode_attn, plain version, library call and bound at
                 the serve run's shapes
   wagg_check    wagg_fused vs its plain version over x dtype x payload x
                 mask x p x N
   wagg_time     wagg_fused, plain version, two-call library reference and
                 bound at the CNN6 round's leaves and at a gemma3-1b MLP leaf
-  rmsnorm_check rmsnorm (forward and backward) vs its plain version over
-                dtype x d x rows x groups, and unaligned rows
-  rmsnorm_time  rmsnorm, plain version, F.rms_norm and bound at the LM
-                training shape and at the decode shape
+  rmsnorm_check rmsnorm and the fused residual add (forward and backward)
+                vs their plain versions over dtype x d x rows x groups, and
+                unaligned rows; the fused sum bitwise equal to x + delta
+  rmsnorm_time  rmsnorm and the fused op, plain versions, F.rms_norm (after
+                x + delta for the fused op) and bounds at the LM training
+                shape and at the decode shape
   ce_check      fused_ce (forward and backward) vs its plain version over
                 V x T, out-of-vocab labels and unaligned rows
   ce_time       fused_ce, plain version, F.cross_entropy and bound at one
                 local step's gemma3-1b logits
-  decode_attn_check  decode_attn vs its plain version over g x hd, S,
-                dtypes, cache_len and window
+  decode_attn_check  decode_attn vs its plain version over g x hd (with
+                g 7, hd 80), S, all four dtype pairs, cache_len and window
   decode_attn_time   decode_attn, plain version, SDPA and bound at the
                 legacy serve run's two cache shapes
   ssd_check     ssd_chunk vs its plain version (dtypes, widths, padded
@@ -45,16 +48,21 @@ Prints one JSON object per phase:
                 and ContinuousEngine greedy tokens equal in f32
   serve         ContinuousEngine on gemma3-1b: tokens, tokens/s, peak memory,
                 launches == 26 x decode steps (paged_decode_attn) and 53 x
-                (decode steps + prefills) (rmsnorm)
-  serve_profile device busy time and idle share of a serve run (profiler)
+                (decode steps + prefills) (rmsnorm, 52 of them fused)
+  serve_profile device busy time and idle share of a serve run (profiler);
+                device kernels of paged_decode_attn == its launches;
+                device operations of one decode step
   legacy_serve  ServeEngine on gemma3-1b, 4 x 480 tokens + 96 new: tokens/s,
                 launches == 26 x decode steps (decode_attn)
+  f32_cache_serve  the bf16 model on an f32 cache through both engines (the
+                (bf16 q, f32 cache) pair of both decode kernels)
   ssm_agree     full-width mamba2-370m prefill and paged decode through
                 ssd_chunk and rmsnorm vs the plain versions; 48 ssd_chunk
                 launches a prefill
   ssm_serve     ContinuousEngine on mamba2-370m: tokens/s, peak memory,
                 launches == 48 x prefills (ssd_chunk)
-  ssm_serve_profile  device busy time, idle share and top kernels
+  ssm_serve_profile  device busy time, idle share, top kernels and the
+                device operations of one decode step
   train_agree   one CNN6 round through pallas_wagg vs through einsum, in
                 the f32 and int8 codecs: params agree
   train         Trainer.run, WASGD+, CNN6 at its published width, p=8,
@@ -160,12 +168,10 @@ def ptxas_summary(lines):
     for ln in lines:
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            starts = [name.find(k) for k in (
-                "paged_decode", "decode_partial", "decode_combine",
-                "wagg_fused", "rmsnorm_kernel", "fused_ce_kernel",
-                "ssd_chunk_kernel")]
+            starts = [name.find(k) for k in PORT_KERNELS]
             start = next((i for i in starts if i >= 0), 0)
-            entry = name[start:name.find("EvPK")]
+            end = name.find("Ev", start)
+            entry = name[start:end if end >= 0 else len(name)]
         elif "Used" in ln and entry is not None:
             out.append([entry, ln.split(":", 1)[1].strip()])
             entry = None
@@ -200,41 +206,63 @@ def paged_inputs(b, kv, g, hd, n_blk, q_dtype, kv_dtype, gen, dev,
     return q, kp, vp, tab
 
 
+# every (q, cache) dtype pair the decode kernels take
+DTYPE_PAIRS = (("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+               ("float32", "bfloat16"), ("float32", "float32"))
+
+
 def phase_kernel_check(dev):
+    """paged_decode_attn against its plain version over (kv, g, hd): gemma3-
+    1b's (1, 4, 256), stablelm-1.6b's g 1 hd 64, a wide GQA (2, 8, 128) and
+    the generic path's (2, 7, 80) (arctic's g, stablelm-3b's hd); linear,
+    ring and windowed-ring layouts; all four dtype pairs; a row at the trash
+    block. Then a batch whose rows fill the card (b 40 x kv 4: one split a
+    row: a cluster of one block) and a 10-row batch whose splits take 3
+    tiles each (the double-buffered stage). Each call must launch one
+    kernel."""
     import torch
     from repro_torch.kernels.decode_attn import (paged_decode_attn,
                                                  paged_decode_attn_ref)
+    from repro_torch.kernels.decode_attn.paged import split_plan
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     checks = []
     b = 5
-    # gemma3-1b's attention, and a wider GQA shape
-    for kv, g, hd in ((1, 4, 256), (2, 8, 128)):
-        for layout, n_blk, ring, window, index in (
-                ("linear", 64, None, None, [0, 37, 511, 700, 1023]),
-                ("ring512", 32, 512, 512, [0, 37, 511, 700, 2047]),
-                ("ring512_window384", 32, 512, 384, [0, 37, 511, 700, 2047])):
-            for qd, kd in ((torch.bfloat16, torch.bfloat16),
-                           (torch.float32, torch.bfloat16),
-                           (torch.float32, torch.float32)):
-                q, kp, vp, tab = paged_inputs(b, kv, g, hd, n_blk, qd, kd,
-                                              gen, dev, trash_row=b - 1)
-                idx = torch.tensor(index, dtype=torch.int32, device=dev)
-                out = paged_decode_attn(q, kp, vp, tab, idx, ring=ring,
-                                        window=window)
-                ref = paged_decode_attn_ref(q, kp, vp, tab, idx, ring=ring,
-                                            window=window)
-                torch.cuda.synchronize()
-                tol = TOL[str(qd).split(".")[1]]
-                name = (f"kv{kv}_g{g}_hd{hd}_{layout}_"
-                        f"{str(qd).split('.')[1]}/{str(kd).split('.')[1]}")
-                checks.append({"case": name, "index": index,
-                               "max_abs_err": assert_close(name, out, ref,
-                                                           tol),
-                               "tol": tol})
-    return {"phase": "kernel_check", "rows_at_trash_block": [b - 1],
-          "tol_reason": "bf16 output: one bf16 ulp of a value below 4 is at "
-                        "most 2^-6; f32: summation order over <= 1024 tokens",
+    layouts = (("linear", 64, None, None, [0, 37, 511, 700, 1023]),
+               ("ring512", 32, 512, 512, [0, 37, 511, 700, 2047]),
+               ("ring512_window384", 32, 512, 384, [0, 37, 511, 700, 2047]))
+    cases = [(b, kv, g, hd, lay, qd, kd)
+             for kv, g, hd in ((1, 4, 256), (4, 1, 64), (2, 8, 128),
+                               (2, 7, 80))
+             for lay in layouts for qd, kd in DTYPE_PAIRS]
+    cases += [(40, 4, 2, 64, ("linear8", 8, None, None,
+                              list(range(0, 120, 3))), "bfloat16", "float32"),
+              (10, 1, 4, 256, ("linear64", 64, None, None,
+                               list(range(50, 1024, 100))), "bfloat16",
+               "bfloat16")]
+    for bb, kv, g, hd, (layout, n_blk, ring, window, index), qd, kd in cases:
+        q, kp, vp, tab = paged_inputs(bb, kv, g, hd, n_blk,
+                                      getattr(torch, qd), getattr(torch, kd),
+                                      gen, dev, trash_row=bb - 1)
+        idx = torch.tensor(index, dtype=torch.int32, device=dev)
+        before = paged_decode_attn.launches
+        out = paged_decode_attn(q, kp, vp, tab, idx, ring=ring,
+                                window=window)
+        if paged_decode_attn.launches != before + 1:
+            raise AssertionError("kernel_check: no launch counted")
+        ref = paged_decode_attn_ref(q, kp, vp, tab, idx, ring=ring,
+                                    window=window)
+        torch.cuda.synchronize()
+        tol = TOL[qd]
+        name = f"b{bb}_kv{kv}_g{g}_hd{hd}_{layout}_{qd}/{kd}"
+        checks.append({"case": name, "index": index[:5],
+                       "splits": split_plan(bb, kv, n_blk, BLOCK),
+                       "max_abs_err": assert_close(name, out, ref, tol),
+                       "tol": tol})
+    return {"phase": "kernel_check", "cases": len(checks),
+            "rows_at_trash_block": "the last of each batch",
+            "tol_reason": "bf16 output: one bf16 ulp of a value below 4 is at "
+                          "most 2^-6; f32: summation order over <= 1024 tokens",
             "checks": checks}
 
 
@@ -419,24 +447,27 @@ def run_engine(eng, reqs):
 def phase_serve(cfg, eng):
     import torch
     from repro_torch.kernels.decode_attn import paged_decode_attn
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
     n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
     n_norms = 2 * cfg.n_layers + 1
     run_engine(eng, [(p[:16], 4) for p, _ in serve_requests(cfg, 99)[:2]])
     reqs = serve_requests(cfg, 0)
     torch.cuda.reset_peak_memory_stats()
     paged_decode_attn.launches = rmsnorm_fwd.launches = 0
+    add_rmsnorm_fwd.launches = 0
     eng.decode_steps = eng.prefills = 0
     outs, wall = run_engine(eng, reqs)
     launches, steps = paged_decode_attn.launches, eng.decode_steps
     norms, prefills = rmsnorm_fwd.launches, eng.prefills
+    fused = add_rmsnorm_fwd.launches
     if launches == 0 or launches != n_attn * steps:
         raise AssertionError(f"serve: {launches} kernel launches for {steps} "
                              f"decode steps x {n_attn} attention layers")
-    if norms == 0 or norms != n_norms * (steps + prefills):
-        raise AssertionError(f"serve: {norms} rmsnorm launches for {steps} "
-                             f"decode steps + {prefills} prefills x "
-                             f"{n_norms} norms")
+    if norms == 0 or norms != n_norms * (steps + prefills) \
+            or fused != (n_norms - 1) * (steps + prefills):
+        raise AssertionError(f"serve: {norms} rmsnorm launches ({fused} "
+                             f"fused) for {steps} decode steps + {prefills} "
+                             f"prefills x {n_norms} norms")
     for (p, n), toks in zip(reqs, outs):
         if toks.shape != (n,) or toks.min() < 0 \
                 or toks.max() >= cfg.padded_vocab:
@@ -447,9 +478,16 @@ def phase_serve(cfg, eng):
            "n_slots": N_SLOTS, "max_len": MAX_LEN, "block_size": BLOCK,
            "chunk": CHUNK, "requests": REQUESTS, "decode_steps": steps,
            "attn_layers": n_attn, "launches": launches,
-           "prefills": prefills, "rmsnorm_launches": norms, "tokens": tokens,
+           "prefills": prefills, "rmsnorm_launches": norms,
+           "rmsnorm_fused_launches": fused, "tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# the device kernels of the port's CUDA sources, by entry name
+PORT_KERNELS = ("paged_decode_kernel", "wagg_fused_kernel", "rmsnorm_kernel",
+                "fused_ce_kernel", "decode_partial", "decode_combine",
+                "ssd_chunk_kernel")
 
 
 def device_summary(prof, wall_s, top_n):
@@ -466,7 +504,13 @@ def device_summary(prof, wall_s, top_n):
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
-    return {"device_busy_ms": busy_ms,
+    port = {}
+    for name in PORT_KERNELS:
+        hits = [e for e in kernels if name in e.key]
+        if hits:
+            port[name] = {"count": sum(e.count for e in hits),
+                          "device_ms": sum(dev_us(e) for e in hits) / 1e3}
+    return {"device_busy_ms": busy_ms, "port_kernels": port,
             "device_idle_share": (1 - busy_ms / (wall_s * 1e3)
                                   if busy_ms > 0 else None),
             "kernel_launches": sum(e.count for e in kernels),
@@ -474,20 +518,69 @@ def device_summary(prof, wall_s, top_n):
                              "device_ms": dev_us(e) / 1e3} for e in top]}
 
 
+def step_launches(eng, reqs, at_step=8):
+    """Device operations (kernels, copies, fills) of one engine decode step
+    (the model's step, sampling, the state update): the run's
+    ``at_step``-th decode step profiled alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    orig, seen = eng._decode_once, []
+
+    def once(*args):
+        if not seen and eng.decode_steps == at_step:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                orig(*args)
+                torch.cuda.synchronize()
+            seen.append(sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA))
+        else:
+            orig(*args)
+
+    eng._decode_once = once
+    try:
+        eng.decode_steps = 0
+        run_engine(eng, reqs)
+    finally:
+        del eng._decode_once
+    return seen[0]
+
+
 def phase_serve_profile(cfg, eng):
     """One more serve run under torch.profiler: device busy time (sum of
     kernel times on the one stream) against the wall of an unprofiled run
-    of the same requests."""
+    of the same requests; the device kernels named paged_decode_kernel
+    must number paged_decode_attn.launches (one kernel a call, no merge
+    kernel). Then the device operations of one decode step, profiled
+    alone, and the run's operations over its decode steps."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attn import paged_decode_attn
     reqs = serve_requests(cfg, 0)
     _, wall = run_engine(eng, reqs)
+    paged_decode_attn.launches = eng.decode_steps = 0
     # device activity only: host events of a run this long take minutes
     # to post-process
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall_prof = run_engine(eng, reqs)
+    steps, launches = eng.decode_steps, paged_decode_attn.launches
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    paged = sum(e.count for e in events if "paged_decode" in e.key)
+    if paged != launches or launches == 0:
+        raise AssertionError(f"serve_profile: {paged} paged_decode device "
+                             f"kernels for {launches} paged_decode_attn "
+                             f"calls")
+    summary = device_summary(prof, wall, 10)
     return {"phase": "serve_profile", "wall_ms": wall * 1e3,
             "wall_ms_profiled": wall_prof * 1e3,
-            **device_summary(prof, wall, 10)}
+            "paged_decode_device_kernels": paged,
+            "paged_decode_attn_launches": launches, "decode_steps": steps,
+            "kernel_launches_per_decode_step_whole_run":
+                summary["kernel_launches"] / steps,
+            "kernel_launches_one_decode_step": step_launches(eng, reqs),
+            **summary}
 
 
 def wagg_inputs(p, n, x_dtype, payload, mask, gen, dev):
@@ -836,12 +929,49 @@ def rmsnorm_case(x, s, gen):
             "dscale": rel_err(grads[0][1], grads[1][1])}
 
 
+def add_rmsnorm_case(x, delta, s, gen):
+    """One case of the fused residual add: s bitwise against torch's
+    ``x + delta``, y and rstd against the plain version; the backward
+    through the Function (cotangents on s and y) against autograd of the
+    plain add and norm. Returns the errors relative to max|plain|."""
+    import torch
+    from repro_torch.kernels.rmsnorm import (AddRMSNormFunction,
+                                             add_rmsnorm_fwd,
+                                             add_rmsnorm_fwd_ref)
+    out_s, y, rstd = add_rmsnorm_fwd(x, delta, s)
+    s_ref, y_ref, rstd_ref = add_rmsnorm_fwd_ref(x, delta, s)
+    torch.cuda.synchronize()
+    if not torch.equal(out_s, x + delta):
+        raise AssertionError("add_rmsnorm: s differs from torch's x + delta "
+                             "in some bit")
+    g_s, g_y = (torch.randn(x.shape, generator=gen, device=x.device)
+                .to(x.dtype) for _ in range(2))
+    grads = []
+    for fn in (lambda a, b, c: AddRMSNormFunction.apply(a, b, c, 1e-6)[:2],
+               lambda a, b, c: add_rmsnorm_fwd_ref(a, b, c)[:2]):
+        xa, da, sa = (t.clone().requires_grad_() for t in (x, delta, s))
+        torch.autograd.backward(fn(xa, da, sa), (g_s, g_y))
+        grads.append((xa.grad, da.grad, sa.grad))
+    torch.cuda.synchronize()
+    for name, t in (("y", y), ("rstd", rstd), ("dx", grads[0][0]),
+                    ("ddelta", grads[0][1]), ("dscale", grads[0][2])):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"add_rmsnorm: non-finite {name}")
+    return {"y": rel_err(y, y_ref), "rstd": rel_err(rstd, rstd_ref),
+            "dx": rel_err(grads[0][0], grads[1][0]),
+            "ddelta": rel_err(grads[0][1], grads[1][1]),
+            "dscale": rel_err(grads[0][2], grads[1][2])}
+
+
 def phase_rmsnorm_check(dev):
     """rmsnorm against its plain version over dtype x d x rows x groups:
-    d = 1152 (gemma3-1b), 2048 (stablelm-1.6b), 1000 (16-byte vectors) and
-    1001 (the one-element path); rows 1, 4, 2560 (one local step of the LM
-    run), 2561; G = 1 (one scale) or 4 (x (4, rows, d), a scale per
-    worker). Two cases start one element past an aligned base."""
+    d = 1152 (gemma3-1b), 2048 (stablelm-1.6b), 1000 (16-byte vectors),
+    1001 (the one-element path) and 4096 (past the 2048 elements a warp
+    holds in registers: the two-pass path); rows 1, 4 (a decode step),
+    2560 (one local step of the LM run), 2561; G = 1 (one scale) or 4 (x
+    (4, rows, d), a scale per worker). The fused residual add over the same
+    grid, its s bitwise equal to torch's x + delta. One case of each starts
+    one element past an aligned base."""
     import torch
     from repro_torch.kernels.rmsnorm.rmsnorm import vector_width
     gen = torch.Generator(device=dev)
@@ -852,56 +982,74 @@ def phase_rmsnorm_check(dev):
         nonlocal n_cases
         for k, e in errs.items():
             tol = (RMS_TOL[dname] if k in ("y", "rstd") else
-                   RMS_GRAD_TOL[dname] if k == "dx" else 1e-4)
+                   RMS_GRAD_TOL[dname] if k in ("dx", "ddelta") else 1e-4)
             if not e <= tol:
                 raise AssertionError(f"rmsnorm {key} {k}: rel_err {e} > {tol}")
-            worst[f"{dname}/{k}"] = max(worst.get(f"{dname}/{k}", 0.0), e)
+            wk = ("fused/" if key.startswith("fused/") else "") + \
+                f"{dname}/{k}"
+            worst[wk] = max(worst.get(wk, 0.0), e)
         n_cases += 1
 
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for d in (1152, 2048, 1000, 1001):
+        for d in (1152, 2048, 1000, 1001, 4096):
             for rows in (1, 4, 2560, 2561):
                 for groups in (1, 4):
                     shape = (rows, d) if groups == 1 else (groups, rows, d)
                     x = torch.randn(shape, generator=gen, device=dev).to(dt)
+                    delta = torch.randn(shape, generator=gen,
+                                        device=dev).to(dt)
                     s = 1.0 + 0.5 * torch.randn(
                         (d,) if groups == 1 else (groups, d), generator=gen,
                         device=dev)
                     paths.add((dname, d, vector_width(d, x)))
-                    record(f"{dname}/d{d}/rows{rows}/G{groups}",
-                           rmsnorm_case(x, s, gen), dname)
-                    del x, s
-        buf = torch.randn(4 * 1152 + 1, generator=gen, device=dev).to(dt)
-        x = buf[1:].view(4, 1152)
+                    key = f"{dname}/d{d}/rows{rows}/G{groups}"
+                    record(key, rmsnorm_case(x, s, gen), dname)
+                    record(f"fused/{key}", add_rmsnorm_case(x, delta, s, gen),
+                           dname)
+                    del x, delta, s
+        buf = torch.randn(2, 4 * 1152 + 1, generator=gen, device=dev).to(dt)
+        x, delta = buf[0, 1:].view(4, 1152), buf[1, 1:].view(4, 1152)
         s = 1.0 + 0.5 * torch.randn(1152, generator=gen, device=dev)
         paths.add((dname, "1152 unaligned", vector_width(1152, x)))
         record(f"{dname}/unaligned", rmsnorm_case(x, s, gen), dname)
+        record(f"fused/{dname}/unaligned",
+               add_rmsnorm_case(x, delta, s, gen), dname)
     return {"phase": "rmsnorm_check", "cases": n_cases,
-            "d": [1152, 2048, 1000, 1001], "rows": [1, 4, 2560, 2561],
-            "groups": [1, 4], "paths": sorted(map(str, paths)),
+            "d": [1152, 2048, 1000, 1001, 4096], "rows": [1, 4, 2560, 2561],
+            "groups": [1, 4], "fused_s_bitwise": True,
+            "paths": sorted(map(str, paths)),
             "worst_rel_err": worst,
-            "tol": {"y/rstd": RMS_TOL, "dx": RMS_GRAD_TOL, "dscale": 1e-4},
+            "tol": {"y/rstd": RMS_TOL, "dx/ddelta": RMS_GRAD_TOL,
+                    "dscale": 1e-4},
             "tol_reason": "rel. to max|plain|; y/rstd f32: order of the sum "
                           "of squares; bf16 output: one ulp (2^-8); dx and "
                           "dscale: the Function's formula against autograd "
                           "of the plain ops, dscale summed over <= 2561 rows"}
 
 
-def norm_work(rows, d, x_bytes, groups):
+def norm_work(rows, d, x_bytes, groups, fused=False):
     """Bytes one call must move (x read, y written, the scales read, rstd
-    written) and its float32 operations (4 per element)."""
-    return 2 * rows * d * x_bytes + groups * d * 4 + rows * 4, 4 * rows * d
+    written; fused: delta read and s written too) and its float32
+    operations (4 per element, 5 fused)."""
+    arrays = 4 if fused else 2
+    return (arrays * rows * d * x_bytes + groups * d * 4 + rows * 4,
+            (5 if fused else 4) * rows * d)
 
 
 def phase_rmsnorm_time(dev):
     """rmsnorm at one local step of the LM run (x (4, 640, 1152) bf16, a
     scale per worker: G = 4, the vmap rule's launch) and at a decode step
     of the serve run (x (4, 1, 1152) bf16, one scale), each over working
-    sets that together exceed the 50 MB L2."""
+    sets that together exceed the 50 MB L2: the plain norm (the first
+    layer's), and the fused residual add and norm (every other norm of the
+    models) beside its plain version and the library pair (x + delta, then
+    F.rms_norm) in the same kind of graph."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd, rmsnorm_fwd_ref
+    from repro_torch.kernels.rmsnorm import (add_rmsnorm_fwd,
+                                             add_rmsnorm_fwd_ref,
+                                             rmsnorm_fwd, rmsnorm_fwd_ref)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     d = 1152
@@ -913,6 +1061,8 @@ def phase_rmsnorm_time(dev):
                  1.0 + 0.5 * torch.randn((groups, d) if groups > 1 else (d,),
                                          generator=gen, device=dev))
                 for _ in range(n_sets)]
+        deltas = [torch.randn(xshape, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(n_sets)]
         # the library call takes one weight (d,) in x's dtype
         lib_w = [s.reshape(-1, d)[0].to(torch.bfloat16) for _, s in sets]
 
@@ -946,7 +1096,39 @@ def phase_rmsnorm_time(dev):
                      "bound_ms": max(t_b, t_o),
                      "bound_by": "bytes" if t_b >= t_o else "operations",
                      "working_sets": n_sets}
-        del sets, lib_w
+
+        def fused(i):
+            return lambda: add_rmsnorm_fwd(sets[i][0], deltas[i], sets[i][1])
+
+        def fused_plain(i):
+            return lambda: add_rmsnorm_fwd_ref(sets[i][0], deltas[i],
+                                               sets[i][1])
+
+        def fused_library(i):
+            return lambda: F.rms_norm(sets[i][0] + deltas[i], (d,), lib_w[i],
+                                      1e-6)
+
+        ms = graph_ms([fused(i) for i in idx], n_sets)
+        plain_ms = graph_ms([fused_plain(i) for i in idx], n_sets)
+        library_ms = graph_ms([fused_library(i) for i in idx], n_sets)
+        s_out, y, _ = add_rmsnorm_fwd(x, deltas[0], s)
+        _, y_ref, _ = add_rmsnorm_fwd_ref(x, deltas[0], s)
+        if not torch.equal(s_out, x + deltas[0]):
+            raise AssertionError(f"rmsnorm_time/fused_{name}: s differs")
+        err = assert_close(f"rmsnorm_time/fused_{name}", y, y_ref,
+                           RMS_TOL["bfloat16"] * y_ref.float().abs().max())
+        bytes_moved, flops = norm_work(rows, d, 2, groups, fused=True)
+        t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_o = flops / F32_FLOP_PER_S * 1e3
+        res[f"fused_{name}"] = {
+            "x": list(xshape), "dtype": "bfloat16", "groups": groups,
+            "bytes": bytes_moved, "flops": flops, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "x + delta, then F.rms_norm(s, (d,), one bf16 weight)",
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "working_sets": n_sets}
+        del sets, lib_w, deltas
     return {"phase": "rmsnorm_time",
             "method": "CUDA graph of one call per working set, 10 replays, "
                       "CUDA events", **res}
@@ -1176,19 +1358,22 @@ def run_lm_rounds(tr, ds, batches, rounds, done):
 def phase_lm_train(cfg, tr, ds, batches):
     import torch
     from repro_torch.kernels.fused_ce import fused_ce_fwd
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
     from repro_torch.kernels.wagg import wagg_fused
     from repro_torch.tree import tree_leaves
     warm, rounds, tau = LM["warmup_rounds"], LM["rounds"], LM["tau"]
     warm_s = run_lm_rounds(tr, ds, batches, warm, 0)
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_fwd.launches = fused_ce_fwd.launches = wagg_fused.launches = 0
+    add_rmsnorm_fwd.launches = 0
     wall = run_lm_rounds(tr, ds, batches, rounds, warm)
     launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches,
                 "fused_ce": fused_ce_fwd.launches,
                 "wagg_fused": wagg_fused.launches}
     n_leaves = len(tree_leaves(tr.state.params))
     want = {"rmsnorm": rounds * tau * (2 * cfg.n_layers + 1),
+            "rmsnorm_fused": rounds * tau * 2 * cfg.n_layers,
             "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves}
     if launches != want:
         raise AssertionError(f"lm_train: launches {launches}, want {want}")
@@ -1238,9 +1423,11 @@ def decode_inputs(b, S, kv, g, hd, q_dtype, kv_dtype, gen, dev):
 
 
 def phase_decode_attn_check(dev):
-    """decode_attn against its plain version over g x hd, S (512, and 1000:
-    no multiple of the split), dtypes, cache_len (1, mid-cache, S) and a
-    window; one case reads cache_len from device memory."""
+    """decode_attn against its plain version over g x hd (the fast paths'
+    (4, 256) and (1, 64), and the generic path's (8, 128) and (7, 80)), S
+    (512, and 1000: no multiple of the split), all four dtype pairs,
+    cache_len (1, mid-cache, S) and a window; one case reads cache_len from
+    device memory."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
     gen = torch.Generator(device=dev)
@@ -1248,11 +1435,10 @@ def phase_decode_attn_check(dev):
     worst = {}
     n_cases = 0
     b, kv = 3, 2
-    for g, hd in ((1, 64), (4, 256), (8, 128)):
+    for g, hd in ((1, 64), (4, 256), (8, 128), (7, 80)):
         for S in (512, 1000):
-            for qd, kd in ((torch.bfloat16, torch.bfloat16),
-                           (torch.float32, torch.bfloat16),
-                           (torch.float32, torch.float32)):
+            for qn, kn in DTYPE_PAIRS:
+                qd, kd = getattr(torch, qn), getattr(torch, kn)
                 q, k, v = decode_inputs(b, S, kv, g, hd, qd, kd, gen, dev)
                 for cache_len in (1, S // 2 + 3, S):
                     for window in (None, 100):
@@ -1274,7 +1460,8 @@ def phase_decode_attn_check(dev):
     worst["bfloat16"] = max(worst["bfloat16"], assert_close(
         "device_cache_len", out, ref, TOL["bfloat16"]))
     return {"phase": "decode_attn_check", "cases": n_cases + 1,
-            "b": b, "kv": kv, "g_hd": [[1, 64], [4, 256], [8, 128]],
+            "b": b, "kv": kv, "g_hd": [[1, 64], [4, 256], [8, 128], [7, 80]],
+            "dtype_pairs": DTYPE_PAIRS,
             "S": [512, 1000], "worst_abs_err": worst, "tol": TOL,
             "tol_reason": "bf16 output: one bf16 ulp of a value below 4 is "
                           "at most 2^-6; f32: summation order over <= 1000 "
@@ -1440,7 +1627,7 @@ def phase_legacy_serve(cfg, params, cont_eng, dev):
     their last bits, which can flip a near-tie of random weights."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
     from repro_torch.serve import ServeEngine
     b, n_prompt, n_new = LEGACY["b"], LEGACY["prompt"], LEGACY["n_new"]
     n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
@@ -1452,19 +1639,21 @@ def phase_legacy_serve(cfg, params, cont_eng, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     decode_attn.launches = rmsnorm_fwd.launches = 0
+    add_rmsnorm_fwd.launches = 0
     eng.decode_steps = eng.prefills = 0
     t0 = time.perf_counter()
     toks = eng.generate(prompts, n_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, steps = decode_attn.launches, eng.decode_steps
-    norms = rmsnorm_fwd.launches
+    norms, fused = rmsnorm_fwd.launches, add_rmsnorm_fwd.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if steps != n_new - 1 or launches != n_attn * steps:
         raise AssertionError(f"legacy_serve: {launches} decode_attn launches "
                              f"for {steps} decode steps x {n_attn} layers")
-    if norms != n_norms * (steps + 1):
-        raise AssertionError(f"legacy_serve: {norms} rmsnorm launches")
+    if norms != n_norms * (steps + 1) or fused != (n_norms - 1) * (steps + 1):
+        raise AssertionError(f"legacy_serve: {norms} rmsnorm launches "
+                             f"({fused} fused)")
     if toks.shape != (b, n_new) or toks.min() < 0 \
             or toks.max() >= cfg.padded_vocab:
         raise AssertionError(f"legacy_serve: bad output {toks.shape}")
@@ -1475,11 +1664,75 @@ def phase_legacy_serve(cfg, params, cont_eng, dev):
             "n_new": n_new, "max_len": LEGACY["max_len"],
             "decode_steps": steps, "attn_layers": n_attn,
             "launches": launches, "rmsnorm_launches": norms,
+            "rmsnorm_fused_launches": fused,
             "tokens": int(toks.size), "wall_s": wall,
             "tokens_per_s": toks.size / wall, "peak_mem_gib": peak,
             "row0_prefix_equal_to_continuous": agree,
             "row0_tokens_first8": toks[0, :8].tolist(),
             "continuous_tokens_first8": cont[:8].tolist()}
+
+
+def phase_f32_cache_serve(cfg, params, dev):
+    """The bf16 gemma3-1b model on an f32 cache, the (bf16 q, f32 cache)
+    pair of both decode kernels: ContinuousEngine serves three of the serve
+    smoke's requests (one wraps the ring) and ServeEngine two 480-token
+    prompts; each through its kernel (launches == attention layers x decode
+    steps), outputs in the vocabulary. Row 0 of both engines takes the same
+    prompt; their greedy tokens are reported as a matching prefix."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn, paged_decode_attn
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    reqs = serve_requests(cfg, 0)[1:4]
+    n_new = 24
+    res = {}
+    cont = ContinuousEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                            block_size=BLOCK, chunk=CHUNK,
+                            cache_dtype=torch.float32, device=dev)
+    if cont.cache_dtype != torch.float32 or cont.compute_dtype != \
+            torch.bfloat16:
+        raise AssertionError("f32_cache_serve: engine dtypes")
+    paged_decode_attn.launches = cont.decode_steps = 0
+    outs, wall = run_engine(cont, [(p, n) for p, n in reqs])
+    steps, launches = cont.decode_steps, paged_decode_attn.launches
+    if launches == 0 or launches != n_attn * steps:
+        raise AssertionError(f"f32_cache_serve: {launches} paged launches "
+                             f"for {steps} steps")
+    for (p, n), toks in zip(reqs, outs):
+        if toks.shape != (n,) or toks.min() < 0 \
+                or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"f32_cache_serve: bad output {toks}")
+    res["continuous"] = {"requests": [[len(p), n] for p, n in reqs],
+                         "decode_steps": steps, "launches": launches,
+                         "tokens": int(sum(len(x) for x in outs)),
+                         "wall_s": wall}
+    prompts = np.stack([reqs[1][0], serve_requests(cfg, 5)[2][0]])
+    cont_row0 = cont.generate(prompts[:1], n_new)[0]
+    del cont
+    torch.cuda.empty_cache()
+    legacy = ServeEngine(cfg, params, max_len=LEGACY["max_len"],
+                         cache_dtype=torch.float32, device=dev)
+    decode_attn.launches = legacy.decode_steps = 0
+    t0 = time.perf_counter()
+    toks = legacy.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps, launches = legacy.decode_steps, decode_attn.launches
+    del legacy
+    torch.cuda.empty_cache()
+    if launches == 0 or launches != n_attn * steps:
+        raise AssertionError(f"f32_cache_serve: {launches} decode_attn "
+                             f"launches for {steps} steps")
+    if toks.shape != (2, n_new) or toks.min() < 0 \
+            or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"f32_cache_serve: bad legacy output {toks}")
+    agree = int(np.argmax(np.append(toks[0] != cont_row0, True)))
+    res["legacy"] = {"batch": 2, "prompt": LEGACY["prompt"], "n_new": n_new,
+                     "decode_steps": steps, "launches": launches,
+                     "wall_s": wall, "row0_prefix_equal_to_continuous": agree}
+    return {"phase": "f32_cache_serve", "arch": cfg.name,
+            "compute_dtype": cfg.compute_dtype, "cache_dtype": "float32",
+            **res}
 
 
 # -- ssd_chunk and mamba2-370m serving ----------------------------------------
@@ -1786,7 +2039,7 @@ def phase_ssm_serve(cfg, eng):
     serve smoke's six requests: ssd_chunk launches == 48 x prefills and
     rmsnorm launches == 49 x (decode steps + prefills)."""
     import torch
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
     from repro_torch.kernels.ssd_chunk import ssd_chunk
     n_ssm = sum(cfg.layer_is_ssm(i) for i in range(cfg.n_layers))
     n_norms = cfg.n_layers + 1
@@ -1794,17 +2047,20 @@ def phase_ssm_serve(cfg, eng):
     reqs = serve_requests(cfg, 0)
     torch.cuda.reset_peak_memory_stats()
     ssd_chunk.launches = rmsnorm_fwd.launches = 0
+    add_rmsnorm_fwd.launches = 0
     eng.decode_steps = eng.prefills = 0
     outs, wall = run_engine(eng, reqs)
     launches, prefills = ssd_chunk.launches, eng.prefills
     steps, norms = eng.decode_steps, rmsnorm_fwd.launches
+    fused = add_rmsnorm_fwd.launches
     if launches == 0 or launches != n_ssm * prefills:
         raise AssertionError(f"ssm_serve: {launches} ssd_chunk launches for "
                              f"{prefills} prefills x {n_ssm} SSM layers")
-    if norms != n_norms * (steps + prefills):
-        raise AssertionError(f"ssm_serve: {norms} rmsnorm launches for "
-                             f"{steps} steps + {prefills} prefills x "
-                             f"{n_norms}")
+    if norms != n_norms * (steps + prefills) \
+            or fused != (n_norms - 1) * (steps + prefills):
+        raise AssertionError(f"ssm_serve: {norms} rmsnorm launches ({fused} "
+                             f"fused) for {steps} steps + {prefills} "
+                             f"prefills x {n_norms}")
     for (p, n), toks in zip(reqs, outs):
         if toks.shape != (n,) or toks.min() < 0 \
                 or toks.max() >= cfg.padded_vocab:
@@ -1816,7 +2072,8 @@ def phase_ssm_serve(cfg, eng):
             "max_len": MAX_LEN, "block_size": BLOCK, "chunk": CHUNK,
             "requests": REQUESTS, "decode_steps": steps,
             "ssm_layers": n_ssm, "prefills": prefills, "launches": launches,
-            "rmsnorm_launches": norms, "tokens": tokens, "wall_s": wall,
+            "rmsnorm_launches": norms, "rmsnorm_fused_launches": fused,
+            "tokens": tokens, "wall_s": wall,
             "tokens_per_s": tokens / wall,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
@@ -1830,11 +2087,17 @@ def phase_ssm_serve_profile(cfg, eng):
     from torch.profiler import ProfilerActivity, profile
     reqs = [(p, 32) for p, _ in serve_requests(cfg, 0)[:3:2]]
     _, wall = run_engine(eng, reqs)
+    eng.decode_steps = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall_prof = run_engine(eng, reqs)
+    steps = eng.decode_steps
+    summary = device_summary(prof, wall, 12)
     return {"phase": "ssm_serve_profile", "wall_ms": wall * 1e3,
-            "wall_ms_profiled": wall_prof * 1e3,
-            **device_summary(prof, wall, 12)}
+            "wall_ms_profiled": wall_prof * 1e3, "decode_steps": steps,
+            "kernel_launches_per_decode_step_whole_run":
+                summary["kernel_launches"] / steps,
+            "kernel_launches_one_decode_step": step_launches(eng, reqs),
+            **summary}
 
 
 def main():
@@ -1887,9 +2150,13 @@ def main():
     del params                          # the engine keeps its bf16 copy
     torch.cuda.empty_cache()
     serve = run_phase(phase_serve, cfg, eng)
-    run_phase(phase_serve_profile, cfg, eng)
+    serve_prof = run_phase(phase_serve_profile, cfg, eng)
     legacy = run_phase(phase_legacy_serve, cfg, eng.params, eng, dev)
+    params = eng.params
     del eng
+    torch.cuda.empty_cache()
+    run_phase(phase_f32_cache_serve, cfg, params, dev)
+    del params
     torch.cuda.empty_cache()
 
     scfg = get_config(SSM_ARCH)
@@ -1899,7 +2166,7 @@ def main():
                             block_size=BLOCK, chunk=CHUNK, device=dev)
     del sparams
     ssm_serve = run_phase(phase_ssm_serve, scfg, seng)
-    run_phase(phase_ssm_serve_profile, scfg, seng)
+    ssm_prof = run_phase(phase_ssm_serve_profile, scfg, seng)
     del seng
     torch.cuda.empty_cache()
 
@@ -1913,14 +2180,15 @@ def main():
     tr, ds = new_lm_trainer(cfg, dev), lm_dataset(cfg)
     batches = ds.batches()
     lm = run_phase(phase_lm_train, cfg, tr, ds, batches)
-    run_phase(phase_lm_train_profile, cfg, tr, ds, batches)
+    lm_prof = run_phase(phase_lm_train_profile, cfg, tr, ds, batches)
     del tr
     torch.cuda.empty_cache()
 
     t = timing["ring512"]
     w = wagg_timing["cnn6_round/none"]
     lm_leaf = wagg_timing["lm_mlp_leaf/none"]
-    nt = norm_timing["train"]
+    nt = norm_timing["fused_train"]
+    keys = ("x", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{
         "name": "paged_decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/"
@@ -1929,7 +2197,15 @@ def main():
         "launches": serve["launches"], "max_abs_err": t["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "shape": t["shape"]}, {
+        "shape": t["shape"],
+        "linear": {k: timing["linear"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "serve_profile_device_kernels": serve_prof[
+            "paged_decode_device_kernels"],
+        "kernel_launches_one_decode_step": {
+            "gemma3-1b": serve_prof["kernel_launches_one_decode_step"],
+            "mamba2-370m": ssm_prof["kernel_launches_one_decode_step"]}}, {
         "name": "wagg_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/wagg/csrc/wagg_fused.cu",
         "replaces": "src/repro/kernels/wagg/wagg.py:88",
@@ -1941,7 +2217,9 @@ def main():
                 "f32 x, no payload); lm_mlp_leaf: p=4 x 1152*6912 f32",
         "lm_mlp_leaf": {k: lm_leaf[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
-        "lm_train_launches": lm["launches"]["wagg_fused"]}, {
+        "lm_train_launches": lm["launches"]["wagg_fused"],
+        "lm_train_profile": lm_prof["port_kernels"].get(
+            "wagg_fused_kernel")}, {
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
@@ -1950,11 +2228,17 @@ def main():
         "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
         "bound_by": nt["bound_by"], "library_ms": nt["library_ms"],
         "library": nt["library"], "shape": nt["x"],
-        "note": "one local step of the LM run: x (4, 640, 1152) bf16, a "
-                "scale per worker; launches from lm_train",
-        "decode": {k: norm_timing["decode"][k] for k in (
-            "x", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "serve_launches": serve["rmsnorm_launches"]}, {
+        "note": "the residual add fused in (s = x + delta, then the norm), "
+                "at one local step of the LM run: x (4, 640, 1152) bf16, a "
+                "scale per worker; launches from lm_train (all, fused or "
+                "not)",
+        "decode": {k: norm_timing["fused_decode"][k] for k in keys},
+        "plain_norm": {k: norm_timing["train"][k] for k in keys},
+        "plain_norm_decode": {k: norm_timing["decode"][k] for k in keys},
+        "serve_launches": serve["rmsnorm_launches"],
+        "serve_fused_launches": serve["rmsnorm_fused_launches"],
+        "ssm_serve_launches": ssm_serve["rmsnorm_launches"],
+        "legacy_serve_launches": legacy["rmsnorm_launches"]}, {
         "name": "fused_ce", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",

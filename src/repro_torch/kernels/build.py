@@ -34,8 +34,12 @@ SOURCES: Dict[str, Path] = {
     "ssd_chunk": _KERNELS / "ssd_chunk" / "csrc" / "ssd_chunk.cu",
 }
 
+# --split-compile=0: each source's device optimizer spreads its kernels over
+# the host's cores (the template-heavy decode sources build in about two
+# thirds of the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,9 +4,9 @@
 // Replaces the Pallas TPU kernel `decode_attn` in
 // src/repro/kernels/decode_attn/decode_attn.py:78 (body `_decode_kernel`,
 // :34). Same function, not the same schedule:
-//   q (b, kv, g, hd) in float32 or bfloat16, k and v (b, S, kv, hd) in
-//   float32 or bfloat16, one cache_len for the whole batch
-//   -> out (b, kv, g, hd) in q's type.
+//   q (b, kv, g, hd) and k, v (b, S, kv, hd), each in float32 or bfloat16
+//   (any pair), one cache_len for the whole batch -> out (b, kv, g, hd) in
+//   q's type; 1 <= g <= 8, hd a multiple of 16 up to 256.
 //   q is scaled by hd^-0.5 in float32; scores, softmax and the V sum run in
 //   float32. Position t is valid iff t < cache_len and, with a window,
 //   cache_len - 1 - t < window. Running max starts at -1e30, the exponent
@@ -34,10 +34,15 @@
 //   * cache_len comes as a kernel argument (the legacy engine knows it on
 //     the host: no device-to-host read per step), or from device memory
 //     when the caller gives a device scalar.
-//   * A warp owns one position at a time; each lane holds hd / 32
-//     contiguous elements (16-byte loads for bf16 at hd = 256) and the g
-//     query rows in registers, so the g rows share each K/V load. Warps of
-//     a block merge through shared memory.
+//   * A warp owns one position at a time; lane l holds the elements
+//     (j * 32 + l) * CE + [0, CE) for j < J of the g query rows and of the
+//     position's K/V row, in registers, so the g rows share each K/V load
+//     (16-byte loads for bf16 at hd = 256). Fast paths fix (G, CE, J) to
+//     the configs' shapes (gemma3-1b: g 4, hd 256 = 32 x 8; stablelm-1.6b:
+//     g 1, hd 64 = 32 x 2); the generic path (G = 8, CE = 2, J = 4) masks
+//     lanes past hd and heads past g, for any hd that is a multiple of 16
+//     up to 256 (80) and any g up to 8 (7). Warps of a block merge through
+//     shared memory.
 //   * The kernel launches on the caller's stream and allocates nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,12 +73,11 @@ template <int BYTES> struct Vec;
 template <> struct Vec<16> { using type = uint4; };
 template <> struct Vec<8> { using type = uint2; };
 template <> struct Vec<4> { using type = uint32_t; };
-template <> struct Vec<2> { using type = uint16_t; };
 
 // Loads N contiguous elements (N * sizeof(T) bytes, aligned to that size up
 // to 16) and widens them to float.
 template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[N]) {
+__device__ __forceinline__ void load_f32(const T* __restrict__ p, float* out) {
   constexpr int kBytes = N * (int)sizeof(T);
   constexpr int kChunk = kBytes >= 16 ? 16 : kBytes;
   constexpr int kPer = kChunk / (int)sizeof(T);
@@ -91,14 +95,18 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[N
 // One block: one (request, kv head) pair and one split of the positions.
 // Writes the split's partial softmax state (m, l, acc), with l and acc
 // taken against max(m, -0.5e30).
-template <typename TQ, typename TKV, int G, int DPL>
+// FIXED: g == G and hd == 32 * CE * J, known at compile time (a fast path).
+template <typename TQ, typename TKV, int G, int CE, int J, bool FIXED>
 __global__ void __launch_bounds__(kThreads)
 decode_partial(const TQ* __restrict__ q, const TKV* __restrict__ k,
                const TKV* __restrict__ v, const int* __restrict__ len_dev,
                float* __restrict__ part_m, float* __restrict__ part_l,
-               float* __restrict__ part_acc, int kv, int S, int per_split,
-               int len_host, int window, float scale) {
-  constexpr int HD = DPL * 32;
+               float* __restrict__ part_acc, int kv, int g_rt, int hd_rt, int S,
+               int per_split, int len_host, int window, float scale) {
+  constexpr int E = CE * J;                 // elements a lane holds
+  constexpr int HDM = E * 32;               // the widest hd of this path
+  const int g = FIXED ? G : g_rt;
+  const int hd = FIXED ? HDM : hd_rt;
   const int split = blockIdx.x;
   const int n_split = gridDim.x;
   const int bk = blockIdx.y;  // request * kv + kv head
@@ -112,90 +120,116 @@ decode_partial(const TQ* __restrict__ q, const TKV* __restrict__ k,
   int lo = split * per_split;
   if (window > 0) lo = max(lo, cache_len - window);
 
-  float qr[G][DPL];
+  // this lane's elements of the q rows, scaled; lanes past hd and rows
+  // past g hold zeros
+  float qr[G][E];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load_f32<TQ, DPL>(q + ((size_t)bk * G + g) * HD + lane * DPL, qr[g]);
+  for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) qr[g][i] *= scale;
+    for (int j = 0; j < J; ++j) {
+      const int e0 = (j * 32 + lane) * CE;
+      if (gi < g && e0 < hd) {
+        load_f32<TQ, CE>(q + ((size_t)bk * g + gi) * hd + e0, &qr[gi][j * CE]);
+#pragma unroll
+        for (int c = 0; c < CE; ++c) qr[gi][j * CE + c] *= scale;
+      } else {
+#pragma unroll
+        for (int c = 0; c < CE; ++c) qr[gi][j * CE + c] = 0.f;
+      }
+    }
   }
 
-  float m[G], l[G], acc[G][DPL];
+  float m[G], l[G], acc[G][E];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
+  for (int gi = 0; gi < G; ++gi) {
+    m[gi] = kNegInf;
+    l[gi] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+    for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
   }
 
   for (int t = lo + warp; t < hi; t += kWarps) {
     const size_t row = ((size_t)bi * S + t) * kv + kh;
-    float kr[DPL], vr[DPL];
-    load_f32<TKV, DPL>(k + row * HD + lane * DPL, kr);
-    load_f32<TKV, DPL>(v + row * HD + lane * DPL, vr);
+    float kr[E], vr[E];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int e0 = (j * 32 + lane) * CE;
+      if (e0 < hd) {
+        load_f32<TKV, CE>(k + row * hd + e0, &kr[j * CE]);
+        load_f32<TKV, CE>(v + row * hd + e0, &vr[j * CE]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < CE; ++c) kr[j * CE + c] = vr[j * CE + c] = 0.f;
+      }
+    }
     float s[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int gi = 0; gi < G; ++gi) {
       float a = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) a = fmaf(qr[g][i], kr[i], a);
-      s[g] = a;
+      for (int e = 0; e < E; ++e) a = fmaf(qr[gi][e], kr[e], a);
+      s[gi] = a;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
+      for (int gi = 0; gi < G; ++gi)
+        if (gi < g) s[gi] += __shfl_xor_sync(0xffffffffu, s[gi], off);
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float m_new = fmaxf(m[g], s[g]);
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi >= g) continue;
+      const float m_new = fmaxf(m[gi], s[gi]);
       const float m_safe = fmaxf(m_new, kMSafeFloor);
-      const float p = expf(s[g] - m_safe);
-      const float corr = expf(m[g] - m_safe);
-      l[g] = l[g] * corr + p;
+      const float p = expf(s[gi] - m_safe);
+      const float corr = expf(m[gi] - m_safe);
+      l[gi] = l[gi] * corr + p;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(acc[g][i], corr, p * vr[i]);
-      m[g] = m_new;
+      for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(acc[gi][e], corr, p * vr[e]);
+      m[gi] = m_new;
     }
   }
 
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][HD];
+  __shared__ float sm_acc[kWarps][G][HDM];
   if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+    for (int gi = 0; gi < G; ++gi) {
+      sm_m[warp][gi] = m[gi];
+      sm_l[warp][gi] = l[gi];
     }
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) sm_acc[warp][g][lane * DPL + i] = acc[g][i];
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+      for (int c = 0; c < CE; ++c)
+        sm_acc[warp][gi][(j * 32 + lane) * CE + c] = acc[gi][j * CE + c];
+    }
   }
   __syncthreads();
 
-  const size_t base = ((size_t)bk * n_split + split) * G;
-  for (int o = threadIdx.x; o < G * HD; o += kThreads) {
-    const int g = o / HD;
-    const int d = o - g * HD;
+  const size_t base = ((size_t)bk * n_split + split) * g;
+  for (int o = threadIdx.x; o < g * hd; o += kThreads) {
+    const int gi = o / hd;
+    const int d = o - gi * hd;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][gi]);
     const float mx_safe = fmaxf(mx, kMSafeFloor);
     float num = 0.f, den = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(fmaxf(sm_m[w][g], kMSafeFloor) - mx_safe);
-      num = fmaf(c, sm_acc[w][g][d], num);
-      den = fmaf(c, sm_l[w][g], den);
+      const float c = expf(fmaxf(sm_m[w][gi], kMSafeFloor) - mx_safe);
+      num = fmaf(c, sm_acc[w][gi][d], num);
+      den = fmaf(c, sm_l[w][gi], den);
     }
-    part_acc[(base + g) * HD + d] = num;
+    part_acc[(base + gi) * hd + d] = num;
     if (d == 0) {
-      part_m[base + g] = mx;
-      part_l[base + g] = den;
+      part_m[base + gi] = mx;
+      part_l[base + gi] = den;
     }
   }
 }
@@ -260,47 +294,34 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TKV, int G, int DPL>
+template <typename TQ, typename TKV, int G, int CE, int J, bool FIXED>
 int launch(const Args& a) {
   const dim3 grid(a.n_split, a.b * a.kv);
-  decode_partial<TQ, TKV, G, DPL><<<grid, kThreads, 0, a.stream>>>(
+  decode_partial<TQ, TKV, G, CE, J, FIXED><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.len_dev, a.part_m, a.part_l, a.part_acc,
-      a.kv, a.S, a.per_split, a.len_host, a.window, a.scale);
+      a.kv, a.g, a.hd, a.S, a.per_split, a.len_host, a.window, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine<TQ><<<dim3(a.b * a.kv, G), DPL * 32, 0, a.stream>>>(
-      a.part_m, a.part_l, a.part_acc, static_cast<TQ*>(a.out), G, DPL * 32, a.n_split);
+  // one thread per output element of the head, as many as hd rounded up
+  decode_combine<TQ><<<dim3(a.b * a.kv, a.g), (a.hd + 31) / 32 * 32, 0, a.stream>>>(
+      a.part_m, a.part_l, a.part_acc, static_cast<TQ*>(a.out), a.g, a.hd, a.n_split);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, int G>
-int dispatch_hd(const Args& a) {
-  switch (a.hd) {
-    case 32: return launch<TQ, TKV, G, 1>(a);
-    case 64: return launch<TQ, TKV, G, 2>(a);
-    case 128: return launch<TQ, TKV, G, 4>(a);
-    case 256: return launch<TQ, TKV, G, 8>(a);
-    default: return -1;
-  }
-}
-
+// fast paths for the configs' shapes, the generic path for the rest
 template <typename TQ, typename TKV>
-int dispatch_g(const Args& a) {
-  switch (a.g) {
-    case 1: return dispatch_hd<TQ, TKV, 1>(a);
-    case 2: return dispatch_hd<TQ, TKV, 2>(a);
-    case 4: return dispatch_hd<TQ, TKV, 4>(a);
-    case 8: return dispatch_hd<TQ, TKV, 8>(a);
-    default: return -1;
-  }
+int dispatch(const Args& a) {
+  if (a.g == 4 && a.hd == 256) return launch<TQ, TKV, 4, 8, 1, true>(a);
+  if (a.g == 1 && a.hd == 64) return launch<TQ, TKV, 1, 2, 1, true>(a);
+  return launch<TQ, TKV, 8, 2, 4, false>(a);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Supported (q, cache) pairs:
-// (bf16, bf16), (f32, bf16), (f32, f32); g in {1, 2, 4, 8}; hd in
-// {32, 64, 128, 256}; 1 <= n_split <= 64 and n_split * per_split >= S.
+// dtype codes: 0 = float32, 1 = bfloat16, any (q, cache) pair. 1 <= g <= 8;
+// hd a multiple of 16, 16 <= hd <= 256; 1 <= n_split <= 64 and n_split *
+// per_split >= S.
 // len_dev, when not null, points at an int32 cache_len in device memory
 // and len_host is ignored. window <= 0 means no window. Returns 0, a
 // cudaError_t from the launches, or -1 for an unsupported configuration.
@@ -315,8 +336,10 @@ extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                b, kv, g, hd, S, per_split, n_split, len_host, window, scale,
                static_cast<cudaStream_t>(stream)};
   if (n_split < 1 || n_split > kMaxSplits || (long long)n_split * per_split < S) return -1;
-  if (q_dtype == 1 && kv_dtype == 1) return dispatch_g<__nv_bfloat16, __nv_bfloat16>(a);
-  if (q_dtype == 0 && kv_dtype == 1) return dispatch_g<float, __nv_bfloat16>(a);
-  if (q_dtype == 0 && kv_dtype == 0) return dispatch_g<float, float>(a);
+  if (g < 1 || g > 8 || hd < 16 || hd > 256 || hd % 16 != 0) return -1;
+  if (q_dtype == 1 && kv_dtype == 1) return dispatch<__nv_bfloat16, __nv_bfloat16>(a);
+  if (q_dtype == 1 && kv_dtype == 0) return dispatch<__nv_bfloat16, float>(a);
+  if (q_dtype == 0 && kv_dtype == 1) return dispatch<float, __nv_bfloat16>(a);
+  if (q_dtype == 0 && kv_dtype == 0) return dispatch<float, float>(a);
   return -1;
 }

@@ -5,7 +5,8 @@
 A tensor on the CPU takes the plain version (``ref.py``); a tensor on a
 CUDA device launches the kernel, or the call raises. There is no fallback
 from a failed build or launch. ``decode_attn.launches`` counts the
-kernel's launches.
+kernel's launches. q and the cache take any pair of float32 and
+bfloat16, 1 <= g <= 8 and any head_dim that is a multiple of 16 up to 256.
 
 ``cache_len`` is one length for the whole batch. A Python int goes to the
 kernel as an argument, so the caller's host loop never reads the device;
@@ -21,14 +22,10 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attn.paged import check_shapes
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SUPPORTED_DTYPES = {(torch.bfloat16, torch.bfloat16),
-                     (torch.float32, torch.bfloat16),
-                     (torch.float32, torch.float32)}
-_SUPPORTED_G = (1, 2, 4, 8)
-_SUPPORTED_HD = (32, 64, 128, 256)
 _MAX_SPLITS = 64
 _TARGET_BLOCKS = 264            # two CUDA blocks for each of the 132 SMs
 _MIN_PER_SPLIT = 8              # positions: two for each of a block's warps
@@ -61,13 +58,7 @@ def _check(q, k, v):
     if k.shape[0] != b or k.shape[2] != kv or k.shape[3] != hd:
         raise ValueError(f"cache {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if (q.dtype, k.dtype) not in _SUPPORTED_DTYPES:
-        raise TypeError(f"unsupported (q, cache) dtypes ({q.dtype}, "
-                        f"{k.dtype})")
-    if g not in _SUPPORTED_G or hd not in _SUPPORTED_HD:
-        raise ValueError(f"unsupported group size {g} or head_dim {hd}: the "
-                         f"kernel takes g in {_SUPPORTED_G}, hd in "
-                         f"{_SUPPORTED_HD}")
+    check_shapes(q.dtype, k.dtype, g, hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

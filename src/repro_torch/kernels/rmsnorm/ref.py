@@ -6,8 +6,10 @@ scale``, the reduction in float32 (float64 for float64 inputs, which
 the gradient checks use), the output in x's dtype.
 ``rmsnorm_fwd_ref`` is the kernel's own contract, which also returns the
 per-row ``rstd`` the backward pass reads and takes a scale per group of
-rows. The CPU path of the port runs it, and ``chip_smoke.py`` holds the
-CUDA kernel to it on the card.
+rows. ``add_rmsnorm_fwd_ref`` is the fused launch's contract: the residual
+sum ``s = x + delta`` (torch's add, rounded once to x's dtype), then the
+norm of ``s``. The CPU path of the port runs them, and ``chip_smoke.py``
+holds the CUDA kernel to them on the card.
 """
 from __future__ import annotations
 
@@ -46,3 +48,21 @@ def rmsnorm_fwd_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     rstd = torch.rsqrt(xf.square().mean(dim=-1) + eps)
     y = (xf * rstd[..., None] * acc(group_scale(scale, x))).to(x.dtype)
     return y, rstd
+
+
+def add_rmsnorm_fwd_ref(x: torch.Tensor, delta: torch.Tensor,
+                        scale: torch.Tensor, eps: float = 1e-6
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x, delta: (..., d) of one dtype; scale as ``rmsnorm_fwd_ref``.
+    Returns (s = x + delta, y = the norm of s, rstd (...,) float32)."""
+    s = x + delta
+    y, rstd = rmsnorm_fwd_ref(s, scale, eps)
+    return s, y, rstd
+
+
+def add_rmsnorm_ref(x: torch.Tensor, delta: torch.Tensor,
+                    scale: torch.Tensor, eps: float = 1e-6
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + delta, its RMSNorm): the plain version of the fused op."""
+    s = x + delta
+    return s, rmsnorm_ref(s, scale, eps)

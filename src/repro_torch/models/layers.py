@@ -6,7 +6,7 @@ scale, half-split RoPE, SwiGLU.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,24 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6,
     ``torch.func``); ``kernels.rmsnorm.rmsnorm_ref`` is the plain version
     that ``chip_smoke.py`` holds it to."""
     return norm(x, params["scale"], eps)
+
+
+def add_rmsnorm(params, x: torch.Tensor, delta: Optional[torch.Tensor],
+                eps: float = 1e-6, norm: NormFn = rmsnorm_kernel
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``s = x + delta`` and ``rmsnorm(s)``: returns
+    (s, the norm of s). A ``norm`` that carries its fused form as
+    ``norm.fused_add`` (the ``kernels.rmsnorm`` op: one launch) runs it;
+    any other norm runs torch's add and then ``norm``, the plain version
+    of the same function. ``delta=None`` (no residual pending, as before a
+    model's first layer) is the plain norm of x."""
+    if delta is None:
+        return x, rmsnorm(params, x, eps, norm)
+    fused = getattr(norm, "fused_add", None)
+    if fused is not None:
+        return fused(x, delta, params["scale"], eps)
+    s = x + delta
+    return s, rmsnorm(params, s, eps, norm)
 
 
 # -- Rotary position embeddings --------------------------------------------------

@@ -17,7 +17,10 @@ Parameters are cast to ``compute_dtype`` at every use, as in JAX; for a
 tensor already in that dtype the cast is free, so a caller may hold one
 compute-dtype copy of the weights (the serving engines do).
 
-Every RMSNorm goes through ``kernels.rmsnorm``, the loss's per-token NLL
+Every RMSNorm goes through ``kernels.rmsnorm``, and every one that follows
+a residual add (all but the first layer's first) adds that residual in the
+same launch (``layers.add_rmsnorm``): the layer loops carry the pending
+residual ``delta`` to the next norm. The loss's per-token NLL
 through ``kernels.fused_ce``, every SSM layer's prefill through
 ``kernels.ssd_chunk`` and every attention layer of ``decode_step`` through
 ``kernels.decode_attn``: the CUDA kernels on a CUDA tensor, their plain
@@ -158,17 +161,24 @@ def _qkv(ap: Dict, h: torch.Tensor, rope, dt: torch.dtype):
     return q, k, _proj(h, ap["wv"].to(dt))
 
 
-def _ffn_and_out(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
-                 dt: torch.dtype, norm: L.NormFn) -> torch.Tensor:
-    if "mlp" in lp:
-        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps,
-                                           norm), dt)
-    return x
+def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
+         delta: Optional[torch.Tensor], dt: torch.dtype, norm: L.NormFn
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The gated MLP behind its norm, whose launch adds the pending
+    residual ``delta`` into x first. Returns (x, the residual now pending:
+    the MLP's output)."""
+    if "mlp" not in lp:
+        return x, delta
+    x, h = L.add_rmsnorm(lp["ffn_norm"], x, delta, cfg.norm_eps, norm)
+    return x, L.mlp(lp["mlp"], h, dt)
 
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
-            dt: torch.dtype, norm: L.NormFn) -> torch.Tensor:
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, norm)
+            delta: Optional[torch.Tensor], dt: torch.dtype,
+            norm: L.NormFn) -> torch.Tensor:
+    """The final norm, with the last layer's residual fused in, and the
+    head."""
+    _, x = L.add_rmsnorm(params["final_norm"], x, delta, cfg.norm_eps, norm)
     if cfg.tie_embeddings:
         return L.tied_head(params["embed"], x, dt, cfg.logits_softcap)
     return L.head(params["head"], x, dt, cfg.logits_softcap)
@@ -178,16 +188,18 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 # Training / scoring forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, rope, i: int,
-                 dt: torch.dtype, norm: L.NormFn) -> torch.Tensor:
+def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
+                 delta: Optional[torch.Tensor], rope, i: int,
+                 dt: torch.dtype, norm: L.NormFn
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The dense branch of JAX's ``_apply_layer``: causal self-attention
     over the whole sequence (the layer's window, if any), then the gated
-    MLP, each behind its RMSNorm and residual."""
-    h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+    MLP, each behind its RMSNorm and residual. Each residual add runs in
+    the next norm's launch: takes and returns (x, the pending residual)."""
+    x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps, norm)
     q, k, v = _qkv(lp["attn"], h, rope, dt)
     att = flash_attention(q, k, v, causal=True, window=cfg.window_for_layer(i))
-    x = x + _out(att, lp["attn"]["wo"].to(dt))
-    return _ffn_and_out(cfg, lp, x, dt, norm)
+    return _ffn(cfg, lp, x, _out(att, lp["attn"]["wo"].to(dt)), dt, norm)
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
@@ -195,18 +207,21 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) -> (logits (b, s, V) in ``compute_dtype``, the MoE
     auxiliary loss, zero for a dense model), as JAX's ``forward``. 2 norms
-    a layer and the final one: 2 * n_layers + 1 calls of ``norm``. Dense
-    layers only (``_check_trainable``)."""
+    a layer and the final one: 2 * n_layers + 1 calls of ``norm``, all but
+    the first with the residual add before it fused in. Dense layers only
+    (``_check_trainable``)."""
     _check_trainable(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
     b, s = tokens.shape
     rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
                          cfg.head_dim, cfg.rope_theta)
+    delta = None
     for i in range(cfg.n_layers):
-        x = _apply_layer(cfg, params["layers"][f"L{i}"], x, rope, i, dt, norm)
+        x, delta = _apply_layer(cfg, params["layers"][f"L{i}"], x, delta,
+                                rope, i, dt, norm)
     moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(cfg, params, x, dt, norm), moe_loss
+    return _logits(cfg, params, x, delta, dt, norm), moe_loss
 
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
@@ -274,6 +289,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     x = L.embed(params["embed"], tokens, dt)
     b, s = tokens.shape
     rope = _rope(cfg, torch.arange(s, device=x.device).expand(b, s))
+    delta = None                # the residual the next norm adds in
 
     for i in range(cfg.n_layers):
         lp = params["layers"][f"L{i}"]
@@ -282,10 +298,11 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             kv = entry["kv"]
             w = cfg.window_for_layer(i)
             size = kv.k.shape[1]
-            h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+            x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps,
+                                 norm)
             q, k, v = _qkv(lp["attn"], h, rope, dt)
             att = flash_attention(q, k, v, causal=True, window=w)
-            x = x + _out(att, lp["attn"]["wo"].to(dt))
+            delta = _out(att, lp["attn"]["wo"].to(dt))
             if w is not None and s >= size:
                 # ring layout: the slot of token p is p % size
                 kv.k.copy_(torch.roll(k[:, -size:], s % size, dims=1))
@@ -294,15 +311,18 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 kv.k[:, :s] = k.to(kv.k.dtype)
                 kv.v[:, :s] = v.to(kv.v.dtype)
         if cfg.layer_is_ssm(i):
-            h = L.rmsnorm(lp["ssm_norm"], x, cfg.norm_eps, norm)
-            y, st = SSM.ssm_prefill(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
-                                    ssd)
-            x = x + y
+            x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps,
+                                 norm)
+            delta, st = SSM.ssm_prefill(lp["ssm"], h, cfg.ssm, cfg.d_model,
+                                        dt, ssd)
             entry["ssm"].s.copy_(st.s)
             entry["ssm"].conv.copy_(st.conv)
-        x = _ffn_and_out(cfg, lp, x, dt, norm)
+        x, delta = _ffn(cfg, lp, x, delta, dt, norm)
 
-    return _logits(cfg, params, x[:, -1:], dt, norm), cache
+    # only the last position reaches the head, and nothing reads the full
+    # final x: the last residual is added for that row alone
+    last = None if delta is None else delta[:, -1:]
+    return _logits(cfg, params, x[:, -1:], last, dt, norm), cache
 
 
 def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -321,6 +341,7 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
     rope = _rope(cfg, torch.full((x.shape[0], 1), index, device=x.device))
+    delta = None                # the residual the next norm adds in
 
     for i in range(cfg.n_layers):
         lp = params["layers"][f"L{i}"]
@@ -328,24 +349,25 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         if cfg.layer_is_attn(i):
             kv = entry["kv"]
             size = kv.k.shape[1]
-            h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+            x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps,
+                                 norm)
             q, k, v = _qkv(lp["attn"], h, rope, dt)
             slot = index if cfg.window_for_layer(i) is None else index % size
             kv.k[:, slot] = k[:, 0].to(kv.k.dtype)
             kv.v[:, slot] = v[:, 0].to(kv.v.dtype)
             att = decode_attention(q, kv.k, kv.v, min(index + 1, size),
                                    window=None, kernel=attn)
-            x = x + _out(att, lp["attn"]["wo"].to(dt))
+            delta = _out(att, lp["attn"]["wo"].to(dt))
         if cfg.layer_is_ssm(i):
-            h = L.rmsnorm(lp["ssm_norm"], x, cfg.norm_eps, norm)
-            y, st = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
-                                  state=entry["ssm"])
-            x = x + y
+            x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps,
+                                 norm)
+            delta, st = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
+                                      state=entry["ssm"])
             entry["ssm"].s.copy_(st.s)
             entry["ssm"].conv.copy_(st.conv)
-        x = _ffn_and_out(cfg, lp, x, dt, norm)
+        x, delta = _ffn(cfg, lp, x, delta, dt, norm)
 
-    return _logits(cfg, params, x, dt, norm), cache
+    return _logits(cfg, params, x, delta, dt, norm), cache
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +447,7 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     rows = torch.arange(x.shape[0], device=x.device)
     idx = index.long()
     writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    delta = None                # the residual the next norm adds in
 
     for i in range(cfg.n_layers):
         lp = params["layers"][f"L{i}"]
@@ -446,28 +469,29 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                      torch.full_like(pb, kv.k.shape[0] - 1))
                 writes[al["group"]] = (pb, torch.remainder(slot, block_size))
             pb, off = writes[al["group"]]
-            h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, norm)
+            x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps,
+                                 norm)
             q, k, v = _qkv(lp["attn"], h, rope, dt)
             kv.k[pb, off] = k[:, 0].to(kv.k.dtype)
             kv.v[pb, off] = v[:, 0].to(kv.v.dtype)
             att = paged_decode_attention(q, kv.k, kv.v, table, index,
                                          ring=ring, window=al["window"],
                                          kernel=attn_kernel)
-            x = x + _out(att, lp["attn"]["wo"].to(dt))
+            delta = _out(att, lp["attn"]["wo"].to(dt))
         if "ssm" in lay:
             old = pools[f"L{i}"]["ssm"]
-            h = L.rmsnorm(lp["ssm_norm"], x, cfg.norm_eps, norm)
-            y, st = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
-                                  state=old)
-            x = x + y
+            x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps,
+                                 norm)
+            delta, st = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
+                                      state=old)
             for new_t, old_t in zip(st, old):
                 if active is not None:      # inactive rows keep their state
                     keep = active.reshape((-1,) + (1,) * (new_t.dim() - 1))
                     new_t = torch.where(keep, new_t, old_t)
                 old_t.copy_(new_t)
-        x = _ffn_and_out(cfg, lp, x, dt, norm)
+        x, delta = _ffn(cfg, lp, x, delta, dt, norm)
 
-    return _logits(cfg, params, x, dt, norm), pools
+    return _logits(cfg, params, x, delta, dt, norm), pools
 
 
 __all__ = ["KVCache", "PagedKV", "cache_layout", "cast_params",

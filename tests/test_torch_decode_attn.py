@@ -83,6 +83,32 @@ def test_plain_matches_jax_ref_over_group_and_head_sizes(g, hd):
         np.testing.assert_allclose(ours, ref, rtol=0, atol=TOL["float32"])
 
 
+@pytest.mark.parametrize("window", [None, 20])
+@pytest.mark.parametrize("g,hd,q_dtype,kv_dtype", [
+    (7, 80, "bfloat16", "float32"),     # arctic's g, stablelm-3b's hd
+    (7, 80, "float32", "float32"),
+    (4, 256, "bfloat16", "float32"),    # gemma3-1b, bf16 model, f32 cache
+    (2, 80, "bfloat16", "bfloat16")])
+def test_plain_matches_jax_at_the_widened_dtypes_and_shapes(window, g, hd,
+                                                            q_dtype,
+                                                            kv_dtype):
+    """The pairs and shapes the CUDA kernel gained: (bf16 q, f32 cache),
+    head_dim 80, group size 7, against JAX's ref and interpret kernel."""
+    b, S, kv, cache_len = 2, 70, 2, 53
+    q, k, v = _inputs(b, S, kv, g, hd, seed=g * hd)
+    tq, jq = _as(q, q_dtype)
+    (tk, jk), (tv, jv) = (_as(a, kv_dtype) for a in (k, v))
+    ours = decode_attn_ref(tq, tk, tv, cache_len, window=window)
+    assert ours.dtype == tq.dtype and ours.shape == (b, kv, g, hd)
+    ref = jax_decode_ref(jq, jk, jv, jnp.int32(cache_len), window=window)
+    kern = jax_decode_kernel(jq, jk, jv, jnp.int32(cache_len), window=window,
+                             interpret=True)
+    for other in (ref, kern):
+        np.testing.assert_allclose(ours.float().numpy(),
+                                   np.asarray(other.astype(jnp.float32)),
+                                   rtol=0, atol=TOL[q_dtype])
+
+
 def test_cpu_tensor_takes_plain_version_without_a_launch():
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 50, 1, 4, 32, seed=1))
     before = decode_attn.launches

@@ -3,8 +3,9 @@
 The port's plain version (``repro_torch.kernels.decode_attn.ref``) is held
 to JAX's ``paged_decode_attn_ref`` and to JAX's Pallas kernel in interpret
 mode, on the same numpy inputs, in float32 with atol 1e-5 (the two differ
-only in summation order). The CUDA kernel itself runs on the card only:
-``chip_smoke.py`` holds it to the plain version there.
+only in summation order); a bfloat16 output within 2e-2 (one bf16 ulp of
+an output below 4 is at most 2^-6). The CUDA kernel itself runs on the
+card only: ``chip_smoke.py`` holds it to the plain version there.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -17,9 +18,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attn import (paged_decode_attention,
                                              paged_decode_attn,
                                              paged_decode_attn_ref)
-from repro_torch.kernels.decode_attn.paged import split_plan
+from repro_torch.kernels.decode_attn.paged import check_shapes, split_plan
 
 ATOL = 1e-5
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def _inputs(b, kv, g, hd, bs, n_blk, seed):
@@ -77,6 +79,55 @@ def test_plain_matches_jax_on_gqa_and_trash_row():
         np.testing.assert_allclose(ours, ref, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("layout", ["linear", "ring_window"])
+@pytest.mark.parametrize("g,hd,q_dtype,kv_dtype", [
+    (7, 80, "bfloat16", "float32"),     # arctic's g, stablelm-3b's hd
+    (7, 80, "float32", "float32"),
+    (4, 256, "bfloat16", "float32"),    # gemma3-1b, bf16 model, f32 cache
+    (2, 80, "bfloat16", "bfloat16")])
+def test_plain_matches_jax_at_the_widened_dtypes_and_shapes(layout, g, hd,
+                                                            q_dtype,
+                                                            kv_dtype):
+    """The pairs and shapes the CUDA kernel gained: (bf16 q, f32 cache),
+    head_dim 80, group size 7, against JAX's ref and interpret kernel."""
+    b, kv, bs, n_blk = 3, 2, 8, 4
+    S = bs * n_blk
+    ring, window = LAYOUTS[layout](S)
+    q, kp, vp, tab = _inputs(b, kv, g, hd, bs, n_blk, seed=g + hd)
+    idx = np.asarray([0, S // 2 + 3, 3 * S + 5 if ring else S - 1], np.int32)
+    tq = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    tk, tv = (torch.from_numpy(a).to(getattr(torch, kv_dtype))
+              for a in (kp, vp))
+    ours = paged_decode_attn_ref(tq, tk, tv, *_torch(tab, idx), ring=ring,
+                                 window=window)
+    assert ours.dtype == tq.dtype and ours.shape == (b, kv, g, hd)
+    args = [jnp.asarray(q).astype(getattr(jnp, q_dtype)),
+            jnp.asarray(kp).astype(getattr(jnp, kv_dtype)),
+            jnp.asarray(vp).astype(getattr(jnp, kv_dtype)),
+            jnp.asarray(tab), jnp.asarray(idx)]
+    ref = jax_paged_ref(*args, ring=ring, window=window)
+    kern = jax_paged_kernel(*args, ring=ring, window=window, interpret=True)
+    for other in (ref, kern):
+        np.testing.assert_allclose(ours.float().numpy(),
+                                   np.asarray(other.astype(jnp.float32)),
+                                   rtol=0, atol=TOL[q_dtype])
+
+
+def test_shape_check_takes_every_dtype_pair_g_up_to_8_and_hd_by_16():
+    """The wrappers raise only outside 1 <= g <= 8, hd a multiple of 16 up
+    to 256, and float32/bfloat16."""
+    for qd in (torch.float32, torch.bfloat16):
+        for kd in (torch.float32, torch.bfloat16):
+            for g in range(1, 9):
+                for hd in range(16, 257, 16):
+                    check_shapes(qd, kd, g, hd)
+    for g, hd in ((0, 64), (9, 64), (4, 72), (4, 0), (4, 272)):
+        with pytest.raises(ValueError, match="unsupported group size"):
+            check_shapes(torch.float32, torch.float32, g, hd)
+    with pytest.raises(TypeError, match="cache must be"):
+        check_shapes(torch.float32, torch.float16, 4, 64)
+
+
 def test_cpu_tensor_takes_plain_version_without_a_launch():
     q, kp, vp, tab = _torch(*_inputs(2, 1, 4, 32, 8, 4, seed=1))
     idx = torch.tensor([3, 30], dtype=torch.int32)
@@ -108,12 +159,21 @@ def test_ring_capacity_must_match_table():
         paged_decode_attn(q, kp, vp, tab, idx, ring=16)
 
 
-@pytest.mark.parametrize("b,kv,n_blk", [(4, 1, 32), (4, 1, 64), (1, 1, 64),
-                                        (8, 8, 5), (64, 4, 3)])
-def test_split_plan_covers_the_table(b, kv, n_blk):
-    per, n_split = split_plan(b, kv, n_blk)
-    assert per >= 1 and 1 <= n_split <= 64
-    assert per * n_split >= n_blk > per * (n_split - 1)
+@pytest.mark.parametrize("b,kv,n_blk,bs", [
+    (4, 1, 32, 16), (4, 1, 64, 16), (1, 1, 64, 16), (8, 8, 5, 16),
+    (64, 4, 3, 16), (4, 1, 64, 1), (1, 1, 4096, 16), (2, 1, 1000, 3)])
+def test_split_plan_covers_the_table(b, kv, n_blk, bs):
+    """Splits of whole 32-slot tiles that cover the table's slots with no
+    empty split at the end, at most 16 of them (one thread block cluster),
+    each within 1024 table entries; the serve run's shapes (b 4, ring 512
+    and linear 1024) take 16 splits of 32 and 64 slots."""
+    per, n_split = split_plan(b, kv, n_blk, bs)
+    S = n_blk * bs
+    assert per % 32 == 0 and 1 <= n_split <= 16
+    assert per * n_split >= S > per * (n_split - 1)
+    assert -(-per // bs) + 1 <= 1024
+    if (b, kv, bs) == (4, 1, 16) and n_blk in (32, 64):
+        assert (per, n_split) == (n_blk, 16)
 
 
 def test_build_without_nvcc_raises(monkeypatch):
