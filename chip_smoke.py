@@ -14,6 +14,8 @@ through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
+                (registers, shared memory, spills), ssd_chunk's tensor-core
+                instructions (HMMA) per entry in the built SASS
   kernel_check  paged_decode_attn vs its plain version over layouts, all four
                 (q, cache) dtype pairs, g 1/4/7/8 and hd 64/80/128/256;
                 one launch a call
@@ -34,12 +36,18 @@ Prints one JSON object per phase:
   ce_time       fused_ce, plain version, F.cross_entropy and bound at one
                 local step's gemma3-1b logits
   decode_attn_check  decode_attn vs its plain version over g x hd (with
-                g 7, hd 80), S, all four dtype pairs, cache_len and window
-  decode_attn_time   decode_attn, plain version, SDPA and bound at the
-                legacy serve run's two cache shapes
-  ssd_check     ssd_chunk vs its plain version (dtypes, widths, padded
-                tails, steep decay) and ssd_chunked_kernel vs ssd_chunked
-  ssd_time      ssd_chunk, plain version and bound at mamba2-370m's
+                g 7, hd 80), S, all four dtype pairs, cache_len and window;
+                a batch that fills the card (a cluster of one block), the
+                global layer's full 1024 positions, a device cache_len at 0
+                and S; one device kernel a call (profiler)
+  decode_attn_time   decode_attn, plain version, SDPA, bound and device
+                kernels a call at the legacy serve run's two cache shapes
+  ssd_check     ssd_chunk vs its plain version (dtypes, mamba2 and jamba
+                widths, ds 20, padded tails, steep decay, unaligned inputs)
+                and ssd_chunked_kernel vs ssd_chunked
+  ssd_time      ssd_chunk, plain version, bound (products at the bf16
+                tensor-core rate), bytes_ms and f32_ops_ms (the products at
+                the f32 rate, the bound of PRs 15-16) at mamba2-370m's
                 prefill shapes (b 1 and b 4, 512 tokens)
   agree         full-width decode steps through the kernels vs through the
                 plain versions: logits agree, all finite
@@ -53,7 +61,9 @@ Prints one JSON object per phase:
                 device kernels of paged_decode_attn == its launches;
                 device operations of one decode step
   legacy_serve  ServeEngine on gemma3-1b, 4 x 480 tokens + 96 new: tokens/s,
-                launches == 26 x decode steps (decode_attn)
+                launches == 26 x decode steps (decode_attn); under the
+                profiler the same tokens, device kernels == launches, and
+                its device ms
   f32_cache_serve  the bf16 model on an f32 cache through both engines (the
                 (bf16 q, f32 cache) pair of both decode kernels)
   ssm_agree     full-width mamba2-370m prefill and paged decode through
@@ -83,6 +93,7 @@ line. Any failed check raises and the script exits non-zero. Without a
 card, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -97,6 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # bf16 on the tensor cores
 
 ARCH = "gemma3-1b"
 N_SLOTS, MAX_LEN, BLOCK, CHUNK = 4, 1024, 16, 32
@@ -161,21 +173,44 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def entry_name(name):
+    """The kernel and its template arguments, from a mangled entry name."""
+    starts = [name.find(k) for k in PORT_KERNELS]
+    start = next((i for i in starts if i >= 0), 0)
+    end = name.find("Ev", start)
+    return name[start:end if end >= 0 else len(name)]
+
+
 def ptxas_summary(lines):
     """Pairs each compiled entry (template arguments of the mangled name)
-    with its ptxas register/stack/spill line."""
-    out, entry = [], None
+    with its ptxas register, shared memory and spill lines."""
+    out, entry, spill = [], None, ""
     for ln in lines:
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-            starts = [name.find(k) for k in PORT_KERNELS]
-            start = next((i for i in starts if i >= 0), 0)
-            end = name.find("Ev", start)
-            entry = name[start:end if end >= 0 else len(name)]
+            entry, spill = entry_name(ln.split("'")[1]), ""
+        elif "spill" in ln and entry is not None:
+            spill = "; " + ln.strip()
         elif "Used" in ln and entry is not None:
-            out.append([entry, ln.split(":", 1)[1].strip()])
+            out.append([entry, ln.split(":", 1)[1].strip() + spill])
             entry = None
     return out
+
+
+def sass_mma(lib):
+    """Tensor-core instructions (HMMA) in each entry of a built library, by
+    cuobjdump -sass beside nvcc."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            fn = entry_name(ln.split("Function :", 1)[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def assert_close(name, out, ref, tol):
@@ -486,8 +521,26 @@ def phase_serve(cfg, eng):
 
 # the device kernels of the port's CUDA sources, by entry name
 PORT_KERNELS = ("paged_decode_kernel", "wagg_fused_kernel", "rmsnorm_kernel",
-                "fused_ce_kernel", "decode_partial", "decode_combine",
+                "fused_ce_kernel", "decode_attn_kernel",
                 "ssd_chunk_kernel")
+
+
+PROFILE_PAD_S = 0.25
+
+
+@contextlib.contextmanager
+def device_profile():
+    """torch.profiler over device activity, with PROFILE_PAD_S of idle
+    host time on either side of the profiled work. The profiler drops the
+    device records whose card timestamps fall outside its window (kineto's
+    "Out-of-range" count at KINETO_LOG_LEVEL=1), and those timestamps
+    stray from the host clock by up to some tens of milliseconds, which
+    cost a run's first or last kernels without the pad."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        time.sleep(PROFILE_PAD_S)
 
 
 def device_summary(prof, wall_s, top_n):
@@ -523,13 +576,12 @@ def step_launches(eng, reqs, at_step=8):
     (the model's step, sampling, the state update): the run's
     ``at_step``-th decode step profiled alone."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     orig, seen = eng._decode_once, []
 
     def once(*args):
         if not seen and eng.decode_steps == at_step:
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with device_profile() as prof:
                 orig(*args)
                 torch.cuda.synchronize()
             seen.append(sum(
@@ -555,14 +607,13 @@ def phase_serve_profile(cfg, eng):
     kernel). Then the device operations of one decode step, profiled
     alone, and the run's operations over its decode steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.decode_attn import paged_decode_attn
     reqs = serve_requests(cfg, 0)
     _, wall = run_engine(eng, reqs)
     paged_decode_attn.launches = eng.decode_steps = 0
     # device activity only: host events of a run this long take minutes
     # to post-process
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         _, wall_prof = run_engine(eng, reqs)
     steps, launches = eng.decode_steps, paged_decode_attn.launches
     events = [e for e in prof.key_averages()
@@ -888,12 +939,11 @@ def phase_train_profile(dev):
     """A fresh trainer: 2 warm-up rounds, 5 rounds unprofiled (wall), then
     5 under torch.profiler on device activity: busy time against that
     wall."""
-    from torch.profiler import ProfilerActivity, profile
     rounds = 5
     tr, dataset = new_trainer(dev)
     run_trainer(tr, dataset, 2)
     wall, _ = run_trainer(tr, dataset, rounds)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         wall_prof, _ = run_trainer(tr, dataset, rounds)
     return {"phase": "train_profile", "rounds": rounds,
             "wall_ms": wall * 1e3, "wall_ms_profiled": wall_prof * 1e3,
@@ -1401,11 +1451,10 @@ def phase_lm_train(cfg, tr, ds, batches):
 def phase_lm_train_profile(cfg, tr, ds, batches):
     """2 more rounds unprofiled (wall), then 2 under torch.profiler on
     device activity: busy time against that wall, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
     rounds = 2
     done = LM["warmup_rounds"] + LM["rounds"]
     wall = run_lm_rounds(tr, ds, batches, rounds, done)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         wall_prof = run_lm_rounds(tr, ds, batches, rounds, done + rounds)
     return {"phase": "lm_train_profile", "rounds": rounds,
             "wall_ms": wall * 1e3, "wall_ms_profiled": wall_prof * 1e3,
@@ -1422,14 +1471,35 @@ def decode_inputs(b, S, kv, g, hd, q_dtype, kv_dtype, gen, dev):
     return q, k, v
 
 
+def device_kernels(fn, calls):
+    """The device operations (kernels, copies, fills) of ``calls`` calls
+    of ``fn`` under torch.profiler: {name: count}."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with device_profile() as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def phase_decode_attn_check(dev):
     """decode_attn against its plain version over g x hd (the fast paths'
     (4, 256) and (1, 64), and the generic path's (8, 128) and (7, 80)), S
     (512, and 1000: no multiple of the split), all four dtype pairs,
     cache_len (1, mid-cache, S) and a window; one case reads cache_len from
-    device memory."""
+    device memory. Then a batch whose rows fill the card (b 66 x kv 4: one
+    split a row, a cluster of one block, its 1024 positions through the
+    two-stage ring), the global layer's 1024 positions at cache_len 1024
+    (the largest split, whole in flight), a device cache_len at S and at 0
+    (no valid position: the Pallas kernel's floored denominator gives 0,
+    where the plain version's softmax over an all-masked row is uniform),
+    and, under the profiler, one device kernel a call."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
+    from repro_torch.kernels.decode_attn.decode_attn import split_plan
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     worst = {}
@@ -1459,10 +1529,54 @@ def phase_decode_attn_check(dev):
     ref = decode_attn_ref(q, k, v, 777, window=300)
     worst["bfloat16"] = max(worst["bfloat16"], assert_close(
         "device_cache_len", out, ref, TOL["bfloat16"]))
-    return {"phase": "decode_attn_check", "cases": n_cases + 1,
+    n_cases += 1
+    extra = []
+    # (name, b, kv, g, hd, S, dtypes, [(cache_len, window, on device)])
+    for name, bb, kvv, g, hd, S, (qn, kn), lens in (
+            ("fill_card", 66, 4, 2, 64, 1024, ("bfloat16", "float32"),
+             [(1000, None, False), (1000, 300, False), (1024, None, True)]),
+            ("global1024_full", LEGACY["b"], 1, 4, 256, 1024,
+             ("bfloat16", "bfloat16"),
+             [(1024, None, False), (1024, None, True), (0, None, True)]),
+            ("global1024_full_f32", LEGACY["b"], 1, 4, 256, 1024,
+             ("float32", "float32"), [(1024, None, False)])):
+        q, k, v = decode_inputs(bb, S, kvv, g, hd, getattr(torch, qn),
+                                getattr(torch, kn), gen, dev)
+        for cache_len, window, on_dev in lens:
+            arg = (torch.tensor(cache_len, dtype=torch.int32, device=dev)
+                   if on_dev else cache_len)
+            out = decode_attn(q, k, v, arg, window=window)
+            case = f"{name}_len{cache_len}_w{window}_dev{int(on_dev)}"
+            if cache_len == 0:
+                ref = torch.zeros_like(out)
+            else:
+                ref = decode_attn_ref(q, k, v, cache_len, window=window)
+            torch.cuda.synchronize()
+            err = assert_close(case, out, ref, TOL[qn])
+            worst[qn] = max(worst[qn], err)
+            extra.append({"case": case, "splits": split_plan(bb, kvv, S),
+                          "max_abs_err": err})
+            n_cases += 1
+        del q, k, v
+    # one device kernel a call: no merge kernel, no scratch fills
+    sets = [decode_inputs(LEGACY["b"], S, 1, 4, 256, torch.bfloat16,
+                          torch.bfloat16, gen, dev) for S in (512, 1024)]
+    dev_len = torch.tensor(528, dtype=torch.int32, device=dev)
+    calls = [lambda: decode_attn(*sets[0], 512),
+             lambda: decode_attn(*sets[1], 528),
+             lambda: decode_attn(*sets[1], dev_len, window=300)]
+    kernels = device_kernels(lambda: [f() for f in calls], 4)
+    n_calls = 4 * len(calls)
+    if (sum(kernels.values()) != n_calls
+            or any("decode_attn_kernel" not in k for k in kernels)):
+        raise AssertionError(f"decode_attn_check: {kernels} for {n_calls} "
+                             f"calls, not one decode_attn_kernel each")
+    return {"phase": "decode_attn_check", "cases": n_cases,
             "b": b, "kv": kv, "g_hd": [[1, 64], [4, 256], [8, 128], [7, 80]],
             "dtype_pairs": DTYPE_PAIRS,
-            "S": [512, 1000], "worst_abs_err": worst, "tol": TOL,
+            "S": [512, 1000], "extra": extra,
+            "device_kernels_per_call": sum(kernels.values()) / n_calls,
+            "worst_abs_err": worst, "tol": TOL,
             "tol_reason": "bf16 output: one bf16 ulp of a value below 4 is "
                           "at most 2^-6; f32: summation order over <= 1000 "
                           "positions"}
@@ -1512,6 +1626,7 @@ def phase_decode_attn_time(dev):
         ms = graph_ms([kern(s) for s in sets], n_sets)
         plain_ms = graph_ms([plain(s) for s in sets], n_sets)
         library_ms = graph_ms([library(s) for s in lib_sets], n_sets)
+        kernels = device_kernels(kern(sets[0]), 8)
         out = decode_attn(*sets[0], cache_len)
         ref = decode_attn_ref(*sets[0], cache_len)
         lib = F.scaled_dot_product_attention(*lib_sets[0], attn_mask=mask)
@@ -1531,6 +1646,7 @@ def phase_decode_attn_time(dev):
                        "expanded)",
             "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
+            "kernels_per_call": sum(kernels.values()) / 8,
             "working_sets": n_sets}
         del sets, lib_sets
     return {"phase": "decode_attn_time",
@@ -1621,7 +1737,9 @@ def phase_legacy_agree(cfg, params_f32, dev):
 def phase_legacy_serve(cfg, params, cont_eng, dev):
     """ServeEngine.generate on gemma3-1b at full width and depth, bf16:
     b = 4 prompts of 480 tokens, 96 new, max_len 1024 (the local layers'
-    512-token ring wraps). decode_attn launches == 26 x decode steps. Row
+    512-token ring wraps). decode_attn launches == 26 x decode steps; the
+    run again under the profiler: the same tokens, one device kernel a
+    launch, decode_attn's device time. Row
     0's greedy tokens against ContinuousEngine's for the same prompt, as
     a matching prefix: bf16 prefill at batch 4 and batch 1 differ in
     their last bits, which can flip a near-tie of random weights."""
@@ -1659,6 +1777,21 @@ def phase_legacy_serve(cfg, params, cont_eng, dev):
         raise AssertionError(f"legacy_serve: bad output {toks.shape}")
     cont = cont_eng.generate(prompts[:1], n_new)[0]
     agree = int(np.argmax(np.append(toks[0] != cont, True)))
+    # the same run under the profiler: the same tokens (greedy), one
+    # device kernel a launch, and decode_attn's device time
+    decode_attn.launches = 0
+    with device_profile() as prof:
+        toks_prof = eng.generate(prompts, n_new)
+        torch.cuda.synchronize()
+    if not np.array_equal(toks_prof, toks):
+        raise AssertionError("legacy_serve: the profiled run's tokens differ "
+                             "from the timed run's")
+    seen = device_summary(prof, wall, 0)["port_kernels"].get(
+        "decode_attn_kernel", {"count": 0, "device_ms": 0.0})
+    if seen["count"] != decode_attn.launches:
+        raise AssertionError(f"legacy_serve: {seen['count']} decode_attn "
+                             f"device kernels for {decode_attn.launches} "
+                             f"launches")
     return {"phase": "legacy_serve", "arch": cfg.name,
             "dtype": cfg.compute_dtype, "batch": b, "prompt": n_prompt,
             "n_new": n_new, "max_len": LEGACY["max_len"],
@@ -1668,6 +1801,9 @@ def phase_legacy_serve(cfg, params, cont_eng, dev):
             "tokens": int(toks.size), "wall_s": wall,
             "tokens_per_s": toks.size / wall, "peak_mem_gib": peak,
             "row0_prefix_equal_to_continuous": agree,
+            "decode_attn_device": {"kernels": seen["count"],
+                                   "launches": decode_attn.launches,
+                                   "device_ms": seen["device_ms"]},
             "row0_tokens_first8": toks[0, :8].tolist(),
             "continuous_tokens_first8": cont[:8].tolist()}
 
@@ -1765,10 +1901,13 @@ def rel_close(name, out, ref, tol):
 
 
 def phase_ssd_check(dev):
-    """ssd_chunk against its plain version over f32/bf16 inputs, smoke and
-    full widths, padded tails and a steep decay; ssd_chunked_kernel (the
-    kernel plus the inter-chunk recurrence) against the plain ssd_chunked
-    at full width with and without an init_state."""
+    """ssd_chunk against its plain version over f32/bf16 inputs (the f32
+    path at full width too), smoke and full widths of mamba2 and jamba, a
+    d_state that is no multiple of the MMA depth (20), padded tails, a
+    steep decay and inputs one element off 16-byte alignment;
+    ssd_chunked_kernel (the kernel plus the inter-chunk recurrence)
+    against the plain ssd_chunked at full width with and without an
+    init_state."""
     import torch
     from repro_torch.kernels.ssd_chunk import (ssd_chunk, ssd_chunk_ref,
                                                ssd_chunked_kernel)
@@ -1779,7 +1918,10 @@ def phase_ssd_check(dev):
     n_cases = 0
     shapes = [(2, 3, 16, 8, 32, 16),      # mamba2 smoke: L 16, hd 32, ds 16
               (1, 8, 64, 32, 64, 128),    # mamba2-370m, a 512-token prompt
-              (2, 2, 32, 4, 128, 64)]     # the other L and hd the kernel takes
+              (2, 2, 32, 4, 128, 64),     # the other L and hd the kernel takes
+              (1, 2, 64, 128, 64, 16),    # jamba-52b: 128 heads, ds 16
+              (1, 4, 16, 8, 32, 16),      # jamba smoke
+              (2, 2, 64, 4, 64, 20)]      # ds 20: padded to 32 in the MMA
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             for pad in (0, 7):
@@ -1791,6 +1933,17 @@ def phase_ssd_check(dev):
                         f"ssd_chunk {shape} {dtype} pad{pad} {part}", o, r,
                         SSD_TOL))
                 n_cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        # every input one element past a 16-byte boundary: narrower copies
+        args = list(ssd_inputs(1, 2, 64, 4, 64, 20, dtype, gen, dev))
+        for i in (0, 3, 4):
+            buf = torch.empty(args[i].numel() + 1, dtype=dtype, device=dev)
+            args[i] = buf[1:].view(args[i].shape).copy_(args[i])
+        for part, o, r in zip(("y", "states", "totals"), ssd_chunk(*args),
+                              ssd_chunk_ref(*args)):
+            worst = max(worst, rel_close(f"ssd_chunk unaligned {dtype} {part}",
+                                         o, r, SSD_TOL))
+        n_cases += 1
     steep = list(ssd_inputs(1, 2, 64, 4, 64, 128, torch.float32, gen, dev))
     steep[1].fill_(10.0)
     steep[2].fill_(-3.0)                  # exp(+30 per step) above the diagonal
@@ -1821,25 +1974,26 @@ def phase_ssd_check(dev):
             "worst_rel_err": worst, "tol": SSD_TOL,
             "tol_reason": "relative to max|plain|: f32 sums of <= 128 "
                           "products (and the chained chunk states) in "
-                          "another order; bf16 inputs are widened to f32 by "
-                          "both versions"}
+                          "another order; the kernel's tensor-core products "
+                          "take bf16 inputs as they are and split each f32 "
+                          "operand into three bf16 parts (24 bits)"}
 
 
 def ssd_work(b, nc, L, nh, hd, ds, x_elem):
     """Bytes one call must move (xs, B, C, dt, a read once; y, states,
-    totals written once) and the operations the function needs: C B^T on
-    and below the diagonal once per chunk, and per head the masked product
-    with x and the state product (2 FLOP a multiply-add), plus the decays
-    and the cumulative sum."""
+    totals written once) and the operations the function needs: the
+    products (C B^T on and below the diagonal once per chunk, and per head
+    the masked product with x and the state product; 2 FLOP a
+    multiply-add), and the decays and the cumulative sum."""
     tri = L * (L + 1) // 2
     bytes_moved = (b * nc * L * nh * hd * x_elem + 2 * b * nc * L * ds * x_elem
                    + b * nc * L * nh * 4 + nh * 4
                    + b * nc * L * nh * hd * 4 + b * nc * nh * ds * hd * 4
                    + b * nc * nh * 4)
-    flops = b * nc * (2 * tri * ds
-                      + nh * (2 * tri * hd + 2 * L * ds * hd + 3 * tri
-                              + 4 * L))
-    return bytes_moved, flops
+    product_flops = b * nc * (2 * tri * ds
+                              + nh * (2 * tri * hd + 2 * L * ds * hd))
+    other_flops = b * nc * nh * (3 * tri + 4 * L)
+    return bytes_moved, product_flops, other_flops
 
 
 def phase_ssd_time(dev):
@@ -1865,15 +2019,21 @@ def phase_ssd_time(dev):
         err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
         rel = max(rel_close(f"ssd_time/{name}", o, r, SSD_TOL)
                   for o, r in zip(outs, refs))
-        bytes_moved, flops = ssd_work(b, nc, L, nh, hd, ds, 2)
+        bytes_moved, mm_flops, ew_flops = ssd_work(b, nc, L, nh, hd, ds, 2)
         t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_o = flops / F32_FLOP_PER_S * 1e3
+        # the products take bf16 inputs on the tensor cores; the decays
+        # and the sum run in f32 outside them
+        t_o = (mm_flops / BF16_FLOP_PER_S
+               + ew_flops / F32_FLOP_PER_S) * 1e3
         res[name] = {"shape": {"b": b, "nc": nc, "L": L, "nh": nh, "hd": hd,
                                "ds": ds, "x_dtype": "bfloat16"},
-                     "bytes": bytes_moved, "flops": flops,
+                     "bytes": bytes_moved, "flops": mm_flops + ew_flops,
                      "max_abs_err": err, "max_rel_err": rel, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": None,
-                     "bound_ms": max(t_b, t_o),
+                     "bound_ms": max(t_b, t_o), "bytes_ms": t_b,
+                     "ops_ms": t_o,
+                     "f32_ops_ms": (mm_flops + ew_flops) / F32_FLOP_PER_S
+                     * 1e3,
                      "bound_by": "bytes" if t_b >= t_o else "operations",
                      "working_sets": n_sets}
         del sets
@@ -2084,11 +2244,10 @@ def phase_ssm_serve_profile(cfg, eng):
     2,700 launches a decode step (post-processing the whole run's 360,000
     events takes the profiler about 90 s). Busy time against the wall of
     an unprofiled run of the same requests, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
     reqs = [(p, 32) for p, _ in serve_requests(cfg, 0)[:3:2]]
     _, wall = run_engine(eng, reqs)
     eng.decode_steps = 0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         _, wall_prof = run_engine(eng, reqs)
     steps = eng.decode_steps
     summary = device_summary(prof, wall, 12)
@@ -2119,13 +2278,17 @@ def main():
     t0 = time.perf_counter()
     built = build.build()
     build_s = time.perf_counter() - t0
+    hmma = sass_mma(built["ssd_chunk"].path)
+    if not hmma or not all(n > 0 for n in hmma.values()):
+        raise AssertionError(f"ssd_chunk: an entry without HMMA: {hmma}")
     emit({"phase": "env", "seconds": build_s, "nvidia_smi": smi,
           "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "build_s": build_s, "nvcc_flags": " ".join(build.NVCC_FLAGS),
-          "ptxas": {k: ptxas_summary(v.ptxas) for k, v in built.items()}})
+          "ptxas": {k: ptxas_summary(v.ptxas) for k, v in built.items()},
+          "ssd_chunk_sass_hmma": hmma})
 
     run_phase(phase_kernel_check, dev)
     timing = run_phase(phase_kernel_time, dev)
@@ -2265,9 +2428,11 @@ def main():
         "shape": da_timing["global1024"]["shape"],
         "note": "a global layer of the legacy serve run (b 4, 1024-position "
                 "cache, cache_len 528, bf16); launches from legacy_serve",
+        "kernels_per_call": da_timing["global1024"]["kernels_per_call"],
+        "legacy_serve_profile": legacy["decode_attn_device"],
         "ring512": {k: da_timing["ring512"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}}, {
+            "library_ms", "kernels_per_call")}}, {
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_chunk/ssd_chunk.py:61",
@@ -2281,8 +2446,12 @@ def main():
         "note": "the mamba2-370m serve run's longest prefill (480 tokens "
                 "padded to 512: b 1, nc 8); no single PyTorch call computes "
                 "it; launches from ssm_serve",
+        "bytes_ms": ssd_timing["prefill_b1"]["bytes_ms"],
+        "f32_ops_ms": ssd_timing["prefill_b1"]["f32_ops_ms"],
+        "ssm_serve_profile": ssm_prof["port_kernels"].get("ssd_chunk_kernel"),
         "prefill_b4": {k: ssd_timing["prefill_b4"][k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}]})
+            "shape", "ms", "plain_ms", "bound_ms", "bytes_ms", "f32_ops_ms",
+            "bound_by")}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each source under ``kernels/<name>/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` into its own shared library (no PyTorch headers, so a
 build takes seconds). Libraries go to ``kernels/_build/``, which git
-ignores, named by a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing is built when a
+ignores, named by a hash of the source, the headers (``*.cuh``) beside it
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. Nothing is built when a
 module is imported: the first launch builds what it needs, and
 ``build()`` builds several sources at once, one ``nvcc`` each, all started
 together.
@@ -63,9 +64,11 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _log(lib: Path) -> Path:
@@ -73,7 +76,8 @@ def _log(lib: Path) -> Path:
 
 
 def _ptxas_lines(text: str) -> List[str]:
-    return [ln.strip() for ln in text.splitlines() if "ptxas" in ln]
+    return [ln.strip() for ln in text.splitlines()
+            if "ptxas" in ln or "spill" in ln]
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:

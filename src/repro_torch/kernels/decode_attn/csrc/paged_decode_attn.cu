@@ -45,7 +45,8 @@
 //   * Work follows validity. A split with no valid slot (past index on a
 //     linear layer, outside the window on a ring) loads nothing and is
 //     skipped by the merge; within a split, invalid slots are never copied.
-//   * Lanes: a warp takes four slots of a stage at once (their dot
+//   * Lanes (decode_common.cuh, shared with decode_attn.cu, as are the
+//     two merges): a warp takes four slots of a stage at once (their dot
 //     products and shuffles independent, one online-softmax update for
 //     the four; exponents by the fast __expf); lane l holds the elements
 //     (j * 32 + l) * CE + [0, CE) for j < J of q (g rows) and of the
@@ -55,59 +56,15 @@
 //     and heads past g, for any hd that is a multiple of 16 up to 256 (80)
 //     and any g up to 8 (7).
 //   * The kernel launches on the caller's stream and allocates nothing.
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kMSafeFloor = -0.5e30f;
-constexpr float kDenFloor = 1e-30f;
+using namespace decode;
+
 constexpr int kStage = 32;        // tokens per shared-memory stage
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTPW = kStage / kWarps;     // a warp's slots of a stage: 4
-constexpr int kMaxSplits = 16;    // a cluster: H100's largest (non-portable)
 constexpr int kTableCap = 1024;   // table entries one split may span
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-template <int BYTES> struct Vec;
-template <> struct Vec<16> { using type = uint4; };
-template <> struct Vec<8> { using type = uint2; };
-template <> struct Vec<4> { using type = uint32_t; };
-
-// Loads N contiguous elements (N * sizeof(T) bytes, aligned to that size up
-// to 16) from global or shared memory and widens them to float.
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float* out) {
-  constexpr int kBytes = N * (int)sizeof(T);
-  constexpr int kChunk = kBytes >= 16 ? 16 : kBytes;
-  constexpr int kPer = kChunk / (int)sizeof(T);
-  using V = typename Vec<kChunk>::type;
-  const V* src = reinterpret_cast<const V*>(p);
-#pragma unroll
-  for (int c = 0; c < kBytes / kChunk; ++c) {
-    V raw = src[c];
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) out[c * kPer + i] = to_f32<T>(e[i]);
-  }
-}
+static_assert(kStage == kWarps * kTPW, "a stage is one slot for each lane of a warp");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -158,16 +115,7 @@ paged_decode_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sm_tab[kTableCap];
   __shared__ long long sm_row[2][kStage];   // a stage's K/V rows, -1: invalid
-  __shared__ float sm_m[kWarps][G];         // the warps' m and l
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_wc[kWarps][G];        // the warps' merge weights
-  __shared__ __align__(16) float sm_part[G * 32 * E];  // the block's acc
-  __shared__ float sm_pm[G];                // the block's m and l
-  __shared__ float sm_pl[G];
-  __shared__ float sm_c[kMaxSplits][G];     // the splits' m, then weights
-  __shared__ float sm_sl[kMaxSplits][G];    // the splits' l
-  __shared__ bool sm_work[kMaxSplits];
-  __shared__ float sm_den[G];
+  __shared__ MergeSmem<G, E> sm;
 
   const int split = blockIdx.x;
   const int n_split = gridDim.x;
@@ -195,24 +143,9 @@ paged_decode_kernel(const Params p) {
   const int lim = p.ring > 0 ? min(p.window, idx + 1) : 0;
 
   if (split_has_work(lo, hi, idx, p.ring, lim)) {
-    // this lane's elements of the q rows, scaled
     float qr[G][E];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int e0 = (j * 32 + lane) * CE;
-        if (gi < g && e0 < hd) {
-          load_f32<TQ, CE>(static_cast<const TQ*>(p.q) + ((size_t)bk * g + gi) * hd + e0,
-                           &qr[gi][j * CE]);
-#pragma unroll
-          for (int c = 0; c < CE; ++c) qr[gi][j * CE + c] *= p.scale;
-        } else {
-#pragma unroll
-          for (int c = 0; c < CE; ++c) qr[gi][j * CE + c] = 0.f;
-        }
-      }
-    }
+    load_q<TQ, G, CE, J>(static_cast<const TQ*>(p.q) + (size_t)bk * g * hd, g, hd,
+                         p.scale, lane, qr);
 
     __syncthreads();                        // sm_tab
 
@@ -247,13 +180,7 @@ paged_decode_kernel(const Params p) {
     };
 
     float m[G], l[G], acc[G][E];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      m[gi] = kNegInf;
-      l[gi] = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
-    }
+    init_state<G, E>(m, l, acc);
 
     static_assert(kStage == 32, "one lane of warp 0 per slot of a tile");
     const int nst = (hi - lo + kStage - 1) / kStage;
@@ -271,10 +198,8 @@ paged_decode_kernel(const Params p) {
       }
       __syncthreads();
       const unsigned char* buf = smem + (st & 1) * stage_bytes;
-      // the warp's kTPW slots of the tile at once: independent dot
-      // products and shuffles, then one online-softmax update for all of
-      // them (an invalid slot's row was never copied: its score is masked
-      // and its V row taken as 0)
+      // the warp's kTPW slots of the tile (an invalid slot's row was never
+      // copied: attend4 masks it)
       bool ok[kTPW];
       bool any = false;
 #pragma unroll
@@ -282,202 +207,21 @@ paged_decode_kernel(const Params p) {
         ok[u] = sm_row[st & 1][warp * kTPW + u] >= 0;
         any |= ok[u];
       }
-      if (any) {                            // warp-uniform
-        float s[kTPW][G];
-        float vr[kTPW][E];
-#pragma unroll
-        for (int u = 0; u < kTPW; ++u) {
-          const int tok = warp * kTPW + u;
-          const TKV* ks = reinterpret_cast<const TKV*>(buf + (tok * 2) * row_bytes);
-          const TKV* vs = reinterpret_cast<const TKV*>(buf + (tok * 2 + 1) * row_bytes);
-          float kr[E];
-#pragma unroll
-          for (int j = 0; j < J; ++j) {
-            const int e0 = (j * 32 + lane) * CE;
-            if (e0 < hd) {
-              load_f32<TKV, CE>(ks + e0, &kr[j * CE]);
-              load_f32<TKV, CE>(vs + e0, &vr[u][j * CE]);
-            } else {
-#pragma unroll
-              for (int c = 0; c < CE; ++c) kr[j * CE + c] = vr[u][j * CE + c] = 0.f;
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < E; ++e) vr[u][e] = ok[u] ? vr[u][e] : 0.f;
-#pragma unroll
-          for (int gi = 0; gi < G; ++gi) {
-            float a = 0.f;
-#pragma unroll
-            for (int e = 0; e < E; ++e) a = fmaf(qr[gi][e], kr[e], a);
-            s[u][gi] = a;
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int u = 0; u < kTPW; ++u) {
-#pragma unroll
-            for (int gi = 0; gi < G; ++gi)
-              if (gi < g) s[u][gi] += __shfl_xor_sync(0xffffffffu, s[u][gi], off);
-          }
-        }
-#pragma unroll
-        for (int gi = 0; gi < G; ++gi) {
-          if (gi >= g) continue;
-          float mx = m[gi];
-#pragma unroll
-          for (int u = 0; u < kTPW; ++u) {
-            s[u][gi] = ok[u] ? s[u][gi] : kNegInf;
-            mx = fmaxf(mx, s[u][gi]);
-          }
-          const float m_safe = fmaxf(mx, kMSafeFloor);
-          const float corr = __expf(m[gi] - m_safe);
-          float pr[kTPW];
-          float psum = 0.f;
-#pragma unroll
-          for (int u = 0; u < kTPW; ++u) {
-            pr[u] = __expf(s[u][gi] - m_safe);
-            psum += pr[u];
-          }
-          l[gi] = l[gi] * corr + psum;
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            float a = acc[gi][e] * corr;
-#pragma unroll
-            for (int u = 0; u < kTPW; ++u) a = fmaf(pr[u], vr[u][e], a);
-            acc[gi][e] = a;
-          }
-          m[gi] = mx;
-        }
-      }
+      if (any)                              // warp-uniform
+        attend4<TKV, G, CE, J>(qr, buf, buf + row_bytes, 2 * row_bytes, warp * kTPW,
+                               ok, g, hd, lane, m, l, acc);
       __syncthreads();  // the stage is free for the next issue
     }
 
     // merge the warps: the stage area now holds (kWarps, g, hd) floats
-    float* sm_acc = reinterpret_cast<float*>(smem);
-    if (lane == 0) {
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        sm_m[warp][gi] = m[gi];
-        sm_l[warp][gi] = l[gi];
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      if (gi >= g) continue;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int e0 = (j * 32 + lane) * CE;
-        if (e0 < hd) {
-#pragma unroll
-          for (int c = 0; c < CE; ++c)
-            sm_acc[((size_t)warp * g + gi) * hd + e0 + c] = acc[gi][j * CE + c];
-        }
-      }
-    }
-    __syncthreads();
-    // one thread per (warp w, head gi), kWarps lanes a head: the warps'
-    // weights against the block's max, summed by shuffles within the lanes
-    // of a head
-    if (threadIdx.x < (kWarps * G + 31) / 32 * 32) {     // whole warps
-      const int w = threadIdx.x % kWarps;
-      const bool live = threadIdx.x / kWarps < g;
-      const int gi = live ? threadIdx.x / kWarps : 0;
-      float mx = kNegInf;
-#pragma unroll
-      for (int v = 0; v < kWarps; ++v) mx = fmaxf(mx, sm_m[v][gi]);
-      const float c =
-          live ? __expf(fmaxf(sm_m[w][gi], kMSafeFloor) - fmaxf(mx, kMSafeFloor)) : 0.f;
-      float den = c * sm_l[w][gi];
-#pragma unroll
-      for (int off = kWarps / 2; off > 0; off >>= 1)
-        den += __shfl_xor_sync(0xffffffffu, den, off);
-      if (live) {
-        sm_wc[w][gi] = c;
-        if (w == 0) {
-          sm_pm[gi] = mx;
-          sm_pl[gi] = den;
-        }
-      }
-    }
-    __syncthreads();
-    // the block's partial acc, kept in its shared memory for the cluster
-    for (int o = threadIdx.x; o < g * hd; o += kThreads) {
-      const int gi = o / hd;
-      float num = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w)
-        num = fmaf(sm_wc[w][gi], sm_acc[(size_t)w * g * hd + o], num);
-      sm_part[o] = num;
-    }
+    merge_warps<G, CE, J>(sm, reinterpret_cast<float*>(smem), m, l, acc, g, hd, warp,
+                          lane);
   }
   for (int s = threadIdx.x; s < n_split; s += kThreads)
-    sm_work[s] = split_has_work(s * p.per_split, min((s + 1) * p.per_split, S), idx,
+    sm.work[s] = split_has_work(s * p.per_split, min((s + 1) * p.per_split, S), idx,
                                 p.ring, lim);
-
-  // The splits of this row are the blocks of this cluster: after the
-  // barrier each block reads every block's (m, l) from distributed shared
-  // memory and merges its own slice of the output from every block's acc.
-  // A block without work wrote nothing; its rank is selected away.
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();                           // also a block barrier: sm_work
-  for (int i = threadIdx.x; i < n_split * g; i += kThreads) {
-    const int s = i / g;
-    const int gi = i - s * g;
-    const float pm = *cluster.map_shared_rank(&sm_pm[gi], s);
-    const float pl = *cluster.map_shared_rank(&sm_pl[gi], s);
-    sm_c[s][gi] = sm_work[s] ? pm : kNegInf;
-    sm_sl[s][gi] = sm_work[s] ? pl : 0.f;
-  }
-  __syncthreads();
-  if (warp < g) {
-    const int gi = warp;
-    float mx = kNegInf;
-    for (int s = lane; s < n_split; s += 32) mx = fmaxf(mx, sm_c[s][gi]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float mx_safe = fmaxf(mx, kMSafeFloor);
-    float den = 0.f;
-    for (int s = lane; s < n_split; s += 32) {
-      const float c = sm_work[s] ? __expf(fmaxf(sm_c[s][gi], kMSafeFloor) - mx_safe) : 0.f;
-      den = fmaf(c, sm_sl[s][gi], den);
-      sm_c[s][gi] = c;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      den += __shfl_xor_sync(0xffffffffu, den, off);
-    if (lane == 0) sm_den[gi] = fmaxf(den, kDenFloor);
-  }
-  __syncthreads();
-  // this block's slice of the row's g * hd outputs, four a thread (hd is a
-  // multiple of 4); every rank's float4 is loaded, in flight together
-  const int n_out = g * hd;
-  const int slice = (n_out / 4 + n_split - 1) / n_split * 4;
-  const int o_end = min(n_out, (split + 1) * slice);
-  for (int o = split * slice + threadIdx.x * 4; o < o_end; o += kThreads * 4) {
-    const int gi = o / hd;
-    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int r = 0; r < kMaxSplits; ++r) {
-      // ranks past the cluster read the last rank and count for nothing
-      const int s = min(r, n_split - 1);
-      const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(&sm_part[o], s));
-      const bool w = r < n_split && sm_work[s];
-      const float c = sm_c[s][gi];
-      num.x = fmaf(c, w ? v.x : 0.f, num.x);
-      num.y = fmaf(c, w ? v.y : 0.f, num.y);
-      num.z = fmaf(c, w ? v.z : 0.f, num.z);
-      num.w = fmaf(c, w ? v.w : 0.f, num.w);
-    }
-    TQ* out = static_cast<TQ*>(p.out) + (size_t)bk * n_out + o;
-    const float den = sm_den[gi];
-    out[0] = from_f32<TQ>(num.x / den);
-    out[1] = from_f32<TQ>(num.y / den);
-    out[2] = from_f32<TQ>(num.z / den);
-    out[3] = from_f32<TQ>(num.w / den);
-  }
-  cluster.sync();   // no block leaves while another may still read its memory
+  merge_cluster<TQ, G, E>(sm, static_cast<TQ*>(p.out) + (size_t)bk * g * hd, g, hd,
+                          split, n_split, warp, lane);
 }
 
 template <typename TQ, typename TKV, int G, int CE, int J, bool FIXED>
@@ -487,34 +231,10 @@ int launch(const Params& p, int b, int n_split, cudaStream_t stream) {
   const int merge = kWarps * p.g * p.hd * (int)sizeof(float);
   const int smem = stage > merge ? stage : merge;
   auto kernel = paged_decode_kernel<TQ, TKV, G, CE, J, FIXED>;
-  // once per device: a cluster of up to 16 blocks, and the dynamic shared
-  // memory above 48 KB
   static int raised[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || raised[dev] < smem) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) raised[dev] = smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, b * p.kv);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_split;       // one cluster per row
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const int err = raise_limits(kernel, smem, raised);
+  if (err != 0) return err;
+  return launch_clusters(kernel, p, n_split, b * p.kv, smem, stream);
 }
 
 template <typename TQ, typename TKV>

@@ -5,8 +5,10 @@
 A tensor on the CPU takes the plain version (``ref.py``); a tensor on a
 CUDA device launches the kernel, or the call raises. There is no fallback
 from a failed build or launch. ``decode_attn.launches`` counts the
-kernel's launches. q and the cache take any pair of float32 and
-bfloat16, 1 <= g <= 8 and any head_dim that is a multiple of 16 up to 256.
+kernel's launches: one device kernel per call, which merges its splits itself
+(the splits of a row are one thread block cluster) and allocates no
+scratch. q and the cache take any pair of float32 and bfloat16,
+1 <= g <= 8 and any head_dim that is a multiple of 16 up to 256.
 
 ``cache_len`` is one length for the whole batch. A Python int goes to the
 kernel as an argument, so the caller's host loop never reads the device;
@@ -26,7 +28,7 @@ from repro_torch.kernels.decode_attn.paged import check_shapes
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SPLITS = 64
+_MAX_SPLITS = 16                # a thread block cluster: the row's splits
 _TARGET_BLOCKS = 264            # two CUDA blocks for each of the 132 SMs
 _MIN_PER_SPLIT = 8              # positions: two for each of a block's warps
 
@@ -34,7 +36,7 @@ _MIN_PER_SPLIT = 8              # positions: two for each of a block's warps
 @functools.lru_cache(maxsize=None)
 def _launch_fn():
     fn = build.load("decode_attn").decode_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -42,7 +44,8 @@ def _launch_fn():
 
 def split_plan(b: int, kv: int, S: int):
     """(positions per split, splits): enough CUDA blocks to cover the
-    card's SMs when b * kv is small, at most ``_MAX_SPLITS`` splits."""
+    card's SMs when b * kv is small, at most ``_MAX_SPLITS`` splits (one
+    thread block cluster a row), splits covering S."""
     want = max(1, min(_MAX_SPLITS, math.ceil(_TARGET_BLOCKS / (b * kv))))
     per = max(_MIN_PER_SPLIT, math.ceil(S / want))
     return per, math.ceil(S / per)
@@ -62,7 +65,7 @@ def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:           # the kernel's vector loads
+        if t.data_ptr() % 16:           # the kernel's bulk copies
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
@@ -96,14 +99,9 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = k.shape[1]
     per, n_split = split_plan(b, kv, S)
     out = torch.empty_like(q)
-    part_m = torch.empty(b * kv * n_split * g, dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(b * kv * n_split * g * hd, dtype=torch.float32,
-                           device=dev)
     with torch.cuda.device(dev):
         err = _launch_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr,
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], b, kv,
             g, hd, S, per, n_split, len_host, 0 if window is None else window,
             hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)

@@ -30,7 +30,7 @@ def _lib():
     lib.ssd_chunk_launch.argtypes = ([ctypes.c_void_p] * 8
                                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.ssd_chunk_launch.restype = ctypes.c_int
-    lib.ssd_chunk_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_chunk_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.ssd_chunk_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -83,7 +83,7 @@ def ssd_chunk(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b, nc, L, nh, hd = xs.shape
     ds = B.shape[-1]
     lib = _lib()
-    smem = lib.ssd_chunk_smem_bytes(L, ds, hd)
+    smem = lib.ssd_chunk_smem_bytes(L, ds, hd, _X_CODE[xs.dtype])
     if smem > _MAX_SMEM:
         raise ValueError(f"d_state {ds} needs {smem} bytes of shared memory "
                          f"per block; the card gives {_MAX_SMEM}")

@@ -183,3 +183,21 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
+
+
+def test_build_digest_follows_the_headers(monkeypatch, tmp_path):
+    """A library is named by its source and the headers beside it: an
+    edited header gives a new name, so a stale library is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src, header = csrc / "probe.cu", csrc / "probe_common.cuh"
+    src.write_text('#include "probe_common.cuh"\n')
+    header.write_text("constexpr int kStage = 32;\n")
+    monkeypatch.setitem(build.SOURCES, "probe", src)
+    first = build._target("probe")
+    assert build._target("probe") == first
+    header.write_text("constexpr int kStage = 64;\n")
+    assert build._target("probe") != first
+    for name in ("decode_attn", "paged_decode_attn"):
+        text = build.SOURCES[name].read_text()
+        assert '#include "decode_common.cuh"' in text
