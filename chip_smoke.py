@@ -9,7 +9,9 @@ full-width gemma3-1b (random weights from a seed) through
 ``ContinuousEngine`` and the legacy ``ServeEngine``, serves full-width
 mamba2-370m through ``ContinuousEngine``, trains the paper's CNN6 and then
 full-width, full-depth gemma3-1b with synchronous WASGD+ through
-``Trainer.run``, and checks that the served and the trained paths went
+``Trainer.run``, runs the paper's baseline rules and a checkpoint round
+trip on CNN6, swaps the trained gemma3-1b consensus into a running engine
+and evaluates it, and checks that the served and the trained paths went
 through their kernels.
 Prints one JSON object per phase:
 
@@ -86,6 +88,25 @@ Prints one JSON object per phase:
                 p=4, tau=4, 10 rounds after 2: s/round, tokens/s, losses,
                 peak memory, launches of rmsnorm, fused_ce and wagg_fused
   lm_train_profile device busy time, idle share and top kernels of 2 rounds
+  baselines     the CNN6 training smoke's settings with each of spsgd,
+                easgd (alpha 0.9/16), omwu, mmwu and seq: s/round beside
+                train's wasgd+, first and last loss, peak memory; each
+                rule's invariant in one more round (spsgd and MWU rows
+                bitwise equal, MWU's the argmax worker's; seq's rows apart;
+                EASGD's center moved by the sum of the pulls); the MLP
+                harness run of each rule, 10 rounds on the card against
+                the CPU (params atol 1e-5)
+  checkpoint    CNN6: save_checkpoint (sharded, in the background): bytes,
+                the time save blocks the caller and the time to wait();
+                resume into a fresh trainer bitwise; 2 rounds, save, resume,
+                2 more equal 4 straight (bitwise, deterministic cuDNN)
+  train_to_serve  lm_train's gemma3-1b trainer serves what it trains: a
+                ContinuousEngine from consensus_params takes the serve
+                requests, 3 rounds with serve_hook (a decode chunk, then
+                HotSwapBridge), metrics_path and log_every; swap records,
+                s/round with serving, peak memory, launches (wagg_fused,
+                fused_ce, paged_decode_attn, rmsnorm); evaluate_lm on the
+                consensus over 4 held-out batches of 4 x 128 tokens
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -950,6 +971,271 @@ def phase_train_profile(dev):
             **device_summary(prof, wall, 12)}
 
 
+# -- the paper's baseline rules and checkpoints (CNN6) -----------------------
+
+BASELINE_RULES = ("spsgd", "easgd", "omwu", "mmwu", "seq")
+EASGD_ALPHA = 0.9 / 16
+# the MLP run of the harness in benchmarks/common.py, cut as the CPU tests
+# cut it (tests/test_torch_baselines.py), held between the card and the
+# CPU with the CPU tests' tolerances, or within twice the CPU run's own
+# spread under a 1e-7 perturbation of its start where that is larger: the
+# easgd and omwu runs move by 1e-4 to 8e-4 from round 2 under such a
+# perturbation (a ReLU or an argmax that flips), as CNN6 does in
+# tests/test_torch_train.py
+MLP = {"p": 4, "tau": 8, "b_local": 8, "n_samples": 512, "rounds": 10,
+       "lr": 0.05, "d": 64, "hidden": 128, "classes": 10, "n_segments": 2,
+       "order_seed": 7, "perturb": 1e-7}
+MLP_TOL = {"params_atol": 1e-5, "h_loss_rtol": 1e-5, "theta_atol": 1e-6}
+
+
+def new_baseline_trainer(dev, rule):
+    from repro_torch.core import shared_axes
+    from repro_torch.models import init_cnn6
+    from repro_torch.train import Trainer
+    loss_fn, tcfg, dataset = cnn6_setup()
+    params = init_cnn6(0, device=dev)
+    tr = Trainer(loss_fn, params, shared_axes(params), tcfg("einsum:f32"),
+                 TRAIN["p"], rule=rule, device=dev,
+                 easgd_alpha=EASGD_ALPHA if rule == "easgd" else None)
+    return tr, loss_fn, dataset
+
+
+def rule_invariant(tr, rule, loss_fn, batch):
+    """One more round through ``build_train_step`` with a rule that records
+    what it is given: after spsgd and MWU every worker row is bitwise equal
+    (MWU: to the argmax worker's row before the round); seq returns the
+    rows untouched and they stay apart; EASGD moves its center by the sum
+    of the pulls alpha (x_i - c) and pulls each worker by its own."""
+    import torch
+    from repro_torch.train import RULES, build_train_step, easgd_rule
+    rule_fn = (easgd_rule(EASGD_ALPHA) if rule == "easgd"
+               else RULES[rule](tr.tcfg))
+    seen = {}
+
+    def recording(prm, ax, h, cs):
+        seen.update(before=dict(prm), cs=cs)
+        return rule_fn(prm, ax, h, cs)
+
+    step = build_train_step(loss_fn, tr.optimizer, tr.axes, tr.tcfg.wasgd,
+                            tr.n_workers, rule=recording)
+    state, metrics = step(tr.state, batch)
+    torch.cuda.synchronize()
+    before, after = seen["before"], state.params
+    out = {}
+    if rule in ("spsgd", "omwu", "mmwu"):
+        out["rows_bitwise_equal"] = all(
+            bool((v == v[:1]).all()) for v in after.values())
+        if rule != "spsgd":
+            a = int(torch.argmax(metrics["theta"]))
+            out["argmax_worker"] = a
+            out["rows_equal_argmax_worker"] = all(
+                torch.equal(after[k][0], before[k][a]) for k in after)
+        ok = out["rows_bitwise_equal"] and out.get(
+            "rows_equal_argmax_worker", True)
+    elif rule == "seq":
+        out["params_untouched"] = all(after[k] is before[k] for k in after)
+        out["rows_apart_max_abs"] = max(
+            (v - v[:1]).abs().max().item() for v in after.values())
+        ok = out["params_untouched"] and out["rows_apart_max_abs"] > 0
+    else:
+        c0, c1 = seen["cs"].center, state.comm_state.center
+        pull_err = center_err = 0.0
+        for k in after:
+            x, c = before[k].double(), c0[k].double()[None]
+            pull = EASGD_ALPHA * (x - c)
+            pull_err = max(pull_err, (after[k].double() - (x - pull))
+                           .abs().max().item())
+            center_err = max(center_err, (c1[k].double() - c0[k].double()
+                                          - pull.sum(0)).abs().max().item())
+        out.update(pull_max_abs_err=pull_err, center_max_abs_err=center_err,
+                   tol=1e-6)
+        ok = pull_err <= 1e-6 and center_err <= 1e-6
+    if not ok:
+        raise AssertionError(f"baselines/{rule}: invariant {out}")
+    return out
+
+
+def mlp_run(rule, dev, perturb=0.0):
+    """The MLP run of ``rule`` through the port's Trainer on ``dev``, from
+    the port's init plus ``perturb`` times seeded noise; returns each
+    round's metrics and params (on the host)."""
+    import torch
+    from repro_torch.configs import TrainConfig, WASGDConfig
+    from repro_torch.data import OrderedDataset, make_classification
+    from repro_torch.models import classification_loss, init_mlp, mlp_apply
+    from repro_torch.train import Trainer
+
+    def loss_fn(params, batch):
+        return classification_loss(mlp_apply(params, batch["x"]),
+                                   batch["y"]), {}
+
+    X, y = make_classification(0, 8192, d=MLP["d"],
+                               n_classes=MLP["classes"], noise=0.25)
+    n = MLP["n_samples"]
+    params = init_mlp(0, MLP["d"], MLP["hidden"], MLP["classes"],
+                      device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    params = {k: v + perturb * torch.randn(v.shape, generator=gen)
+              for k, v in params.items()}
+    tr = Trainer(loss_fn, params,
+                 {k: (None,) * v.dim() for k, v in params.items()},
+                 TrainConfig(learning_rate=MLP["lr"], optimizer="sgd",
+                             wasgd=WASGDConfig(tau=MLP["tau"], beta=0.9)),
+                 MLP["p"], rule=rule, device=dev)
+    ds = OrderedDataset({"x": X[:n], "y": y[:n]}, MLP["p"], MLP["tau"],
+                        MLP["b_local"], n_segments=MLP["n_segments"],
+                        seed=MLP["order_seed"])
+    snaps, step = [], tr._step
+
+    def recording_step(state, batch):
+        out = step(state, batch)
+        snaps.append({k: v.cpu() for k, v in out[0].params.items()})
+        return out
+
+    tr._step = recording_step
+    tr.run(ds, MLP["rounds"])
+    return tr.history, snaps
+
+
+def mlp_devs(a, b):
+    """Per round: max |params| difference, max relative h/loss difference
+    and max |theta| difference between two runs."""
+    out = []
+    for (ha, pa), (hb, pb) in zip(zip(*a), zip(*b)):
+        rel = max(float((np.abs(ha[k] - hb[k])
+                         / np.maximum(np.abs(hb[k]), 1e-30)).max())
+                  for k in ("h", "loss", "loss_last"))
+        out.append((max((pa[k] - pb[k]).abs().max().item() for k in pb), rel,
+                    float(np.abs(ha["theta"] - hb["theta"]).max())))
+    return out
+
+
+def mlp_card_vs_cpu(rule, dev):
+    """Each round: card against CPU within max(the CPU tests' tolerance,
+    twice the CPU run's spread under ``MLP["perturb"]``)."""
+    cpu = mlp_run(rule, "cpu")
+    dev_ = mlp_devs(mlp_run(rule, dev), cpu)
+    spread = mlp_devs(mlp_run(rule, "cpu", MLP["perturb"]), cpu)
+    tol = (MLP_TOL["params_atol"], MLP_TOL["h_loss_rtol"],
+           MLP_TOL["theta_atol"])
+    for r, (d, sp) in enumerate(zip(dev_, spread)):
+        lim = [max(t, 2 * x) for t, x in zip(tol, sp)]
+        if not all(x <= y for x, y in zip(d, lim)):
+            raise AssertionError(f"baselines/{rule}: MLP round {r}: card vs "
+                                 f"CPU (params, h/loss rel, theta) {d} over "
+                                 f"{lim} (CPU spread {sp})")
+    names = ("params", "h_loss_rel", "theta")
+    return {"card_vs_cpu": dict(zip(names, map(max, zip(*dev_)))),
+            "cpu_spread": dict(zip(names, map(max, zip(*spread)))),
+            "rounds_over_tests_tol": sum(
+                any(x > t for x, t in zip(d, tol)) for d in dev_)}
+
+
+def phase_baselines(dev, wasgd_s_per_round):
+    """The CNN6 training smoke's settings (``TRAIN``) with each baseline
+    rule: a throwaway trainer for 2 warm-up rounds, then a fresh one for
+    ``TRAIN["rounds"]`` timed rounds, one invariant round on the card, and
+    the MLP harness run on the card against the CPU."""
+    import torch
+    res = {}
+    for rule in BASELINE_RULES:
+        warm, _, dataset = new_baseline_trainer(dev, rule)
+        run_trainer(warm, dataset, 2)
+        del warm
+        tr, loss_fn, dataset = new_baseline_trainer(dev, rule)
+        torch.cuda.reset_peak_memory_stats()
+        wall, ds = run_trainer(tr, dataset, TRAIN["rounds"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = tr.losses()
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"baselines/{rule}: losses {losses}")
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in next(ds.batches(TRAIN["rounds"])).items()}
+        inv = rule_invariant(tr, rule, loss_fn, batch)
+        res[rule] = {"seconds_per_round": wall / TRAIN["rounds"],
+                     "vs_wasgd+": wall / TRAIN["rounds"] / wasgd_s_per_round,
+                     "loss_first": float(losses[0]),
+                     "loss_last": float(losses[-1]),
+                     "peak_mem_gib": peak, "invariant": inv,
+                     "mlp_card_vs_cpu": mlp_card_vs_cpu(rule, dev)}
+        del tr
+    return {"phase": "baselines", "model": "cnn6", **TRAIN,
+            "backend": "einsum:f32 (the baseline rules aggregate in float32 "
+                       "torch ops, as JAX's do)",
+            "easgd_alpha": EASGD_ALPHA,
+            "wasgd+_seconds_per_round": wasgd_s_per_round, "rules": res,
+            "mlp": MLP, "mlp_tol": MLP_TOL}
+
+
+def state_bitwise_equal(a, b):
+    import torch
+    from repro_torch.checkpoint.io import _flatten
+    fa, fb = _flatten(a), _flatten(b)
+    return sorted(fa) == sorted(fb) and all(
+        (torch.equal(fa[k], fb[k]) and fa[k].dtype == fb[k].dtype)
+        if isinstance(fb[k], torch.Tensor) else fa[k] == fb[k] for k in fb)
+
+
+def phase_checkpoint(dev):
+    """CNN6 (``TRAIN``'s settings): 2 rounds, ``save_checkpoint`` (sharded,
+    in the background), a resume into a fresh trainer (the state bitwise
+    equal), and a run resumed from that checkpoint for 2 more rounds
+    against 4 rounds straight through, twice (bitwise). cuDNN runs
+    deterministic algorithms in this phase: its default weight gradients
+    differ in the last bit from run to run."""
+    import tempfile
+    import torch
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "round_2")
+            tr, dataset = new_trainer(dev)
+            tr.run(dataset(), 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.save_checkpoint(path, 2)
+            block_s = time.perf_counter() - t0
+            tr._ckpt.wait()
+            wait_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+            back, _ = new_trainer(dev)
+            t0 = time.perf_counter()
+            round_at = back.resume(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            same = state_bitwise_equal(back.state, tr.state)
+            del back
+            resumed, dataset = new_trainer(dev)
+            resumed.run(dataset(), 4, resume_from=path)
+            straight = []
+            for _ in range(2):
+                s, dataset = new_trainer(dev)
+                s.run(dataset(), 4)
+                straight.append(s)
+            torch.cuda.synchronize()
+            eq = [state_bitwise_equal(resumed.state, s.state)
+                  for s in straight]
+            straight_twice = state_bitwise_equal(straight[0].state,
+                                                 straight[1].state)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    if not (same and round_at == 2 and all(eq)):
+        raise AssertionError(f"checkpoint: restored state equal {same} "
+                             f"(round {round_at}); resumed run equal to the "
+                             f"straight runs {eq} (straight runs equal each "
+                             f"other: {straight_twice})")
+    return {"phase": "checkpoint", "model": "cnn6", "p": TRAIN["p"],
+            "format": "wasgd-sharded-v1, one shard", "bytes": nbytes,
+            "save_blocks_s": block_s, "save_to_wait_s": wait_s,
+            "resume_s": restore_s, "restored_bitwise": same,
+            "resumed_run_bitwise_equals_straight": eq,
+            "straight_runs_bitwise_equal": straight_twice,
+            "cudnn": "deterministic"}
+
+
 def rmsnorm_case(x, s, gen):
     """One rmsnorm case: forward through the kernel against the plain
     version; backward through the Function (kernel forward, PyTorch
@@ -1459,6 +1745,127 @@ def phase_lm_train_profile(cfg, tr, ds, batches):
     return {"phase": "lm_train_profile", "rounds": rounds,
             "wall_ms": wall * 1e3, "wall_ms_profiled": wall_prof * 1e3,
             **device_summary(prof, wall, 15)}
+
+
+EVAL = {"n_batches": 4, "b": 4, "seq": 128, "seed": 999}
+TRAIN_TO_SERVE_ROUNDS = 3
+
+
+def phase_train_to_serve(cfg, tr, ds, batches, done, dev):
+    """The LM trainer of ``lm_train`` (gemma3-1b, full width and depth,
+    p=4) serves what it trains: a ``ContinuousEngine`` (the serve smoke's
+    settings) built from the consensus takes the serve smoke's six
+    requests; 3 more rounds run with ``serve_hook`` (a chunk of decode
+    steps, then ``HotSwapBridge``) after each, a metrics JSONL and a log
+    line a round; the engine is drained. Then ``evaluate_lm`` on the
+    consensus over 4 held-out batches of 4 x 128 tokens."""
+    import tempfile
+    import torch
+    from repro_torch.data import make_tokens
+    from repro_torch.kernels.decode_attn import paged_decode_attn
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.serve import ContinuousEngine, HotSwapBridge
+    from repro_torch.train.evaluate import consensus_params, evaluate_lm
+    from repro_torch.tree import tree_leaves
+    rounds, tau = TRAIN_TO_SERVE_ROUNDS, LM["tau"]
+    n_norms, n_attn = 2 * cfg.n_layers + 1, cfg.n_layers
+    n_leaves = len(tree_leaves(tr.state.params))
+    torch.cuda.reset_peak_memory_stats()
+    paged_decode_attn.launches = rmsnorm_fwd.launches = 0
+    fused_ce_fwd.launches = wagg_fused.launches = 0
+    eng = ContinuousEngine(cfg, consensus_params(tr.state.params, tr.axes),
+                           n_slots=N_SLOTS, max_len=MAX_LEN,
+                           block_size=BLOCK, chunk=CHUNK, device=dev)
+    bridge = HotSwapBridge(eng)
+    reqs = serve_requests(cfg, 0)
+    rids = [eng.submit(p, n) for p, n in reqs]
+    hook_s = []
+
+    def hook(r, params, axes):
+        t0 = time.perf_counter()
+        eng.step()
+        bridge(r, params, axes)
+        torch.cuda.synchronize()
+        hook_s.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as d:
+        mpath = os.path.join(d, "metrics.jsonl")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(batches, rounds, order_state=ds.order,
+               segment_fn=lambda r: ds.segment_of_round(r + done),
+               log_every=1, metrics_path=mpath, serve_hook=hook,
+               serve_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(mpath) as f:
+            lines = [json.loads(line) for line in f]
+    train_launches = {"wagg_fused": wagg_fused.launches,
+                      "fused_ce": fused_ce_fwd.launches}
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = {"paged_decode_attn": paged_decode_attn.launches,
+                "rmsnorm": rmsnorm_fwd.launches, **train_launches}
+    steps, prefills = eng.decode_steps, eng.prefills
+    want = {"paged_decode_attn": n_attn * steps,
+            "rmsnorm": rounds * tau * n_norms + n_norms * (steps + prefills),
+            "wagg_fused": rounds * n_leaves, "fused_ce": rounds * tau}
+    swaps = bridge.swaps
+    keys = {"loss", "loss_last", "h", "theta", "scores", "theta_entropy",
+            "omega", "round"}
+    checks = {
+        "full_budgets": all(len(outs[r]) == n for r, (_, n) in
+                            zip(rids, reqs)),
+        "n_swaps": eng.n_swaps == rounds,
+        "in_flight_at_a_swap": any(s["in_flight"] > 0 for s in swaps),
+        "later_drifts_positive": all(s["param_drift_l2"] > 0
+                                     for s in swaps[1:]),
+        "jsonl_lines_and_keys": len(lines) == rounds
+        and all(set(x) == keys for x in lines),
+        "launches": launches == want,
+    }
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng, bridge
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"train_to_serve: checks {checks}; launches "
+                             f"{launches}, want {want}; swaps {swaps}")
+    held = make_tokens(EVAL["seed"], EVAL["n_batches"] * EVAL["b"],
+                       EVAL["seq"] + 1, cfg.vocab_size)
+
+    def eval_batches():
+        for i in range(EVAL["n_batches"]):
+            sl = held[i * EVAL["b"]:(i + 1) * EVAL["b"]]
+            yield {"tokens": sl[:, :-1], "labels": sl[:, 1:]}
+
+    served = consensus_params(tr.state.params, tr.axes)
+    fused_ce_fwd.launches = rmsnorm_fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = evaluate_lm(cfg, served, eval_batches(), n_batches=EVAL["n_batches"])
+    eval_s = time.perf_counter() - t0
+    eval_launches = {"fused_ce": fused_ce_fwd.launches,
+                     "rmsnorm": rmsnorm_fwd.launches}
+    del served
+    if not (np.isfinite(ev["nll"]) and eval_launches == {
+            "fused_ce": EVAL["n_batches"],
+            "rmsnorm": EVAL["n_batches"] * n_norms}):
+        raise AssertionError(f"train_to_serve: eval {ev}, launches "
+                             f"{eval_launches}")
+    tokens = sum(len(t) for t in outs.values())
+    return {"phase": "train_to_serve", "arch": cfg.name, "p": LM["p"],
+            "rounds": rounds, "serve_every": 1, "requests": REQUESTS,
+            "seconds_per_round_with_serving": wall / rounds,
+            "hook_s": hook_s, "drain_s": drain_s, "tokens": tokens,
+            "decode_steps": steps, "prefills": prefills,
+            "swaps": swaps, "launches": launches, "checks": checks,
+            "metrics_losses": [x["loss"] for x in lines],
+            "peak_mem_gib": peak, "eval": ev, "eval_s": eval_s,
+            "eval_launches": eval_launches, "eval_settings": EVAL}
 
 
 # -- decode_attn (contiguous cache) and the legacy ServeEngine ---------------
@@ -2336,6 +2743,8 @@ def main():
     run_phase(phase_train_agree, dev)
     train = run_phase(phase_train, dev)
     run_phase(phase_train_profile, dev)
+    run_phase(phase_baselines, dev, train["seconds_per_round"])
+    run_phase(phase_checkpoint, dev)
     torch.cuda.empty_cache()
 
     run_phase(phase_lm_agree, cfg, dev)
@@ -2344,6 +2753,8 @@ def main():
     batches = ds.batches()
     lm = run_phase(phase_lm_train, cfg, tr, ds, batches)
     lm_prof = run_phase(phase_lm_train_profile, cfg, tr, ds, batches)
+    t2s = run_phase(phase_train_to_serve, cfg, tr, ds, batches,
+                    LM["warmup_rounds"] + LM["rounds"] + 4, dev)
     del tr
     torch.cuda.empty_cache()
 
@@ -2364,6 +2775,7 @@ def main():
         "linear": {k: timing["linear"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        "train_to_serve_launches": t2s["launches"]["paged_decode_attn"],
         "serve_profile_device_kernels": serve_prof[
             "paged_decode_device_kernels"],
         "kernel_launches_one_decode_step": {
@@ -2381,6 +2793,7 @@ def main():
         "lm_mlp_leaf": {k: lm_leaf[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         "lm_train_launches": lm["launches"]["wagg_fused"],
+        "train_to_serve_launches": t2s["launches"]["wagg_fused"],
         "lm_train_profile": lm_prof["port_kernels"].get(
             "wagg_fused_kernel")}, {
         "name": "rmsnorm", "route": "cuda",
@@ -2401,7 +2814,9 @@ def main():
         "serve_launches": serve["rmsnorm_launches"],
         "serve_fused_launches": serve["rmsnorm_fused_launches"],
         "ssm_serve_launches": ssm_serve["rmsnorm_launches"],
-        "legacy_serve_launches": legacy["rmsnorm_launches"]}, {
+        "legacy_serve_launches": legacy["rmsnorm_launches"],
+        "train_to_serve_launches": t2s["launches"]["rmsnorm"],
+        "evaluate_lm_launches": t2s["eval_launches"]["rmsnorm"]}, {
         "name": "fused_ce", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
@@ -2413,7 +2828,9 @@ def main():
         "library": ce_timing["library"],
         "shape": [ce_timing["T"], ce_timing["V"]],
         "note": "one local step of the LM run: 2560 x 262144 f32 logits; "
-                "launches from lm_train"}, {
+                "launches from lm_train",
+        "train_to_serve_launches": t2s["launches"]["fused_ce"],
+        "evaluate_lm_launches": t2s["eval_launches"]["fused_ce"]}, {
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/decode_attn.py:78",

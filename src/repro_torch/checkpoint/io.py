@@ -1,0 +1,413 @@
+"""Checkpoints in the JAX package's on-disk format, the counterpart of
+``repro/checkpoint/io.py``: either package reads what the other writes.
+
+Two formats over one flat-key encoding of a tree (``_flatten``: ``//``
+between levels, ``#i`` for a tuple entry, ``@field`` for a NamedTuple
+field):
+
+* **flat**: ``arrays.npz`` and ``manifest.json`` (``save``/``restore``);
+* **sharded**: ``shard_00000.npz`` ... and a manifest that records every
+  key's shape, dtype and shard and the run's topology (worker count,
+  round, rule, policy, comm-state keys) (``save_sharded``/
+  ``restore_sharded``/``saved_topology``). Keys are bin-packed over the
+  shards by byte size, as JAX packs them. The manifest is written to a
+  temporary file and renamed, so a save cut short leaves no torn
+  manifest. (JAX's multi-host writes, a shard per process, are not
+  ported: one process writes every shard.)
+
+The ``.npz`` members are ``.npy`` files, written and read here without
+``np.save``/``np.load``: numpy knows ``bfloat16`` only through
+``ml_dtypes``, which the card's machine does not have. A bfloat16 leaf is
+stored as its raw 16-bit payload under the descr ``'bfloat16'``, which
+numpy with ``ml_dtypes`` (the JAX package's side) reads as bfloat16. On
+reading, that descr and the two-byte void that numpy writes for an
+``ml_dtypes`` bfloat16 array (JAX's files) are both bfloat16 payloads.
+
+A Python int leaf (the port's host-side ``TrainState.step``) is stored as
+the 0-d int32 that JAX keeps its round counter in, and restored into an
+int leaf as an int.
+
+Restores check structure and dtype as JAX does: a stored array that
+disagrees with its manifest entry is corruption; a manifest dtype other
+than the restore target's raises unless ``allow_cast=True``.
+
+``AsyncCheckpointer`` copies the tree on its device and returns; a
+thread copies the snapshot to the host and writes it while the next
+rounds run, and ``wait`` raises a save that failed.
+"""
+from __future__ import annotations
+
+import ast
+import json
+import os
+import queue
+import struct
+import threading
+import zipfile
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+SEP = "//"
+
+SHARDED_FORMAT = "wasgd-sharded-v1"
+
+BF16 = "bfloat16"
+_MAGIC = b"\x93NUMPY"
+
+
+def _flatten(tree, prefix=""):
+    """Flat key -> leaf, with the JAX package's keys."""
+    def key(k):
+        return f"{prefix}{SEP}{k}" if prefix else str(k)
+
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, key(k)))
+    elif hasattr(tree, "_fields"):          # NamedTuple
+        for k in tree._fields:
+            out.update(_flatten(getattr(tree, k), key(f"@{k}")))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, key(f"#{i}")))
+    else:
+        out[prefix] = tree
+    return out
+
+
+# -- leaves <-> .npy members ------------------------------------------------
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).replace("torch.", "")
+    if isinstance(leaf, int):
+        return "int32"
+    return str(np.asarray(leaf).dtype)
+
+
+def _host(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as (host payload, dtype name); a bfloat16 payload is its
+    16-bit pattern."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), BF16
+        return t.numpy(), _dtype_name(t)
+    dt = _dtype_name(leaf)
+    return np.asarray(leaf, dtype=dt), dt
+
+
+def _npy_header(descr: str, shape) -> bytes:
+    """A version 1.0 ``.npy`` header, padded as numpy pads it."""
+    head = ("{'descr': %r, 'fortran_order': False, 'shape': %r, }"
+            % (descr, tuple(int(n) for n in shape)))
+    head += " " * (-(len(head) + 11) % 64) + "\n"
+    return _MAGIC + b"\x01\x00" + struct.pack("<H", len(head)) + \
+        head.encode("latin1")
+
+
+def _write_npz(file: str, flat: Dict[str, Tuple[np.ndarray, str]]) -> None:
+    with zipfile.ZipFile(file, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as z:
+        for k, (a, dt) in flat.items():
+            descr = dt if dt == BF16 else np.lib.format.dtype_to_descr(
+                a.dtype)
+            with z.open(k + ".npy", "w", force_zip64=True) as f:
+                f.write(_npy_header(descr, a.shape))
+                f.write(memoryview(np.ascontiguousarray(a).reshape(-1)
+                                   .view(np.uint8)))
+
+
+def _read_npy(f) -> Tuple[np.ndarray, str]:
+    """One ``.npy`` member -> (payload, stored dtype name)."""
+    magic = f.read(8)
+    if magic[:6] != _MAGIC:
+        raise ValueError("not an .npy member")
+    major = magic[6]
+    n = struct.unpack("<H" if major == 1 else "<I",
+                      f.read(2 if major == 1 else 4))[0]
+    head = ast.literal_eval(f.read(n).decode("utf8" if major >= 3
+                                             else "latin1"))
+    descr, shape = head["descr"], tuple(head["shape"])
+    if descr == BF16 or (isinstance(descr, str)
+                         and descr.lstrip("<>|=") == "V2"):
+        dt, name = np.dtype(np.int16), BF16
+    else:
+        dt = np.dtype(descr)
+        if dt.hasobject:
+            raise ValueError(f"object arrays are not read: {descr!r}")
+        name = str(dt)
+    a = np.frombuffer(bytearray(f.read()), dtype=dt)
+    return a.reshape(shape, order="F" if head["fortran_order"] else "C"), \
+        name
+
+
+class _Npz:
+    """Members of an ``.npz`` by key, read when asked for."""
+
+    def __init__(self, path: str):
+        self._z = zipfile.ZipFile(path)
+
+    def __getitem__(self, key: str) -> Tuple[np.ndarray, str]:
+        with self._z.open(key + ".npy") as f:
+            return _read_npy(f)
+
+    def close(self):
+        self._z.close()
+
+
+# -- restore checks -----------------------------------------------------------
+
+def _check_structure(like_keys, stored_keys):
+    """Keys the target expects but the checkpoint lacks, and keys the
+    checkpoint holds that the target has no slot for."""
+    missing = sorted(set(like_keys) - set(stored_keys))
+    unexpected = sorted(set(stored_keys) - set(like_keys))
+    if missing or unexpected:
+        parts = []
+        if missing:
+            parts.append(f"missing from checkpoint: {missing[:8]}"
+                         + (f" (+{len(missing) - 8} more)"
+                            if len(missing) > 8 else ""))
+        if unexpected:
+            parts.append(f"unexpected in checkpoint: {unexpected[:8]}"
+                         + (f" (+{len(unexpected) - 8} more)"
+                            if len(unexpected) > 8 else ""))
+        raise ValueError("checkpoint structure mismatch: " + "; ".join(parts))
+
+
+def _check_leaf(key: str, stored: Tuple[np.ndarray, str], entry: Dict,
+                like_leaf, allow_cast: bool):
+    """Shape and dtype checks for one restored leaf, as JAX's: a stored
+    dtype other than its manifest entry is corruption; a manifest dtype
+    other than the target's raises unless ``allow_cast``. The leaf comes
+    back on the target's device (an int target: an int)."""
+    arr, stored_dtype = stored
+    like_shape = (tuple(like_leaf.shape) if isinstance(like_leaf, torch.Tensor)
+                  else np.shape(like_leaf))
+    if tuple(arr.shape) != tuple(like_shape):
+        raise ValueError(f"shape mismatch for {key}: "
+                         f"{tuple(arr.shape)} vs {like_shape}")
+    man_dtype = entry.get("dtype")
+    if man_dtype is not None and stored_dtype != man_dtype:
+        raise ValueError(
+            f"checkpoint corruption for {key}: stored dtype {stored_dtype} "
+            f"disagrees with its manifest entry {man_dtype}")
+    like_dtype = _dtype_name(like_leaf)
+    if man_dtype is not None and man_dtype != like_dtype and not allow_cast:
+        raise ValueError(
+            f"dtype mismatch for {key}: checkpoint holds {man_dtype}, "
+            f"restore target expects {like_dtype}; pass allow_cast=True to "
+            f"cast explicitly")
+    t = torch.from_numpy(arr)
+    if stored_dtype == BF16:
+        t = t.view(torch.bfloat16)
+    target = like_dtype if allow_cast else (man_dtype or stored_dtype)
+    if isinstance(like_leaf, torch.Tensor):
+        return t.to(device=like_leaf.device, dtype=getattr(torch, target))
+    if isinstance(like_leaf, int):
+        return int(t)
+    return t.to(getattr(torch, target))
+
+
+def _restore_flat(data_of_key, manifest: Dict, like: Any, allow_cast: bool):
+    """Rebuilds ``like``'s structure leaf by leaf along ``_flatten``'s
+    traversal."""
+    _check_structure(_flatten(like), manifest["keys"])
+
+    def build(sub, prefix=""):
+        def key(k):
+            return f"{prefix}{SEP}{k}" if prefix else str(k)
+
+        if isinstance(sub, dict):
+            return {k: build(v, key(k)) for k, v in sub.items()}
+        if hasattr(sub, "_fields"):         # NamedTuple
+            return type(sub)(*(build(getattr(sub, k), key(f"@{k}"))
+                               for k in sub._fields))
+        if isinstance(sub, (tuple, list)):
+            return type(sub)(build(v, key(f"#{i}"))
+                             for i, v in enumerate(sub))
+        return _check_leaf(prefix, data_of_key(prefix),
+                           manifest["keys"][prefix], sub, allow_cast)
+
+    return build(like)
+
+
+# -- flat format ----------------------------------------------------------------
+
+def save(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
+    os.makedirs(path, exist_ok=True)
+    flat = {k: _host(v) for k, v in _flatten(tree).items()}
+    _write_npz(os.path.join(path, "arrays.npz"), flat)
+    _write_manifest(path, {
+        "keys": {k: {"shape": list(a.shape), "dtype": dt}
+                 for k, (a, dt) in flat.items()},
+        "meta": meta or {},
+    })
+
+
+def restore(path: str, like: Any, allow_cast: bool = False
+            ) -> Tuple[Any, Dict]:
+    """Restores into the structure of ``like`` (checked by
+    ``_check_leaf``). A sharded checkpoint at ``path`` goes to
+    ``restore_sharded``."""
+    manifest = _read_manifest(path)
+    if manifest.get("format") == SHARDED_FORMAT:
+        return restore_sharded(path, like, allow_cast=allow_cast)
+    data = _Npz(os.path.join(path, "arrays.npz"))
+    try:
+        tree = _restore_flat(data.__getitem__, manifest, like, allow_cast)
+    finally:
+        data.close()
+    return tree, manifest["meta"]
+
+
+# -- sharded format ---------------------------------------------------------------
+
+def _write_manifest(path: str, manifest: Dict) -> None:
+    tmp = os.path.join(path, "manifest.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1)
+    os.replace(tmp, os.path.join(path, "manifest.json"))
+
+
+def _read_manifest(path: str) -> Dict:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _shard_file(s: int) -> str:
+    return f"shard_{s:05d}.npz"
+
+
+def _assign_shards(nbytes: Dict[str, int], n_shards: int) -> List[List[str]]:
+    """Keys in descending size (ties by key), each to the lightest shard
+    (ties by index): JAX's assignment."""
+    bins: List[List[str]] = [[] for _ in range(n_shards)]
+    loads = [0] * n_shards
+    for k in sorted(nbytes, key=lambda k: (-nbytes[k], k)):
+        s = min(range(n_shards), key=lambda i: (loads[i], i))
+        bins[s].append(k)
+        loads[s] += nbytes[k]
+    return bins
+
+
+def save_sharded(path: str, tree: Any, meta: Optional[Dict] = None,
+                 topology: Optional[Dict] = None,
+                 n_shards: Optional[int] = None) -> None:
+    """``n_shards`` (default 1) shard files and the manifest with
+    ``topology`` (``{"p", "round", "rule", "policy", "comm_state"}``)."""
+    os.makedirs(path, exist_ok=True)
+    flat = {k: _host(v) for k, v in _flatten(tree).items()}
+    n_shards = max(1, n_shards or 1)
+    bins = _assign_shards({k: a.nbytes for k, (a, _) in flat.items()},
+                          n_shards)
+    for s, keys in enumerate(bins):
+        _write_npz(os.path.join(path, _shard_file(s)),
+                   {k: flat[k] for k in keys})
+    _write_manifest(path, {
+        "format": SHARDED_FORMAT,
+        "n_shards": n_shards,
+        "keys": {k: {"shape": list(flat[k][0].shape), "dtype": flat[k][1],
+                     "shard": s}
+                 for s, keys in enumerate(bins) for k in keys},
+        "topology": topology or {},
+        "meta": meta or {},
+    })
+
+
+def restore_sharded(path: str, like: Any, allow_cast: bool = False
+                    ) -> Tuple[Any, Dict]:
+    """Restores a sharded checkpoint into the structure of ``like``, which
+    must have the checkpoint's shapes (its worker count: see
+    ``saved_topology``)."""
+    manifest = _read_manifest(path)
+    if manifest.get("format") != SHARDED_FORMAT:
+        raise ValueError(
+            f"{path} is not a sharded checkpoint "
+            f"(format={manifest.get('format')!r}); use restore()")
+    shards: Dict[int, _Npz] = {}
+
+    def data_of_key(k):
+        s = manifest["keys"][k]["shard"]
+        if s not in shards:
+            shards[s] = _Npz(os.path.join(path, _shard_file(s)))
+        return shards[s][k]
+
+    try:
+        tree = _restore_flat(data_of_key, manifest, like, allow_cast)
+    finally:
+        for z in shards.values():
+            z.close()
+    return tree, manifest["meta"]
+
+
+def saved_topology(path: str) -> Dict:
+    """A checkpoint's format, shard count, topology (``{}`` for a flat
+    one) and meta, read from its manifest alone."""
+    manifest = _read_manifest(path)
+    return {"format": manifest.get("format", "flat"),
+            "n_shards": manifest.get("n_shards", 1),
+            "topology": manifest.get("topology", {}),
+            "meta": manifest.get("meta", {})}
+
+
+# -- background saves -------------------------------------------------------------
+
+class AsyncCheckpointer:
+    """Sharded saves on a writer thread.
+
+    ``save`` copies every tensor of the tree on its device (the copy is
+    queued on the device before any later round can replace the state)
+    and returns. The thread copies the snapshot to the host and writes
+    the shards and the manifest. A failed save is raised by the next
+    ``save`` or ``wait``."""
+
+    def __init__(self, depth: int = 2):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._exc: Optional[Exception] = None
+        self._exc_lock = threading.Lock()
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="ckpt-writer")
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            job = self._q.get()
+            try:
+                if job is None:
+                    return
+                path, snap, meta, topology, n_shards = job
+                save_sharded(path, snap, meta=meta, topology=topology,
+                             n_shards=n_shards)
+            except Exception as e:       # raised on the caller's thread
+                with self._exc_lock:
+                    self._exc = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self):
+        with self._exc_lock:
+            exc, self._exc = self._exc, None
+        if exc is not None:
+            raise RuntimeError("async checkpoint save failed") from exc
+
+    def save(self, path: str, tree: Any, meta: Optional[Dict] = None,
+             topology: Optional[Dict] = None,
+             n_shards: Optional[int] = None) -> None:
+        self._raise_pending()
+        snap = {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                for k, v in _flatten(tree).items()}
+        self._q.put((path, snap, meta, topology, n_shards))
+
+    def wait(self):
+        """Blocks until every queued save is on disk; raises a failure."""
+        self._q.join()
+        self._raise_pending()
+
+    def close(self):
+        self.wait()
+        self._q.put(None)
+        self._thread.join(timeout=5.0)

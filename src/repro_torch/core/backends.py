@@ -57,7 +57,7 @@ class AggregationContext:
 DEFAULT_CONTEXT = AggregationContext()
 
 MESH_NOT_PORTED = ("places collectives on a device mesh and is not ported "
-                   "yet (ROADMAP.md queue 1.10)")
+                   "yet (ROADMAP.md queue 1.9)")
 
 
 class _EinsumSchedule:

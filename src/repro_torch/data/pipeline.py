@@ -34,11 +34,14 @@ class OrderedDataset:
     def segment_of_round(self, r: int) -> int:
         return (r // self.rounds_per_segment) % self.n_segments
 
-    def batches(self) -> Iterator[Dict[str, np.ndarray]]:
-        """Infinite iterator over rounds. When the traversal leaves a
-        segment, that segment's OrderGen keep-or-reshuffle decision fires
-        (``OrderState.end_segment``), before the next round is built."""
-        r = 0
+    def batches(self, start_round: int = 0
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """Infinite iterator over rounds, from round ``start_round`` (a
+        resumed run picks up where its checkpoint left off). When the
+        traversal leaves a segment, that segment's OrderGen keep-or-reshuffle
+        decision fires (``OrderState.end_segment``), before the next round
+        is built."""
+        r = int(start_round)
         while True:
             seg = self.segment_of_round(r)
             within = r % self.rounds_per_segment

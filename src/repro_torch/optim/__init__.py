@@ -1,3 +1,6 @@
-from repro_torch.optim.optimizers import Optimizer, make_optimizer
+from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
+                                          global_norm, lr_schedule,
+                                          make_optimizer)
 
-__all__ = ["Optimizer", "make_optimizer"]
+__all__ = ["Optimizer", "clip_by_global_norm", "global_norm", "lr_schedule",
+           "make_optimizer"]

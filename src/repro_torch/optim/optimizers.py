@@ -1,9 +1,11 @@
-"""Optimizers over parameter trees: SGD, momentum SGD and AdamW, the
-counterparts of ``repro/optim/optimizers.py``. Updates are functional
+"""Optimizers over parameter trees: SGD, momentum SGD and AdamW, and the
+gradient-norm and learning-rate helpers, the counterparts of
+``repro/optim/optimizers.py``. Updates are functional
 (new tensors, as in the JAX package) and element-wise, so the worker
 dimension of the parameters is transparent."""
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
@@ -26,6 +28,40 @@ class AdamState(NamedTuple):
 def _tree_zeros(params):
     return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
                     params)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scales the whole gradient tree so that its global norm is at most
+    ``max_norm``; returns (scaled tree, norm before)."""
+    norm = global_norm(grads)
+    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
+    return tree_map(lambda g: g * scale, grads), norm
+
+
+def lr_schedule(kind: str, base_lr: float, warmup_steps: int = 0,
+                total_steps: int = 10000, min_ratio: float = 0.1
+                ) -> Callable[[Any], torch.Tensor]:
+    """constant | linear_warmup | cosine (with linear warmup): a function
+    of the step (an int or a tensor) to a float32 tensor."""
+    def fn(step):
+        step = torch.as_tensor(step).float()
+        warm = torch.clamp_max((step + 1) / max(warmup_steps, 1), 1.0)
+        if kind == "constant":
+            return base_lr * (warm if warmup_steps else torch.ones_like(step))
+        if kind == "linear_warmup":
+            return base_lr * warm
+        if kind == "cosine":
+            t = torch.clamp((step - warmup_steps)
+                            / max(total_steps - warmup_steps, 1), 0, 1)
+            cos = 0.5 * (1 + torch.cos(math.pi * t))
+            return base_lr * warm * (min_ratio + (1 - min_ratio) * cos)
+        raise ValueError(kind)
+    return fn
 
 
 def make_optimizer(name: str = "sgd", learning_rate: float = 1e-3,

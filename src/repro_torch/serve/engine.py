@@ -1,7 +1,9 @@
 """Serving engines, the counterparts of ``repro/serve/engine.py``:
 ``ContinuousEngine`` (:128-434), continuous batching on the paged KV
-cache, and the legacy ``ServeEngine`` (:50-114), a monolithic cache and a
-host token loop. Both serve dense-attention and SSM archs.
+cache, the legacy ``ServeEngine`` (:50-114), a monolithic cache and a
+host token loop, and ``HotSwapBridge`` (:437-483), which swaps a trainer's
+consensus into a running ``ContinuousEngine``. Both engines serve
+dense-attention and SSM archs.
 
 Requests are admitted into and evicted from the running batch at token
 boundaries (``serve/scheduler.py``). Admission prefills a request into a
@@ -51,6 +53,8 @@ from repro_torch.models.transformer import (cast_params, check_supported,
                                             init_cache, prefill)
 from repro_torch.serve.paged_cache import PagedCache
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.train.evaluate import consensus_params
+from repro_torch.tree import tree_leaves
 
 _M32 = 0xFFFFFFFF
 
@@ -189,6 +193,9 @@ class ContinuousEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = dtype_of(cfg.compute_dtype)
+        # what the engine was handed (JAX's engine serves from it; the
+        # bridge measures drift against it), beside its own copy
+        self.given_params = params
         self.params = self._on_device(params)
         self.n_slots = n_slots
         self.max_len = max_len
@@ -258,6 +265,7 @@ class ContinuousEngine:
     def swap_params(self, params: Dict) -> None:
         """Serve ``params`` from the next decode step on; in-flight request
         state is untouched."""
+        self.given_params = params
         self.params = self._on_device(params)
         self.n_swaps += 1
 
@@ -414,3 +422,53 @@ class ContinuousEngine:
                 for i, p in enumerate(prompts)]
         done = self.run()
         return np.stack([done[r] for r in rids])
+
+
+class HotSwapBridge:
+    """``Trainer.run(serve_hook=...)`` adapter: each call takes the Sec. 4.1
+    fixed point (``train.evaluate.consensus_params``) and swaps it into a
+    live ``ContinuousEngine``; in-flight requests keep decoding. Each swap
+    appends a staleness record to ``swaps``: the round, rounds since the
+    last swap, tokens served under the previous params, the L2 drift the
+    swap closed and the requests in flight.
+
+    ``param_drift_l2`` is the float32 distance between the params last
+    handed to the engine (``engine.given_params``: at its construction or
+    at the last swap, in the dtype the caller gave them) and the new
+    consensus, as JAX measures it against what its engine was given; not
+    against the engine's compute-dtype copy. (Telemetry is not ported:
+    ``telemetry`` other than ``None`` raises.)"""
+
+    def __init__(self, engine, telemetry=None):
+        if telemetry is not None:
+            raise NotImplementedError(
+                "HotSwapBridge telemetry=: telemetry (ROADMAP.md queue "
+                "1.10) is not ported yet")
+        self.engine = engine
+        self.swaps: List[Dict] = []
+        self._last_round: Optional[int] = None
+        self._tokens_at_swap = engine.tokens_generated
+
+    @staticmethod
+    def _drift(old: Dict, new: Dict) -> float:
+        sq = [torch.sum(torch.square(
+                  a.to(device=b.device, dtype=torch.float32) - b.float()))
+              for a, b in zip(tree_leaves(old), tree_leaves(new))]
+        return float(torch.sqrt(sum(sq)))
+
+    def __call__(self, round_idx: int, params: Dict, axes: Dict) -> Dict:
+        new = consensus_params(params, axes)
+        rec = {
+            "round": int(round_idx),
+            "rounds_since_last": (int(round_idx) - self._last_round
+                                  if self._last_round is not None else None),
+            "tokens_under_prev": self.engine.tokens_generated
+            - self._tokens_at_swap,
+            "param_drift_l2": self._drift(self.engine.given_params, new),
+            "in_flight": self.engine.n_running,
+        }
+        self.engine.swap_params(new)
+        self._last_round = int(round_idx)
+        self._tokens_at_swap = self.engine.tokens_generated
+        self.swaps.append(rec)
+        return rec

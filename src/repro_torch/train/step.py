@@ -21,9 +21,11 @@ from torch.func import vmap
 
 from repro_torch.core import aggregate as agg
 from repro_torch.core import backends
+from repro_torch.core import baselines as bl
 from repro_torch.core.energy import record_mask
 from repro_torch.core.order import judge_scores
-from repro_torch.core.weights import omega, policy_from_config, theta_entropy
+from repro_torch.core.weights import (compute_theta, omega,
+                                      policy_from_config, theta_entropy)
 from repro_torch.optim import Optimizer
 from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_assign, tree_leaves, tree_map
@@ -32,9 +34,7 @@ LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]
 
 NOT_PORTED = {
     "async": "async_mode='on_device' (the Alg. 4 masked round) is not "
-             "ported yet (ROADMAP.md queue 1.9)",
-    "baselines": "the baseline rules (spsgd, easgd, omwu, mmwu, seq) are not "
-                 "ported yet (ROADMAP.md queue 1.4)",
+             "ported yet (ROADMAP.md queue 1.1)",
 }
 
 
@@ -59,6 +59,37 @@ def wasgd_rule(wcfg) -> Callable:
         theta, comm_state = pol(h, None, comm_state)
         new_params = backends.aggregate_from_config(wcfg, params, axes, theta)
         return new_params, comm_state, theta, {}
+    return rule
+
+
+def spsgd_rule() -> Callable:
+    def rule(params, axes, h, comm_state):
+        theta = compute_theta(h, "equal")
+        new_params = agg.weighted_aggregate(params, axes, theta, beta=1.0)
+        return new_params, comm_state, theta, {}
+    return rule
+
+
+def easgd_rule(alpha: float) -> Callable:
+    def rule(params, axes, h, comm_state):
+        new_params, new_center = bl.easgd_communicate(params, axes,
+                                                      comm_state, alpha)
+        return new_params, new_center, compute_theta(h, "equal"), {}
+    return rule
+
+
+def mwu_rule(eps: float = 0.5) -> Callable:
+    def rule(params, axes, h, comm_state):
+        new_params, new_state = bl.mwu_communicate(params, axes, comm_state,
+                                                   h, eps)
+        return new_params, new_state, bl.mwu_theta(new_state.log_w), {}
+    return rule
+
+
+def no_comm_rule() -> Callable:
+    """beta = 0, the sequential limit: workers never talk."""
+    def rule(params, axes, h, comm_state):
+        return params, comm_state, compute_theta(h, "equal"), {}
     return rule
 
 
@@ -181,7 +212,6 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
     """``train_step(state, batch) -> (state, metrics)`` for one round.
     (The JAX builder's ``pipeline=``/``overlap=`` seam and its mesh
     schedules are not ported yet.)"""
-    _check_sync(wcfg)
     if rule is None:
         rule = wasgd_rule(wcfg)
     parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers)
@@ -200,14 +230,16 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
 
 def init_comm_state(rule_name: str, params: Dict, axes: Dict,
                     n_workers: int, wcfg=None):
-    """A rule's communication state: the policy state of the wasgd/wasgd+
-    rules (``()`` for a stateless policy), on the params' device. (The
+    """A rule's communication state, on the params' device: EASGD's
+    center, the MWU log-weights, the policy state of the wasgd/wasgd+
+    rules (``()`` for a stateless policy), ``()`` for the others. (The
     JAX function's ``prev=`` membership re-shard is not ported yet.)"""
-    if rule_name not in ("wasgd", "wasgd+"):
-        raise NotImplementedError(f"rule {rule_name!r}: "
-                                  f"{NOT_PORTED['baselines']}")
-    if wcfg is None:
+    dev = tree_leaves(params)[0].device
+    if rule_name == "easgd":
+        return bl.easgd_init(params, axes)
+    if rule_name in ("omwu", "mmwu", "mwu"):
+        return bl.mwu_init(n_workers, dev)
+    if wcfg is None or rule_name not in ("wasgd", "wasgd+"):
         return ()
     _check_sync(wcfg)
-    return policy_from_config(wcfg).init_state(
-        n_workers, tree_leaves(params)[0].device)
+    return policy_from_config(wcfg).init_state(n_workers, dev)
