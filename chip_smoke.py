@@ -11,8 +11,9 @@ mamba2-370m through ``ContinuousEngine``, trains the paper's CNN6 and then
 full-width, full-depth gemma3-1b with synchronous WASGD+ through
 ``Trainer.run``, runs the paper's baseline rules and a checkpoint round
 trip on CNN6, swaps the trained gemma3-1b consensus into a running engine
-and evaluates it, and checks that the served and the trained paths went
-through their kernels.
+and evaluates it, trains CNN6 and gemma3-1b with Alg. 4 straggler rounds
+(the masked ``wagg_fused``) and CNN6 with elastic membership, and checks
+that the served and the trained paths went through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -26,7 +27,9 @@ Prints one JSON object per phase:
   wagg_check    wagg_fused vs its plain version over x dtype x payload x
                 mask x p x N
   wagg_time     wagg_fused, plain version, two-call library reference and
-                bound at the CNN6 round's leaves and at a gemma3-1b MLP leaf
+                bound at the CNN6 round's leaves and at a gemma3-1b MLP leaf;
+                the masked kernel at that leaf (one row inactive) against
+                GEMV + lerp + where
   rmsnorm_check rmsnorm and the fused residual add (forward and backward)
                 vs their plain versions over dtype x d x rows x groups, and
                 unaligned rows; the fused sum bitwise equal to x + delta
@@ -100,6 +103,28 @@ Prints one JSON object per phase:
                 the time save blocks the caller and the time to wait();
                 resume into a fresh trainer bitwise; 2 rounds, save, resume,
                 2 more equal 4 straight (bitwise, deterministic cuDNN)
+  async_agree   Alg. 4 on the MLP harness (p 4 + b 2, 4 rounds, one
+                schedule): run_parallel_sgd_on_device through the masked
+                wagg_fused on the card against the host simulation
+                run_parallel_sgd on the CPU, boltzmann and best, within
+                max(1e-5, twice the CPU run's spread); masked launches and
+                masked device kernels (profiler)
+  async_train   CNN6, p 6 + b 2, the stragglers and uniform regimes of
+                benchmarks/async_straggler.py: Alg. 4 through
+                Trainer.run(straggler_schedule=) and Alg. 1 (synchronous
+                trainer), 30 rounds each: s/round, the schedules' simulated
+                walls, losses, dropped worker-rounds, masked launches, peak
+                memory; per round the recorded mask, stragglers' theta 0,
+                theta summing to 1; 5 Alg. 4 rounds profiled (idle share)
+  async_measured  run_parallel_sgd_on_device(measure_times=True) with
+                ema(0.9)|time_aware on CNN6, 10 rounds: measured times (one
+                card: the same for every worker) and masks
+  elastic       CNN6 through run(membership_schedule=): p 8 -> 6 (round
+                10) -> 10 (round 20), and a chaos walk, 30 rounds each;
+                at each resize survivors bitwise and newcomers the
+                aggregate (1e-6); s/round by p, resize ms; a p = 8
+                checkpoint resumed at p = 6 and 10 bitwise equal to
+                resize_train_state of the saved state
   train_to_serve  lm_train's gemma3-1b trainer serves what it trains: a
                 ContinuousEngine from consensus_params takes the serve
                 requests, 3 rounds with serve_hook (a decode chunk, then
@@ -107,6 +132,11 @@ Prints one JSON object per phase:
                 s/round with serving, peak memory, launches (wagg_fused,
                 fused_ce, paged_decode_attn, rmsnorm); evaluate_lm on the
                 consensus over 4 held-out batches of 4 x 128 tokens
+  lm_async      gemma3-1b at full width and depth, Alg. 4 with p 3 + b 1
+                (stragglers regime), 2 + 3 rounds after the earlier LM
+                trainer is freed: the first masked round's wagg_fused held
+                to the plain version leaf by leaf (1e-4); s/round, peak
+                memory, launches (wagg_fused all masked)
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -675,6 +705,9 @@ def wagg_inputs(p, n, x_dtype, payload, mask, gen, dev):
     elif mask == "one_active":
         act = torch.zeros(p, device=dev)
         act[p // 2] = 1.0
+    elif mask == "one_inactive":
+        act = torch.ones(p, device=dev)
+        act[p - 1] = 0.0
     return x, theta, q, act
 
 
@@ -731,11 +764,13 @@ def phase_wagg_check(dev):
                           "<= 33 rows; bf16 output: one bf16 ulp (2^-8)"}
 
 
-def wagg_work(p, n, x_bytes, q_bytes):
-    """Bytes one unmasked call must move (x and the payload read once,
-    theta read, out written once) and its float32 operations (p FMAs per
-    column for m, 3 per output element)."""
-    return p * n * (2 * x_bytes + q_bytes) + p * 4, 5 * p * n
+def wagg_work(p, n, x_bytes, q_bytes, masked=False):
+    """Bytes one call must move (x and the payload read once, theta and
+    the mask read, out written once; an inactive row's x is read for m
+    anyway) and its float32 operations (p FMAs per column for m, 3 per
+    output element)."""
+    return (p * n * (2 * x_bytes + q_bytes) + p * 4 * (2 if masked else 1),
+            5 * p * n)
 
 
 def phase_wagg_time(dev):
@@ -800,9 +835,51 @@ def phase_wagg_time(dev):
                 "bound_ms": max(t_b, t_o),
                 "bound_by": "bytes" if t_b >= t_o else "operations"}
             del sets
+    res["lm_mlp_leaf/none/masked"] = wagg_masked_time(dev, gen, beta)
     return {"phase": "wagg_time",
             "method": "CUDA graph of 32 (CNN6 round) or 4 (LM leaf) calls, "
                       "10 replays, CUDA events; beta 0.9", **res}
+
+
+def wagg_masked_time(dev, gen, beta):
+    """The masked kernel (Alg. 4) at one gemma3-1b MLP leaf (p 4, f32 x,
+    the last row inactive), its plain version and three library calls
+    (GEMV, torch.lerp, torch.where)."""
+    import torch
+    from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
+    p, n = LM_LEAF
+    x, t, _, act = wagg_inputs(p, n, torch.float32, "none", "one_inactive",
+                               gen, dev)
+
+    def kern():
+        return [wagg_fused(x, t, beta, active=act)]
+
+    def plain():
+        return [wagg_fused_ref(x, t, beta, active=act)]
+
+    def library():
+        m = (t @ x)[None].expand_as(x)
+        return [torch.where(act[:, None] != 0, torch.lerp(x, m, beta), m)]
+
+    ms, plain_ms, library_ms = (graph_ms([f], 4) for f in (kern, plain,
+                                                            library))
+    out, ref = kern()[0], plain()[0]
+    err = rel_err(out, ref)
+    if not err <= WAGG_TOL["float32"]:
+        raise AssertionError(f"wagg_time masked LM leaf: rel_err {err}")
+    bytes_moved, flops = wagg_work(p, n, 4, 0, masked=True)
+    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_o = flops / F32_FLOP_PER_S * 1e3
+    return {"leaves": [[p, n]], "x": "float32", "payload": "none",
+            "mask": "one_inactive", "bytes": bytes_moved, "flops": flops,
+            "max_abs_err": (out - ref).abs().max().item(),
+            "max_rel_err": err,
+            "library_max_rel_err": rel_err(library()[0], ref),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "three calls: m = theta @ x, torch.lerp(x, m, beta), "
+                       "torch.where(active != 0, ., m)",
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
 def cnn6_setup():
@@ -816,15 +893,16 @@ def cnn6_setup():
         return classification_loss(cnn6_apply(params, batch["x"]),
                                    batch["y"]), {}
 
-    def tcfg(backend):
+    def tcfg(backend, async_mode="host_sim"):
         return TrainConfig(learning_rate=TRAIN["lr"], optimizer="sgd",
                            wasgd=WASGDConfig(tau=TRAIN["tau"], beta=0.9,
-                                             backend=backend))
+                                             backend=backend,
+                                             async_mode=async_mode))
 
     X, y = make_images(0, TRAIN["n_images"])
 
-    def dataset():
-        return OrderedDataset({"x": X, "y": y}, TRAIN["p"], TRAIN["tau"],
+    def dataset(p=TRAIN["p"]):
+        return OrderedDataset({"x": X, "y": y}, p, TRAIN["tau"],
                               TRAIN["b_local"],
                               n_segments=TRAIN["n_segments"],
                               seed=TRAIN["order_seed"])
@@ -892,26 +970,31 @@ def phase_train_agree(dev):
             "checks": checks, "int8_vs_f32_max_abs_diff": int8_vs_f32}
 
 
-def run_trainer(tr, dataset, rounds):
+def run_trainer(tr, dataset, rounds, **kw):
+    """``tr.run`` over a fresh ``dataset()`` for ``rounds`` rounds (``kw``
+    to ``run``); returns the wall seconds and the dataset."""
     import torch
     ds = dataset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tr.run(ds, rounds)
+    tr.run(ds, rounds, **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, ds
 
 
-def new_trainer(dev):
+def new_trainer(dev, p=TRAIN["p"], async_mode="host_sim"):
+    """A CNN6 WASGD+ trainer at ``TRAIN``'s settings with ``p`` workers,
+    and the dataset for it."""
+    import functools
     from repro_torch.core import shared_axes
     from repro_torch.models import init_cnn6
     from repro_torch.train import Trainer
     loss_fn, tcfg, dataset = cnn6_setup()
     params = init_cnn6(0, device=dev)
     tr = Trainer(loss_fn, params, shared_axes(params),
-                 tcfg(TRAIN["backend"]), TRAIN["p"], rule="wasgd+",
+                 tcfg(TRAIN["backend"], async_mode), p, rule="wasgd+",
                  device=dev)
-    return tr, dataset
+    return tr, functools.partial(dataset, p)
 
 
 def phase_train(dev):
@@ -1234,6 +1317,445 @@ def phase_checkpoint(dev):
             "resumed_run_bitwise_equals_straight": eq,
             "straight_runs_bitwise_equal": straight_twice,
             "cudnn": "deterministic"}
+
+
+# -- Alg. 4 straggler rounds and elastic membership --------------------------
+
+# p + b workers of the async phases, the straggler regimes of
+# benchmarks/async_straggler.py:44-48 (StepTimeModel(seed=3))
+ASYNC = {"p": 6, "b": 2, "warmup_rounds": 2, "rounds": 30, "seed": 3}
+REGIMES = {"uniform": {"sigma": 0.05, "straggle_p": 0.0},
+           "stragglers": {"sigma": 0.2, "straggle_p": 0.05,
+                          "straggle_mult": 20.0}}
+# async_agree: the MLP harness (MLP), p 4 + b 2, 4 rounds, the CPU tests'
+# schedule (tests/test_torch_async.py)
+ASYNC_AGREE = {"p": 4, "b": 2, "tau": 2, "rounds": 4, "lr": 0.05,
+               "sigma": 0.3, "straggle_p": 0.2, "straggle_mult": 10,
+               "seed": 3, "atol": 1e-5}
+MEASURED = {"rounds": 10, "policy": "ema(0.9)|time_aware"}
+LM_ASYNC = {"p": 3, "b": 1, "warmup_rounds": 2, "rounds": 3,
+            "regime": "stragglers", "atol": 1e-4}
+ELASTIC = {"rounds": 30, "events": {10: 6, 20: 10}, "chaos_seed": 7,
+           "resume_p": (6, 10)}
+
+
+def worker_grad_fn(loss_fn):
+    """``grad_fn(params_stacked, batch) -> (losses (w,), grads)`` for
+    ``run_parallel_sgd`` and ``run_parallel_sgd_on_device``: autograd
+    through the vmapped loss, as the round's ``worker_grads`` takes it."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def grad_fn(ps, batch):
+        with torch.enable_grad():
+            tracked = tree_map(lambda x: x.detach().requires_grad_(), ps)
+            losses = vmap(lambda p, b: loss_fn(p, b)[0])(tracked, batch)
+            flat = iter(torch.autograd.grad(losses.sum(),
+                                            tree_leaves(tracked)))
+        return losses.detach(), tree_map(lambda x: next(flat), tracked)
+    return grad_fn
+
+
+def wagg_device_kernels(prof):
+    """wagg_fused device kernels of a profile: (all, masked). The masked
+    instantiation carries MASKED=true (``...true>`` demangled, ``Lb1E``
+    mangled)."""
+    import torch
+    n = masked = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "wagg_fused_kernel" in e.key:
+            n += e.count
+            if "true>" in e.key or "Lb1E" in e.key:
+                masked += e.count
+    return n, masked
+
+
+def mlp_async_run(dev, strategy, perturb=0.0):
+    """ASYNC_AGREE's schedule on the MLP harness: through
+    ``run_parallel_sgd_on_device`` (pallas_wagg) on ``dev``, or through the
+    port's host simulation ``run_parallel_sgd`` on the CPU (``dev`` None),
+    from the port's init plus ``perturb`` times seeded noise."""
+    import torch
+    from repro_torch.core import async_device, async_sim
+    from repro_torch.data import make_classification
+    from repro_torch.models import classification_loss, init_mlp, mlp_apply
+    a = ASYNC_AGREE
+    w = a["p"] + a["b"]
+
+    def loss_fn(params, batch):
+        return classification_loss(mlp_apply(params, batch["x"]),
+                                   batch["y"]), {}
+
+    X, y = make_classification(0, 8192, d=MLP["d"],
+                               n_classes=MLP["classes"], noise=0.25)
+    X, y = X[:MLP["n_samples"]], y[:MLP["n_samples"]]
+
+    def batches():
+        rng = np.random.default_rng(0)
+        while True:
+            idx = rng.integers(0, len(X), size=(w, a["tau"] * MLP["b_local"]))
+            yield {"x": X[idx], "y": y[idx]}
+
+    params = init_mlp(0, MLP["d"], MLP["hidden"], MLP["classes"],
+                      device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    params = {k: v + perturb * torch.randn(v.shape, generator=gen)
+              for k, v in params.items()}
+    axes = {k: (None,) * v.dim() for k, v in params.items()}
+    sched = async_sim.make_schedule(
+        async_sim.StepTimeModel(w, sigma=a["sigma"],
+                                straggle_p=a["straggle_p"],
+                                straggle_mult=a["straggle_mult"],
+                                seed=a["seed"]),
+        rounds=a["rounds"], tau=a["tau"], n_workers=a["p"], backups=a["b"])
+    kw = dict(n_workers=a["p"], backups=a["b"], tau=a["tau"],
+              rounds=a["rounds"], lr=a["lr"], schedule=sched,
+              strategy=strategy)
+    if dev is None:
+        return async_sim.run_parallel_sgd(loss_fn, worker_grad_fn(loss_fn),
+                                          params, axes, batches(), **kw), sched
+    return async_device.run_parallel_sgd_on_device(
+        worker_grad_fn(loss_fn), params, axes, batches(),
+        backend="pallas_wagg", device=dev, **kw), sched
+
+
+def phase_async_agree(dev):
+    """Alg. 4 on the card against the port's host simulation on the CPU:
+    the MLP harness, one schedule (p 4 + b 2, 4 rounds), strategies
+    boltzmann and best; params and losses within max(1e-5, twice the CPU
+    run's own spread under a 1e-7 perturbation of its start). The card
+    run goes through the masked wagg_fused, counted by its wrapper and by
+    the profiler."""
+    import torch
+    from repro_torch.kernels.wagg import wagg_fused
+    out = {}
+    for strategy in ("boltzmann", "best"):
+        cpu, sched = mlp_async_run(None, strategy)
+        spread_run, _ = mlp_async_run(None, strategy, perturb=1e-7)
+        wagg_fused.launches = wagg_fused.masked_launches = 0
+        with device_profile() as prof:
+            card, _ = mlp_async_run(dev, strategy)
+            torch.cuda.synchronize()
+        launches = (wagg_fused.launches, wagg_fused.masked_launches)
+        kernels = wagg_device_kernels(prof)
+        want = ASYNC_AGREE["rounds"] * len(card.params)
+        if launches != (want, want) or kernels != (want, want):
+            raise AssertionError(f"async_agree/{strategy}: wagg_fused "
+                                 f"(launches, masked) {launches}, device "
+                                 f"kernels (all, masked) {kernels}; want "
+                                 f"{want} masked")
+
+        def dev_of(a, b):
+            return (max((a.params[k].cpu() - b.params[k]).abs().max().item()
+                        for k in b.params),
+                    float(np.abs(a.losses - b.losses).max()))
+
+        got, spread = dev_of(card, cpu), dev_of(spread_run, cpu)
+        lim = [max(ASYNC_AGREE["atol"], 2 * x) for x in spread]
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in card.params.values())
+        if not (finite and got[0] <= lim[0] and got[1] <= lim[1]
+                and card.wall == cpu.wall
+                and card.dropped_rounds == cpu.dropped_rounds):
+            raise AssertionError(f"async_agree/{strategy}: card vs CPU "
+                                 f"(params, losses) {got} over {lim}, "
+                                 f"finite {finite}, wall {card.wall} vs "
+                                 f"{cpu.wall}, dropped {card.dropped_rounds}"
+                                 f" vs {cpu.dropped_rounds}")
+        out[strategy] = {"card_vs_cpu": {"params": got[0], "losses": got[1]},
+                         "cpu_spread": {"params": spread[0],
+                                        "losses": spread[1]},
+                         "limit": lim, "losses": card.losses.tolist(),
+                         "sim_wall": card.wall,
+                         "dropped_worker_rounds": card.dropped_rounds,
+                         "wagg_launches_masked": launches[1],
+                         "wagg_device_kernels_masked": kernels[1]}
+    return {"phase": "async_agree", "model": "mlp", "mlp": MLP,
+            **ASYNC_AGREE, "backend": "pallas_wagg (card), einsum host "
+            "simulation (CPU)", "active_per_round":
+            sched.active.astype(int).tolist(), "strategies": out}
+
+
+def async_train_run(dev, regime, sync):
+    """One timed run of ``phase_async_train``: a fresh trainer, 30 rounds
+    of Alg. 4 (the regime's schedule through ``straggler_schedule=``) or
+    Alg. 1 (the synchronous trainer); each round's mask and theta
+    checked; returns the trainer, the schedule and the record."""
+    import torch
+    from repro_torch.core.async_sim import StepTimeModel, make_schedule
+    from repro_torch.kernels.wagg import wagg_fused
+    p, b, rounds = ASYNC["p"], ASYNC["b"], ASYNC["rounds"]
+    w = p + b
+    name = f"async_train/{regime}/{'alg1' if sync else 'alg4'}"
+    sched = make_schedule(StepTimeModel(w, seed=ASYNC["seed"],
+                                        **REGIMES[regime]),
+                          rounds=rounds, tau=TRAIN["tau"], n_workers=p,
+                          backups=b, synchronous=sync)
+    kw = {} if sync else {"straggler_schedule": sched}
+    tr, dataset = new_trainer(dev, w, "host_sim" if sync else "on_device")
+    torch.cuda.reset_peak_memory_stats()
+    wagg_fused.launches = wagg_fused.masked_launches = 0
+    wall, _ = run_trainer(tr, dataset, rounds, **kw)
+    launches = (wagg_fused.launches, wagg_fused.masked_launches)
+    want = (rounds * CNN6_LEAVES, 0 if sync else rounds * CNN6_LEAVES)
+    if launches != want:
+        raise AssertionError(f"{name}: wagg_fused (launches, masked) "
+                             f"{launches}, want {want}")
+    for r, h in enumerate(tr.history):
+        act = sched.active[r]
+        rec = h.get("active", np.ones(w, np.float32))
+        if not (np.array_equal(rec, act.astype(np.float32))
+                and (h["theta"][~act] == 0.0).all()
+                and abs(float(h["theta"].sum()) - 1.0) <= 1e-5):
+            raise AssertionError(f"{name} round {r}: active {rec} vs {act}, "
+                                 f"theta {h['theta']}")
+    losses = tr.losses()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: losses {losses}")
+    return tr, dataset, sched, {
+        "seconds_per_round": wall / rounds,
+        "sim_wall": float(sched.round_wall.sum()),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "dropped_worker_rounds": int((~sched.active).sum()),
+        "wagg_launches": launches[0], "wagg_masked_launches": launches[1],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_async_train(dev):
+    """CNN6 at the training smoke's settings with w = p 6 + b 2 workers,
+    in each straggler regime: Alg. 4 through
+    ``Trainer.run(straggler_schedule=)`` (``async_mode="on_device"``,
+    pallas_wagg:f32, the masked kernel) and Alg. 1 (the synchronous
+    trainer, unmasked). After a throwaway trainer's 2 warm-up rounds of
+    each, four fresh trainers run 30 rounds in the order Alg. 4, Alg. 1,
+    Alg. 1, Alg. 4 (the host's speed drifts within a call): s/round on
+    the card; the simulated wall of each schedule (the paper's Sec. 3.5
+    quantity, which the card does not measure); per round the recorded
+    mask equals the schedule's, the stragglers' theta is exactly 0 and
+    theta sums to 1. Then 5 rounds of the stragglers regime's Alg. 4
+    trainer under the profiler: idle share and masked device kernels."""
+    from repro_torch.core.async_sim import StepTimeModel, make_schedule
+    w = ASYNC["p"] + ASYNC["b"]
+    res, masked = {}, 0
+    for regime in REGIMES:
+        for sync in (False, True):
+            sched = make_schedule(
+                StepTimeModel(w, seed=ASYNC["seed"], **REGIMES[regime]),
+                rounds=ASYNC["warmup_rounds"], tau=TRAIN["tau"],
+                n_workers=ASYNC["p"], backups=ASYNC["b"], synchronous=sync)
+            warm, dataset = new_trainer(dev, w, "host_sim" if sync else
+                                        "on_device")
+            run_trainer(warm, dataset, ASYNC["warmup_rounds"],
+                        **({} if sync else {"straggler_schedule": sched}))
+            del warm
+        runs = {"alg4": [], "alg1": []}
+        for sync in (False, True, True, False):
+            tr, dataset, sched, rec = async_train_run(dev, regime, sync)
+            runs["alg1" if sync else "alg4"].append(rec)
+            masked += rec["wagg_masked_launches"]
+            if regime == "stragglers" and not sync \
+                    and len(runs["alg4"]) == 2:
+                prof_rounds, kw = 5, {"straggler_schedule": sched}
+                wall5, _ = run_trainer(tr, dataset, prof_rounds, **kw)
+                with device_profile() as prof:
+                    run_trainer(tr, dataset, prof_rounds, **kw)
+                kernels = wagg_device_kernels(prof)
+                if kernels != (prof_rounds * CNN6_LEAVES,) * 2:
+                    raise AssertionError(f"async_train profile: wagg "
+                                         f"device kernels (all, masked) "
+                                         f"{kernels}")
+                rec["profile"] = {
+                    "rounds": prof_rounds, "wall_ms": wall5 * 1e3,
+                    "wagg_device_kernels_masked": kernels[1],
+                    **device_summary(prof, wall5, 8)}
+            del tr
+        out = {}
+        for mode, recs in runs.items():
+            out[mode] = {**recs[0], "runs_s_per_round": [
+                r["seconds_per_round"] for r in recs],
+                "seconds_per_round": float(np.mean(
+                    [r["seconds_per_round"] for r in recs]))}
+            if "profile" in recs[-1]:
+                out[mode]["profile"] = recs[-1]["profile"]
+        out["alg4_over_alg1_s_per_round"] = (
+            out["alg4"]["seconds_per_round"]
+            / out["alg1"]["seconds_per_round"])
+        out["sim_wall_alg1_over_alg4"] = (out["alg1"]["sim_wall"]
+                                          / out["alg4"]["sim_wall"])
+        res[regime] = {"time_model": {"seed": ASYNC["seed"],
+                                      **REGIMES[regime]}, **out}
+    return {"phase": "async_train", "model": "cnn6", **TRAIN, **ASYNC,
+            "w": w, "rule": "wasgd+", "order": "alg4, alg1, alg1, alg4",
+            "regimes": res, "masked_launches": masked}
+
+
+def phase_async_measured(dev):
+    """``run_parallel_sgd_on_device(measure_times=True)`` with
+    ``ema(0.9)|time_aware`` on CNN6 (p 6 + b 2, one SGD step a round on a
+    (w, 64) image batch, 10 rounds): the measured round times and masks.
+    One card runs every worker in one program, so every worker gets the
+    same time and the first p workers aggregate every round."""
+    import torch
+    from repro_torch.core.async_device import run_parallel_sgd_on_device
+    from repro_torch.data import make_images
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.models import init_cnn6
+    loss_fn, _, _ = cnn6_setup()
+    p, b, rounds = ASYNC["p"], ASYNC["b"], MEASURED["rounds"]
+    w = p + b
+    X, y = make_images(0, TRAIN["n_images"])
+
+    def batches():
+        rng = np.random.default_rng(0)
+        while True:
+            idx = rng.integers(0, len(X), size=(w, TRAIN["b_local"]))
+            yield {"x": X[idx], "y": y[idx]}
+
+    params = init_cnn6(0, device=dev)
+    wagg_fused.launches = wagg_fused.masked_launches = 0
+    t0 = time.perf_counter()
+    res = run_parallel_sgd_on_device(
+        worker_grad_fn(loss_fn), params,
+        {k: (None,) * v.dim() for k, v in params.items()}, batches(),
+        n_workers=p, backups=b, tau=1, rounds=rounds, lr=TRAIN["lr"],
+        measure_times=True, policy=MEASURED["policy"], backend="pallas_wagg",
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (wagg_fused.launches, wagg_fused.masked_launches)
+    times = res.round_times
+    equal = bool((times == times[:, :1]).all())
+    if not (equal and launches == (rounds * CNN6_LEAVES,) * 2
+            and np.isfinite(res.losses).all()
+            and res.dropped_rounds == rounds * b):
+        raise AssertionError(f"async_measured: times equal per round "
+                             f"{equal}, launches {launches}, losses "
+                             f"{res.losses}, dropped {res.dropped_rounds}")
+    return {"phase": "async_measured", "model": "cnn6", "p": p, "b": b,
+            "rounds": rounds, "policy": MEASURED["policy"],
+            "backend": "pallas_wagg", "b_local": TRAIN["b_local"],
+            "round_times_ms": (times * 1e3).tolist(),
+            "active_workers_each_round": list(range(p)),
+            "measured_wall_s": res.wall, "seconds_per_round": wall / rounds,
+            "losses": res.losses.tolist(),
+            "dropped_worker_rounds": res.dropped_rounds,
+            "wagg_launches": launches[0], "wagg_masked_launches": launches[1]}
+
+
+def check_resize(tr, events):
+    """Wraps ``tr.resize``: on the card, survivors' rows bitwise unchanged
+    and newcomers' rows the equal-weight aggregate within 1e-6 (against
+    float64); records the resize's milliseconds."""
+    import torch
+    real = tr.resize
+
+    def resize(new_p, round=None):
+        before = {k: v.clone() for k, v in tr.state.params.items()}
+        old_p = tr.n_workers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = real(new_p, round=round)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        keep = min(old_p, new_p)
+        survivors = all(torch.equal(tr.state.params[k][:keep], v[:keep])
+                        for k, v in before.items())
+        new_err = max(((tr.state.params[k][old_p:].double()
+                        - v.double().mean(0, keepdim=True)).abs().max()
+                       .item() if new_p > old_p else 0.0)
+                      for k, v in before.items())
+        if not (survivors and new_err <= 1e-6):
+            raise AssertionError(f"elastic: resize {old_p} -> {new_p} at "
+                                 f"round {round}: survivors bitwise "
+                                 f"{survivors}, newcomers vs aggregate "
+                                 f"{new_err}")
+        events.append({"round": round, "old_p": old_p, "new_p": new_p,
+                       "ms": ms, "newcomer_max_abs_err": new_err})
+        return ev
+
+    tr.resize = resize
+
+
+def elastic_run(dev, sched):
+    """A CNN6 trainer (``TRAIN``'s settings, an OrderedDataset) through
+    ``run(membership_schedule=sched)``: per-round seconds by p, each
+    resize checked and timed."""
+    from repro_torch.kernels.wagg import wagg_fused
+    tr, dataset = new_trainer(dev, sched.p0)
+    events, stamps = [], []
+    check_resize(tr, events)
+    wagg_fused.launches = 0
+    t0 = time.perf_counter()
+    wall, _ = run_trainer(tr, dataset, ELASTIC["rounds"],
+                          membership_schedule=sched,
+                          serve_hook=lambda r, ps, ax: stamps.append(
+                              time.perf_counter()))
+    per_round = np.diff([t0] + stamps)
+    by_p = {}
+    for h, s in zip(tr.history, per_round):
+        by_p.setdefault(int(h["p"]), []).append(float(s))
+    ps = [int(h["p"]) for h in tr.history]
+    want = [sched.p_of(r) for r in range(ELASTIC["rounds"])]
+    losses = tr.losses()
+    if ps != want or wagg_fused.launches != ELASTIC["rounds"] * CNN6_LEAVES \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"elastic: p by round {ps}, want {want}; "
+                             f"launches {wagg_fused.launches}; losses "
+                             f"{losses}")
+    return {"events": events, "wall_s": wall,
+            "median_s_per_round_by_p": {p: float(np.median(v))
+                                        for p, v in sorted(by_p.items())},
+            "rounds_by_p": {p: len(v) for p, v in sorted(by_p.items())},
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "wagg_launches": wagg_fused.launches}
+
+
+def phase_elastic(dev, fixed_p_loss_last):
+    """Elastic membership on CNN6: a scripted schedule (p 8, 6 at round
+    10, 10 at round 20) and a seeded chaos walk, 30 rounds each; then a
+    sharded checkpoint at p = 8 resumed at p = 6 and p = 10, equal
+    bitwise to ``resize_train_state`` of the saved state."""
+    import tempfile
+    import torch
+    from repro_torch.core.membership import (MembershipSchedule,
+                                             make_chaos_schedule,
+                                             resize_train_state)
+    scripted = MembershipSchedule(TRAIN["p"], ELASTIC["events"])
+    chaos = make_chaos_schedule(TRAIN["p"], ELASTIC["rounds"],
+                                seed=ELASTIC["chaos_seed"])
+    runs = {"scripted": {"events_scheduled": scripted.events,
+                         **elastic_run(dev, scripted)},
+            "chaos": {"events_scheduled": chaos.events,
+                      **elastic_run(dev, chaos)}}
+    resumes = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "p8")
+        tr, dataset = new_trainer(dev)
+        tr.run(dataset(), 2)
+        tr.save_checkpoint(path, 2)
+        tr._ckpt.wait()
+        for new_p in ELASTIC["resume_p"]:
+            back, _ = new_trainer(dev, new_p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            at = back.resume(path)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            expect = resize_train_state(tr.state, tr.axes, new_p)
+            same = state_bitwise_equal(back.state, expect)
+            if not (same and at == 2 and back.n_workers == new_p):
+                raise AssertionError(f"elastic: resume at p={new_p}: "
+                                     f"bitwise {same}, round {at}")
+            resumes[new_p] = {"bitwise_equal_resize_of_saved": same,
+                              "resume_ms": ms}
+            del back
+        del tr
+    return {"phase": "elastic", "model": "cnn6", **TRAIN,
+            "rounds": ELASTIC["rounds"], "runs": runs,
+            "checkpoint_p8_resumed_at": resumes,
+            "fixed_p_train_loss_last": fixed_p_loss_last}
 
 
 def rmsnorm_case(x, s, gen):
@@ -1678,7 +2200,7 @@ def new_lm_trainer(cfg, dev):
                    LM["p"], rule="wasgd+", device=dev)
 
 
-def run_lm_rounds(tr, ds, batches, rounds, done):
+def run_lm_rounds(tr, ds, batches, rounds, done, **kw):
     """``rounds`` more rounds of ``tr`` over ``batches`` (one iterator of
     ``ds`` for the whole run; ``done`` rounds came before). Returns wall
     seconds."""
@@ -1686,7 +2208,7 @@ def run_lm_rounds(tr, ds, batches, rounds, done):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.run(batches, rounds, order_state=ds.order,
-           segment_fn=lambda r: ds.segment_of_round(r + done))
+           segment_fn=lambda r: ds.segment_of_round(r + done), **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -1869,6 +2391,100 @@ def phase_train_to_serve(cfg, tr, ds, batches, done, dev):
 
 
 # -- decode_attn (contiguous cache) and the legacy ServeEngine ---------------
+
+def phase_lm_async(cfg, dev):
+    """Alg. 4 on gemma3-1b at full width and depth: ``lm_train``'s
+    settings with w = p 3 + b 1, the stragglers regime, pallas_wagg:f32,
+    2 warm-up and 3 timed rounds through
+    ``Trainer.run(straggler_schedule=)`` (a fresh trainer; the earlier LM
+    trainer is freed first). Every leaf's wagg_fused call of the first
+    masked round is held to the plain version on the same inputs."""
+    import torch
+    from repro_torch.configs import TrainConfig, WASGDConfig
+    from repro_torch.core.async_sim import StepTimeModel, make_schedule
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.wagg import ops as wagg_ops
+    from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
+    from repro_torch.models import init_params, param_axes
+    from repro_torch.train import Trainer, make_lm_loss
+    from repro_torch.tree import tree_leaves
+    a = LM_ASYNC
+    w, warm, rounds, tau = a["p"] + a["b"], a["warmup_rounds"], a["rounds"], \
+        LM["tau"]
+    sched = make_schedule(StepTimeModel(w, seed=ASYNC["seed"],
+                                        **REGIMES[a["regime"]]),
+                          rounds=warm + rounds, tau=tau, n_workers=a["p"],
+                          backups=a["b"])
+    tcfg = TrainConfig(learning_rate=LM["lr"], optimizer="sgd",
+                       wasgd=WASGDConfig(tau=tau, beta=LM["beta"],
+                                         backend=LM["backend"],
+                                         async_mode="on_device"))
+    params = init_params(cfg, seed=0, device=dev)
+    tr = Trainer(make_lm_loss(cfg), params, param_axes(params), tcfg, w,
+                 rule="wasgd+", device=dev)
+    del params
+    ds = lm_dataset(cfg)
+    batches = ds.batches()
+    errs = []
+    real = wagg_ops.wagg_fused
+
+    def held(x, theta, beta, payload=None, active=None):
+        out = real(x, theta, beta, payload=payload, active=active)
+        ref = wagg_fused_ref(x, theta, beta, payload=payload, active=active)
+        errs.append((out.float() - ref.float()).abs().max())
+        return out
+
+    wagg_ops.wagg_fused = held
+    try:
+        warm_s = run_lm_rounds(tr, ds, batches, 1, 0,
+                               straggler_schedule=sched.active[:1])
+    finally:
+        wagg_ops.wagg_fused = real
+    err = torch.stack(errs).max().item()
+    n_leaves = len(tree_leaves(tr.state.params))
+    if not (len(errs) == n_leaves and err <= a["atol"]):
+        raise AssertionError(f"lm_async: first masked round, {len(errs)} "
+                             f"leaves held, wagg_fused vs plain max_abs_err "
+                             f"{err} (limit {a['atol']})")
+    warm_s += run_lm_rounds(tr, ds, batches, warm - 1, 1,
+                            straggler_schedule=sched.active[1:warm])
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_fwd.launches = fused_ce_fwd.launches = 0
+    add_rmsnorm_fwd.launches = 0
+    wagg_fused.launches = wagg_fused.masked_launches = 0
+    wall = run_lm_rounds(tr, ds, batches, rounds, warm,
+                         straggler_schedule=sched.active[warm:])
+    launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                "fused_ce": fused_ce_fwd.launches,
+                "wagg_fused": wagg_fused.launches,
+                "wagg_fused_masked": wagg_fused.masked_launches}
+    want = {"rmsnorm": rounds * tau * (2 * cfg.n_layers + 1),
+            "rmsnorm_fused": rounds * tau * 2 * cfg.n_layers,
+            "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves,
+            "wagg_fused_masked": rounds * n_leaves}
+    if launches != want:
+        raise AssertionError(f"lm_async: launches {launches}, want {want}")
+    for r, h in enumerate(tr.history):
+        act = sched.active[r]
+        if not (np.array_equal(h["active"], act.astype(np.float32))
+                and (h["theta"][~act] == 0.0).all()):
+            raise AssertionError(f"lm_async round {r}: active {h['active']}"
+                                 f" vs {act}, theta {h['theta']}")
+    losses = tr.losses()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"lm_async: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del tr
+    return {"phase": "lm_async", "arch": cfg.name, **LM, **a, "w": w,
+            "time_model": {"seed": ASYNC["seed"], **REGIMES[a["regime"]]},
+            "active": sched.active.astype(int).tolist(),
+            "first_round_wagg_max_abs_err": err, "leaves_held": len(errs),
+            "launches": launches, "worker_leaves": n_leaves,
+            "seconds_per_round": wall / rounds, "warmup_s": warm_s,
+            "losses": [float(x) for x in losses], "peak_mem_gib": peak}
+
 
 def decode_inputs(b, S, kv, g, hd, q_dtype, kv_dtype, gen, dev):
     import torch
@@ -2745,6 +3361,10 @@ def main():
     run_phase(phase_train_profile, dev)
     run_phase(phase_baselines, dev, train["seconds_per_round"])
     run_phase(phase_checkpoint, dev)
+    async_agree = run_phase(phase_async_agree, dev)
+    async_train = run_phase(phase_async_train, dev)
+    measured = run_phase(phase_async_measured, dev)
+    run_phase(phase_elastic, dev, train["loss_last"])
     torch.cuda.empty_cache()
 
     run_phase(phase_lm_agree, cfg, dev)
@@ -2755,12 +3375,15 @@ def main():
     lm_prof = run_phase(phase_lm_train_profile, cfg, tr, ds, batches)
     t2s = run_phase(phase_train_to_serve, cfg, tr, ds, batches,
                     LM["warmup_rounds"] + LM["rounds"] + 4, dev)
-    del tr
+    del tr, batches
+    torch.cuda.empty_cache()
+    lm_async = run_phase(phase_lm_async, cfg, dev)
     torch.cuda.empty_cache()
 
     t = timing["ring512"]
     w = wagg_timing["cnn6_round/none"]
     lm_leaf = wagg_timing["lm_mlp_leaf/none"]
+    lm_leaf_masked = wagg_timing["lm_mlp_leaf/none/masked"]
     nt = norm_timing["fused_train"]
     keys = ("x", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{
@@ -2794,6 +3417,15 @@ def main():
                                                 "bound_by", "library_ms")},
         "lm_train_launches": lm["launches"]["wagg_fused"],
         "train_to_serve_launches": t2s["launches"]["wagg_fused"],
+        "lm_mlp_leaf_masked": {k: lm_leaf_masked[k] for k in (
+            "mask", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library")},
+        "masked_launches": {
+            "async_train": async_train["masked_launches"],
+            "lm_async": lm_async["launches"]["wagg_fused_masked"],
+            "async_agree": sum(v["wagg_launches_masked"] for v in
+                               async_agree["strategies"].values()),
+            "async_measured": measured["wagg_masked_launches"]},
         "lm_train_profile": lm_prof["port_kernels"].get(
             "wagg_fused_kernel")}, {
         "name": "rmsnorm", "route": "cuda",

@@ -26,10 +26,12 @@ def is_worker_leaf(axes_leaf) -> bool:
 def fma_late_join(x: torch.Tensor, m: torch.Tensor, beta,
                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The worker-local half of Eq. 10, ``(1-beta) x + beta m``, plus the
-    Alg. 4 late-join: inactive workers adopt the aggregate ``m``."""
+    Alg. 4 late-join: inactive workers (``active`` False or 0) adopt the
+    aggregate ``m``."""
     out = (1.0 - beta) * x.float() + beta * m[None]
     if active is not None:
-        mask = active.reshape(active.shape + (1,) * (x.dim() - 1))
+        mask = active if active.dtype == torch.bool else active != 0
+        mask = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
         out = torch.where(mask, out, m[None].expand_as(out))
     return out.to(x.dtype)
 
@@ -60,6 +62,40 @@ def map_worker_leaves(fn: Callable, params: Dict, axes: Dict) -> Dict:
 def worker_in_axes(axes: Dict) -> Dict:
     """``vmap`` in_dims tree: 0 for worker leaves, None for shared ones."""
     return tree_map(lambda ax: 0 if is_worker_leaf(ax) else None, axes)
+
+
+def strip_worker_axis(axes: Dict) -> Dict:
+    """The axes tree of one worker's slice."""
+    return tree_map(lambda ax: tuple(ax[1:]) if is_worker_leaf(ax) else ax,
+                    axes)
+
+
+def resize_worker_leaves(params: Dict, axes: Dict, new_p: int,
+                         theta: Optional[torch.Tensor] = None) -> Dict:
+    """Every worker leaf grown or shrunk to ``new_p`` rows, with the
+    membership slot contract (``core/membership.py``): worker ``i`` keeps
+    row ``i`` bitwise for ``i < min(old_p, new_p)``, a shrink drops the
+    tail, and a grow appends newcomers whose row is the aggregate
+    ``m = sum_j theta_j x_j`` of the survivors (``theta=None``: equal
+    weights), the state an Alg. 4 late-joiner adopts. Shared leaves pass
+    through."""
+    if new_p < 1:
+        raise ValueError(f"resize needs new_p >= 1, got {new_p}")
+
+    def visit(x, ax):
+        if not is_worker_leaf(ax):
+            return x
+        old_p = x.shape[0]
+        if new_p <= old_p:
+            return x[:new_p]
+        t = (torch.full((old_p,), 1.0 / old_p, dtype=torch.float32,
+                        device=x.device) if theta is None
+             else theta.float())
+        m = torch.tensordot(t, x.float(), dims=1)
+        newcomers = m.unsqueeze(0).expand(new_p - old_p, *x.shape[1:])
+        return torch.cat([x, newcomers.to(x.dtype)])
+
+    return tree_map(visit, params, axes)
 
 
 def take_worker(params: Dict, axes: Dict, i: int) -> Dict:

@@ -47,7 +47,9 @@ class AggregationContext:
 
     ``comm_dtype`` payload dtype for specs that leave the codec open.
     ``n_pods``     pod count of the hierarchical 2-hop.
-    ``active``     (w,) bool activity mask (Alg. 4); ``None``: all active.
+    ``active``     (w,) Alg. 4 activity mask, bool or float32 0/1 (the
+                   kernel's form, which the Alg. 4 rule casts once a
+                   round); ``None``: all active.
     """
     comm_dtype: torch.dtype = torch.float32
     n_pods: int = 1
@@ -57,7 +59,7 @@ class AggregationContext:
 DEFAULT_CONTEXT = AggregationContext()
 
 MESH_NOT_PORTED = ("places collectives on a device mesh and is not ported "
-                   "yet (ROADMAP.md queue 1.9)")
+                   "yet (ROADMAP.md queue 1.7)")
 
 
 class _EinsumSchedule:
@@ -224,6 +226,12 @@ class ComposedBackend:
             return sched.finalize(state, x, theta, beta, codec, ctx)
 
         return tree_map(leaf, params, axes)
+
+
+def canonical_spec(name: str) -> str:
+    """An alias or spec in ``schedule[:codec]`` form."""
+    sched, codec = resolve_spec(name)
+    return sched if codec is None else f"{sched}:{codec}"
 
 
 def get_backend(name: str) -> ComposedBackend:

@@ -23,7 +23,7 @@ import torch
 
 NOT_PORTED = {"int4": "the int4 codec draws its rounding noise from "
                       "jax.random fold-ins and is not ported yet "
-                      "(ROADMAP.md queue 1.2)"}
+                      "(ROADMAP.md queue 1.1)"}
 
 
 class _DtypeCodec:

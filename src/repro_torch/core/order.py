@@ -56,6 +56,25 @@ class OrderState:
         self.scores[segment] = 0.0
         return keep
 
+    def resize(self, new_p: int):
+        """Membership resize with the slot contract: worker ``i`` keeps its
+        seed column for ``i < min(old_p, new_p)``; newcomers draw fresh
+        seeds from this state's generator and start their score at 0."""
+        if int(new_p) < 1:
+            raise ValueError(f"resize needs new_p >= 1, got {new_p}")
+        new_p = int(new_p)
+        old_p = self.seeds.shape[1]
+        if new_p <= old_p:
+            self.seeds = self.seeds[:, :new_p]
+            self.scores = self.scores[:, :new_p]
+        else:
+            n_seg = self.seeds.shape[0]
+            fresh = self._rng.integers(0, 2**31 - 1,
+                                       size=(n_seg, new_p - old_p))
+            self.seeds = np.concatenate([self.seeds, fresh], axis=1)
+            self.scores = np.concatenate(
+                [self.scores, np.zeros((n_seg, new_p - old_p))], axis=1)
+
 
 def grouped_order(labels: np.ndarray, delta: int, seed: int = 0
                   ) -> np.ndarray:

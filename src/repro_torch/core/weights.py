@@ -70,8 +70,10 @@ def no_active_error() -> ValueError:
 
 
 def _reject_all_false(active: torch.Tensor) -> None:
-    """Raises on an all-False mask (reads the mask on the host: masked
-    rounds only, never the synchronous path)."""
+    """Raises on an all-False mask. It reads the mask on the host, so the
+    Alg. 4 round skips it (``PipelinePolicy.__call__(checked=True)``)
+    once its schedule has been checked in numpy
+    (``core/async_device.validate_active_rounds``)."""
     if active.numel() and not bool(active.any()):
         raise no_active_error()
 
@@ -217,6 +219,22 @@ class Ema:
         h_hat = torch.where(n > 0, h_bar / torch.clamp_min(corr, 1e-30), h)
         return h_hat, {"h_bar": h_bar, "n": n}
 
+    def expand_state(self, state, new_p: int):
+        """Membership resize: survivors keep their slots; newcomers adopt
+        the mean accumulator and count over the survivors that have seen a
+        round (zeros if none has)."""
+        h_bar, n = state["h_bar"], state["n"]
+        old_p = h_bar.shape[0]
+        if new_p <= old_p:
+            return {"h_bar": h_bar[:new_p], "n": n[:new_p]}
+        seen = n > 0
+        denom = torch.clamp_min(seen.sum(), 1).float()
+        agg_h = torch.where(seen, h_bar, 0.0).sum() / denom
+        agg_n = torch.where(seen, n, 0.0).sum() / denom
+        grow = new_p - old_p
+        return {"h_bar": torch.cat([h_bar, agg_h.expand(grow)]),
+                "n": torch.cat([n, agg_n.expand(grow)])}
+
 
 @register_policy
 class TimeAware:
@@ -247,6 +265,16 @@ class TimeAware:
         return {"times": torch.as_tensor(times, dtype=torch.float32,
                                          device=dev),
                 "seen": torch.ones((), dtype=torch.bool, device=dev)}
+
+    def expand_state(self, state, new_p: int):
+        """Membership resize: newcomers take the survivors' mean round time
+        until their own first observation; ``seen`` is fleet state."""
+        tm = state["times"]
+        old_p = tm.shape[0]
+        if new_p <= old_p:
+            return {"times": tm[:new_p], "seen": state["seen"]}
+        return {"times": torch.cat([tm, tm.mean().expand(new_p - old_p)]),
+                "seen": state["seen"]}
 
 
 # ---------------------------------------------------------------------------
@@ -390,8 +418,12 @@ class PipelinePolicy:
             st["t"] = torch.zeros((), dtype=torch.float32, device=device)
         return st if st else ()
 
-    def __call__(self, h, active=None, state=None, t=None):
-        if active is not None:
+    def __call__(self, h, active=None, state=None, t=None, *,
+                 checked: bool = False):
+        """``checked=True``: the caller has already checked that ``active``
+        holds an active worker (on the host, in numpy), so the call reads
+        nothing back from the device."""
+        if active is not None and not checked:
             _reject_all_false(active)
         if state is None or (isinstance(state, tuple) and not state):
             state = self.init_state(h.shape[0], h.device)   # round 0
@@ -428,6 +460,44 @@ class PipelinePolicy:
             if hasattr(s, "observe") and key in st:
                 st[key] = s.observe(st[key], times)
         return st
+
+    def expand_state(self, state, new_p: int):
+        """Re-shards the policy state across a membership resize
+        (``core/membership.py``): each stateful stage keeps the survivors'
+        slots and fills newcomers from its aggregate (its own
+        ``expand_state``, else the survivor mean); the round counter ``t``
+        is fleet state and carries over."""
+        if not isinstance(state, dict) or not state:
+            return state
+        st = dict(state)
+        for i, s in enumerate(self.energy_stages):
+            key = self._stage_key(i, s)
+            if key not in st:
+                continue
+            if hasattr(s, "expand_state"):
+                st[key] = s.expand_state(st[key], new_p)
+            else:
+                st[key] = _generic_expand_state(st[key], new_p)
+        return st
+
+
+def _generic_expand_state(sub, new_p: int):
+    """Resize of a stage without ``expand_state``: every tensor with a
+    leading dim is per-worker (survivors keep slots, newcomers get the
+    survivor mean); 0-d tensors are fleet state."""
+    def visit(x):
+        if isinstance(x, dict):
+            return {k: visit(v) for k, v in x.items()}
+        if x.dim() == 0:
+            return x
+        old_p = x.shape[0]
+        if new_p <= old_p:
+            return x[:new_p]
+        fill = x.float().mean(dim=0, keepdim=True).expand(
+            new_p - old_p, *x.shape[1:]).to(x.dtype)
+        return torch.cat([x, fill])
+
+    return visit(sub)
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +565,17 @@ def parse_policy(spec: str, default_a: float = 1.0) -> PipelinePolicy:
                 f"{name} takes {sig}") from None
         stages.append(stage)
     return PipelinePolicy(stages, default_a=default_a, spec=spec)
+
+
+def as_policy(policy, default_a: float = 1.0) -> PipelinePolicy:
+    """A spec string -> its parsed pipeline; a policy object passes
+    through."""
+    if isinstance(policy, str):
+        return parse_policy(policy, default_a=default_a)
+    if isinstance(policy, PipelinePolicy):
+        return policy
+    raise TypeError(f"expected a policy spec string or a PipelinePolicy, "
+                    f"got {type(policy).__name__}")
 
 
 def policy_from_config(wcfg) -> PipelinePolicy:

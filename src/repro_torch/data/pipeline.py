@@ -34,6 +34,16 @@ class OrderedDataset:
     def segment_of_round(self, r: int) -> int:
         return (r // self.rounds_per_segment) % self.n_segments
 
+    def resize(self, new_p: int):
+        """Membership resize at a round boundary: the rows of later rounds
+        follow ``self.p``, and the order state's seed columns follow the
+        slot contract (``OrderState.resize``). The Trainer then restarts
+        ``batches`` at the round it resumes (``start_round=``)."""
+        if int(new_p) < 1:
+            raise ValueError(f"resize needs new_p >= 1, got {new_p}")
+        self.p = int(new_p)
+        self.order.resize(self.p)
+
     def batches(self, start_round: int = 0
                 ) -> Iterator[Dict[str, np.ndarray]]:
         """Infinite iterator over rounds, from round ``start_round`` (a

@@ -4,7 +4,8 @@ the port of the Pallas kernel in ``repro/kernels/wagg/wagg.py:88``.
 A tensor on the CPU takes the plain version (``ref.py``); a tensor on a
 CUDA device launches the kernel, or the call raises. There is no fallback
 from a failed build or launch. ``wagg_fused.launches`` counts the
-kernel's launches.
+kernel's launches, ``wagg_fused.masked_launches`` those with an Alg. 4
+mask.
 """
 from __future__ import annotations
 
@@ -71,8 +72,9 @@ def wagg_fused(x: torch.Tensor, theta: torch.Tensor, beta: float,
                active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (p, N) float32/bfloat16; theta: (p,) effective weights (a
     quantizing codec's scale folded in); payload: (p, N) float32/bfloat16/
-    int8 or None (the payload is x); active: (p,) 0/1 or None. Returns
-    (p, N) in x's dtype."""
+    int8 or None (the payload is x); active: (p,) float32 0/1 or None (the
+    caller casts a mask once for all its leaves). Returns (p, N) in x's
+    dtype."""
     tensors = [t for t in (x, theta, payload, active) if t is not None]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -84,7 +86,6 @@ def wagg_fused(x: torch.Tensor, theta: torch.Tensor, beta: float,
     if dev.type != "cuda":
         raise ValueError(f"wagg_fused runs on cpu or cuda, not {dev}")
     theta = theta.to(torch.float32)
-    active = None if active is None else active.to(torch.float32)
     _check(x, theta, payload, active)
     p, n = x.shape
     q = x if payload is None else payload
@@ -99,7 +100,9 @@ def wagg_fused(x: torch.Tensor, theta: torch.Tensor, beta: float,
     if err != 0:
         raise RuntimeError(f"wagg_fused launch failed: error {err}")
     wagg_fused.launches += 1
+    wagg_fused.masked_launches += active is not None
     return out
 
 
 wagg_fused.launches = 0
+wagg_fused.masked_launches = 0

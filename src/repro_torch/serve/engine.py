@@ -443,7 +443,7 @@ class HotSwapBridge:
         if telemetry is not None:
             raise NotImplementedError(
                 "HotSwapBridge telemetry=: telemetry (ROADMAP.md queue "
-                "1.10) is not ported yet")
+                "1.8) is not ported yet")
         self.engine = engine
         self.swaps: List[Dict] = []
         self._last_round: Optional[int] = None

@@ -13,6 +13,7 @@ the mean over workers and scales it by p; the two agree up to rounding).
 """
 from __future__ import annotations
 
+import dataclasses
 import types
 from typing import Callable, Dict, Optional, Tuple
 
@@ -20,6 +21,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch.core import aggregate as agg
+from repro_torch.core import async_device
 from repro_torch.core import backends
 from repro_torch.core import baselines as bl
 from repro_torch.core.energy import record_mask
@@ -32,15 +34,11 @@ from repro_torch.tree import tree_assign, tree_leaves, tree_map
 
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]
 
-NOT_PORTED = {
-    "async": "async_mode='on_device' (the Alg. 4 masked round) is not "
-             "ported yet (ROADMAP.md queue 1.1)",
-}
 
-
-def _check_sync(wcfg) -> None:
-    if wcfg.async_mode == "on_device":
-        raise NotImplementedError(NOT_PORTED["async"])
+def _check_pods(wcfg, name: str) -> None:
+    if backends.resolve_spec(name)[0] == "hierarchical" and wcfg.n_pods < 2:
+        raise ValueError("'hierarchical' aggregation schedule needs "
+                         f"WASGDConfig.n_pods >= 2 (got {wcfg.n_pods})")
 
 
 def wasgd_rule(wcfg) -> Callable:
@@ -48,17 +46,47 @@ def wasgd_rule(wcfg) -> Callable:
     state is ``comm_state``), the aggregate through the configured
     ``schedule:codec`` spec. Unknown or unported specs fail here, when the
     rule is built."""
-    _check_sync(wcfg)
     name = backends.backend_name_from_config(wcfg)
-    if backends.resolve_spec(name)[0] == "hierarchical" and wcfg.n_pods < 2:
-        raise ValueError("'hierarchical' aggregation schedule needs "
-                         f"WASGDConfig.n_pods >= 2 (got {wcfg.n_pods})")
+    _check_pods(wcfg, name)
     pol = policy_from_config(wcfg)
 
     def rule(params, axes, h, comm_state):
         theta, comm_state = pol(h, None, comm_state)
         new_params = backends.aggregate_from_config(wcfg, params, axes, theta)
         return new_params, comm_state, theta, {}
+    return rule
+
+
+def async_wasgd_rule(wcfg) -> Callable:
+    """Alg. 4 (p-of-(p+b)) rule for ``async_mode="on_device"``.
+    ``comm_state`` is the round's ``(w,)`` bool activity mask, or
+    ``{"active": mask, "policy": state}`` for a stateful policy; the host
+    loop puts each round's mask in it, checked for an active worker
+    (``Trainer.run(straggler_schedule=)``). theta is masked (stragglers
+    exactly 0); the aggregate and the late-join run through the
+    configured spec's Alg. 4 form (``async_device.async_backend_name``)
+    with the mask cast to float32 once a round, which is also
+    ``metrics["active"]``."""
+    name = async_device.async_backend_name(
+        backends.backend_name_from_config(wcfg))
+    backends.get_backend(name)
+    _check_pods(wcfg, name)
+    pol = policy_from_config(wcfg)
+    ctx = backends.context_from_config(wcfg)
+
+    def rule(params, axes, h, comm_state):
+        if pol.stateful:
+            active, pstate = comm_state["active"], comm_state["policy"]
+        else:
+            active, pstate = comm_state, ()
+        theta, pstate = pol(h, active, pstate, checked=True)
+        act = active.float()
+        new_params = backends.aggregate_with(
+            name, params, axes, theta, wcfg.beta,
+            ctx=dataclasses.replace(ctx, active=act))
+        out_comm = ({"active": active, "policy": pstate} if pol.stateful
+                    else comm_state)
+        return new_params, out_comm, theta, {"active": act}
     return rule
 
 
@@ -213,7 +241,8 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
     (The JAX builder's ``pipeline=``/``overlap=`` seam and its mesh
     schedules are not ported yet.)"""
     if rule is None:
-        rule = wasgd_rule(wcfg)
+        rule = (async_wasgd_rule(wcfg) if wcfg.async_mode == "on_device"
+                else wasgd_rule(wcfg))
     parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers)
 
     def train_step(state: TrainState, batch: Dict
@@ -229,11 +258,24 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
 
 
 def init_comm_state(rule_name: str, params: Dict, axes: Dict,
-                    n_workers: int, wcfg=None):
+                    n_workers: int, wcfg=None, prev=None):
     """A rule's communication state, on the params' device: EASGD's
-    center, the MWU log-weights, the policy state of the wasgd/wasgd+
-    rules (``()`` for a stateless policy), ``()`` for the others. (The
-    JAX function's ``prev=`` membership re-shard is not ported yet.)"""
+    center, the MWU log-weights, the wasgd/wasgd+ policy state (``()`` for
+    a stateless policy; under ``async_mode="on_device"`` an all-active
+    mask, beside the policy state if it is stateful), ``()`` for the
+    others. ``prev=``: the previous round's state, re-sharded to
+    ``n_workers`` across a membership resize
+    (``core/membership.resize_comm_state``); the baseline rules have no
+    such re-shard."""
+    if prev is not None:
+        from repro_torch.core.membership import resize_comm_state
+        if rule_name not in ("wasgd", "wasgd+"):
+            raise ValueError(
+                f"rule {rule_name!r} has no elastic comm-state re-shard")
+        pol = (policy_from_config(wcfg)
+               if wcfg is not None and policy_from_config(wcfg).stateful
+               else None)
+        return resize_comm_state(prev, n_workers, policy=pol)
     dev = tree_leaves(params)[0].device
     if rule_name == "easgd":
         return bl.easgd_init(params, axes)
@@ -241,5 +283,9 @@ def init_comm_state(rule_name: str, params: Dict, axes: Dict,
         return bl.mwu_init(n_workers, dev)
     if wcfg is None or rule_name not in ("wasgd", "wasgd+"):
         return ()
-    _check_sync(wcfg)
-    return policy_from_config(wcfg).init_state(n_workers, dev)
+    pol = policy_from_config(wcfg)
+    pstate = pol.init_state(n_workers, dev)
+    if wcfg.async_mode == "on_device":
+        mask = torch.ones(n_workers, dtype=torch.bool, device=dev)
+        return {"active": mask, "policy": pstate} if pol.stateful else mask
+    return pstate

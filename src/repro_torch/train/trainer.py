@@ -1,6 +1,9 @@
 """Host-side training loop, the counterpart of
-``repro/train/trainer.py::Trainer``: synchronous WASGD/WASGD+ rounds and
-the paper's baseline rules, the run's metrics, checkpoints and the
+``repro/train/trainer.py::Trainer``: WASGD/WASGD+ rounds, synchronous or
+Alg. 4 straggler rounds (``async_mode="on_device"``,
+``run(straggler_schedule=)``), elastic membership (``resize``,
+``run(membership_schedule=)``, a resume at another worker count), the
+paper's baseline rules, the run's metrics, checkpoints and the
 train-to-serve hook.
 
 The device side of a round is ``train/step.py``; the Trainer moves each
@@ -12,8 +15,7 @@ batches of later rounds, hands the live params to ``serve_hook`` and
 saves sharded checkpoints of the full train state in the background.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue item: pipelined rounds, elastic membership (and with it a resume
-at another worker count), straggler schedules and telemetry.
+queue item: pipelined rounds and telemetry.
 """
 from __future__ import annotations
 
@@ -28,7 +30,11 @@ import torch
 from repro_torch.checkpoint.io import (AsyncCheckpointer, _flatten, restore,
                                        saved_topology)
 from repro_torch.core import replicate_workers
+from repro_torch.core.async_device import validate_active_rounds
+from repro_torch.core.membership import (MembershipSchedule, WorkerSet,
+                                         resize_train_state)
 from repro_torch.core.order import OrderState
+from repro_torch.core.weights import policy_from_config
 from repro_torch.data.pipeline import OrderedDataset
 from repro_torch.device import resolve_device
 from repro_torch.optim import make_optimizer
@@ -38,15 +44,23 @@ from repro_torch.train.step import build_train_step, init_comm_state
 from repro_torch.tree import tree_map
 
 _NOT_PORTED = {
-    "pipeline": "pipelined rounds (ROADMAP.md queue 1.8)",
-    "straggler_schedule": "straggler schedules (ROADMAP.md queue 1.1)",
-    "membership_schedule": "elastic membership (ROADMAP.md queue 1.3)",
-    "telemetry": "telemetry (ROADMAP.md queue 1.10)",
+    "pipeline": "pipelined rounds (ROADMAP.md queue 1.6)",
+    "telemetry": "telemetry (ROADMAP.md queue 1.8)",
 }
 
+
+def _wasgd_rule_for(tcfg):
+    """The synchronous Eq. 10 rule, or the Alg. 4 masked rule when the
+    config selects ``async_mode="on_device"`` (the mask rides in
+    ``state.comm_state``)."""
+    if tcfg.wasgd.async_mode == "on_device":
+        return step_mod.async_wasgd_rule(tcfg.wasgd)
+    return step_mod.wasgd_rule(tcfg.wasgd)
+
+
 RULES = {
-    "wasgd": lambda tcfg: step_mod.wasgd_rule(tcfg.wasgd),
-    "wasgd+": lambda tcfg: step_mod.wasgd_rule(tcfg.wasgd),
+    "wasgd": _wasgd_rule_for,
+    "wasgd+": _wasgd_rule_for,
     "spsgd": lambda tcfg: step_mod.spsgd_rule(),
     "easgd": lambda tcfg: step_mod.easgd_rule(alpha=0.9 / 16),
     "omwu": lambda tcfg: step_mod.mwu_rule(),
@@ -75,12 +89,10 @@ class Trainer:
         _refuse(pipeline=pipeline)
         self.device = resolve_device(device)
         self.tcfg = tcfg
-        self.n_workers = n_workers
+        self.workers = WorkerSet(n_workers)
         self.rule_name = rule
-        if rule == "easgd" and easgd_alpha is not None:
-            rule_fn = step_mod.easgd_rule(easgd_alpha)
-        else:
-            rule_fn = RULES[rule](tcfg)
+        self._loss_fn = loss_fn
+        self._easgd_alpha = easgd_alpha
         params, axes = replicate_workers(
             tree_map(lambda x: x.to(self.device), params), axes, n_workers)
         self.axes = axes
@@ -91,10 +103,56 @@ class Trainer:
             tcfg.weight_decay)
         self.state: TrainState = init_state(
             params, self.optimizer.init(params), n_workers, comm_state)
-        self._step = build_train_step(loss_fn, self.optimizer, axes,
-                                      tcfg.wasgd, n_workers, rule=rule_fn)
         self._ckpt: Optional[AsyncCheckpointer] = None     # made at first save
+        self._build_step()
         self.history: list = []
+
+    @property
+    def n_workers(self) -> int:
+        """The live worker count, the ``WorkerSet``'s (changed only by
+        ``resize``)."""
+        return self.workers.p
+
+    def _build_step(self):
+        """Builds the round for the current membership (the step closes
+        over ``n_workers``); ``resize`` calls it again."""
+        if self.rule_name == "easgd" and self._easgd_alpha is not None:
+            rule_fn = step_mod.easgd_rule(self._easgd_alpha)
+        else:
+            rule_fn = RULES[self.rule_name](self.tcfg)
+        self._step = build_train_step(self._loss_fn, self.optimizer,
+                                      self.axes, self.tcfg.wasgd,
+                                      self.n_workers, rule=rule_fn)
+
+    def _policy_for_resize(self):
+        if self.rule_name not in ("wasgd", "wasgd+"):
+            return None
+        pol = policy_from_config(self.tcfg.wasgd)
+        return pol if pol.stateful else None
+
+    def resize(self, new_p: int, round: Optional[int] = None):
+        """Commits a membership change at a round boundary: the train
+        state is re-sharded (survivors keep their slots bitwise, newcomers
+        adopt the aggregate; ``core/membership.py``), the comm state
+        through ``init_comm_state(prev=)``, and the round is rebuilt for
+        the new count. Returns the ``MembershipEvent``, or None when
+        ``new_p`` is the live count."""
+        if self.rule_name not in ("wasgd", "wasgd+"):
+            raise ValueError(
+                f"elastic membership is a wasgd/wasgd+ capability — rule "
+                f"{self.rule_name!r} pins worker count at construction")
+        new_p = int(new_p)
+        if new_p == self.n_workers:
+            return None
+        comm = init_comm_state(self.rule_name, self.state.params, self.axes,
+                               new_p, wcfg=self.tcfg.wasgd,
+                               prev=self.state.comm_state)
+        self.state = resize_train_state(self.state, self.axes, new_p,
+                                        policy=self._policy_for_resize(),
+                                        comm_state=comm)
+        event = self.workers.resize(new_p, round=round)
+        self._build_step()
+        return event
 
     # -- sharded, resumable checkpoints -----------------------------------
 
@@ -123,25 +181,30 @@ class Trainer:
     def resume(self, path: str, allow_cast: bool = False) -> int:
         """Restores a checkpoint (the JAX Trainer's or this one's, flat or
         sharded) into this trainer and returns the round to resume at. A
-        checkpoint saved at another worker count raises: resizing needs
-        elastic membership, which is not ported."""
+        sharded checkpoint saved at another worker count is restored at
+        its recorded ``p`` and then resized to this trainer's: the saved
+        survivors land bitwise in their slots, newcomers adopt the
+        aggregate."""
         topo = saved_topology(path)["topology"]
         saved_p = int(topo.get("p", self.n_workers))
         if topo.get("rule") is not None and topo["rule"] != self.rule_name:
             raise ValueError(
                 f"checkpoint was saved by rule {topo['rule']!r}; this "
                 f"trainer runs {self.rule_name!r}")
+        pol = self._policy_for_resize()
+        like = self.state
         if saved_p != self.n_workers:
             if self.rule_name not in ("wasgd", "wasgd+"):
                 raise ValueError(
                     f"checkpoint p={saved_p} != trainer p={self.n_workers} "
                     f"and rule {self.rule_name!r} has no elastic resize")
-            raise NotImplementedError(
-                f"checkpoint p={saved_p} != trainer p={self.n_workers}: "
-                f"resuming at another worker count needs "
-                f"{_NOT_PORTED['membership_schedule']}, which is not "
-                f"ported yet")
-        self.state, meta = restore(path, self.state, allow_cast=allow_cast)
+            like = resize_train_state(self.state, self.axes, saved_p,
+                                      policy=pol)
+        restored, meta = restore(path, like, allow_cast=allow_cast)
+        if saved_p != self.n_workers:
+            restored = resize_train_state(restored, self.axes,
+                                          self.n_workers, policy=pol)
+        self.state = restored
         return int(topo.get("round", meta.get("round", 0)))
 
     # -- the loop -----------------------------------------------------------
@@ -152,7 +215,8 @@ class Trainer:
             log_every: int = 0, metrics_path: Optional[str] = None,
             checkpoint_every: int = 0,
             checkpoint_path: Optional[str] = None,
-            straggler_schedule=None, membership_schedule=None,
+            straggler_schedule=None,
+            membership_schedule: Optional[MembershipSchedule] = None,
             resume_from: Optional[str] = None,
             serve_hook: Optional[Callable[[int, Dict, Dict], Any]] = None,
             serve_every: int = 1, telemetry=None) -> Dict:
@@ -171,16 +235,68 @@ class Trainer:
         full train state every so many rounds
         (``checkpoint_path/round_{r+1}``, sharded, in the background; the
         run waits for the writes before it returns). ``resume_from``
-        restores such a checkpoint and continues at its round; an
-        ``OrderedDataset`` then restarts its batches at that round."""
-        _refuse(straggler_schedule=straggler_schedule,
-                membership_schedule=membership_schedule,
-                telemetry=telemetry)
+        restores such a checkpoint and continues at its round (resized if
+        it was saved at another worker count); an ``OrderedDataset`` then
+        restarts its batches at that round.
+
+        ``straggler_schedule`` (``async_mode="on_device"``, wasgd/wasgd+
+        rules): a ``StragglerSchedule`` or ``(rounds, w)`` bool array
+        covering ``n_rounds``. It is checked on the host before the run
+        (every round needs an active worker), copied to the device once,
+        and round ``r``'s row becomes the mask in ``state.comm_state``;
+        ``history[r]["active"]`` records it.
+
+        ``membership_schedule`` makes the run elastic: where
+        ``p_of(r)`` differs from the live count, the trainer resizes
+        (``resize``), the ``OrderedDataset`` re-shards its rows and its
+        batches restart at round ``r``; ``history[r]["p"]`` records the
+        count. It needs ``batches`` to be the ``OrderedDataset`` and
+        excludes ``straggler_schedule`` (a fixed ``(rounds, p)`` table)."""
+        _refuse(telemetry=telemetry)
         ds = None
         if isinstance(batches, OrderedDataset):
             ds = batches
             if order_state is None and segment_fn is None:
                 order_state, segment_fn = ds.order, ds.segment_of_round
+        masks = None
+        if straggler_schedule is not None:
+            if self.tcfg.wasgd.async_mode != "on_device":
+                raise ValueError(
+                    "straggler_schedule requires "
+                    "WASGDConfig(async_mode='on_device')")
+            if self.rule_name not in ("wasgd", "wasgd+"):
+                raise ValueError(
+                    f"straggler_schedule is only consumed by the wasgd/"
+                    f"wasgd+ rules (got rule={self.rule_name!r})")
+            active_rounds = np.asarray(
+                getattr(straggler_schedule, "active", straggler_schedule),
+                bool)
+            if len(active_rounds) < n_rounds:
+                raise ValueError(
+                    f"straggler_schedule covers {len(active_rounds)} rounds "
+                    f"but run() was asked for {n_rounds}; build the "
+                    f"schedule with rounds={n_rounds} (silent reuse would "
+                    f"correlate the exclusion statistics)")
+            validate_active_rounds(active_rounds, rounds=n_rounds)
+            masks = torch.as_tensor(active_rounds[:n_rounds],
+                                    device=self.device)
+        if membership_schedule is not None:
+            if self.rule_name not in ("wasgd", "wasgd+"):
+                raise ValueError(
+                    f"membership_schedule is a wasgd/wasgd+ capability "
+                    f"(got rule={self.rule_name!r})")
+            if straggler_schedule is not None:
+                raise ValueError(
+                    "membership_schedule and straggler_schedule are "
+                    "mutually exclusive: the straggler mask table is a "
+                    "fixed (rounds, p) — model leaving workers as "
+                    "membership events instead")
+            if ds is None:
+                raise ValueError(
+                    "membership_schedule requires run(OrderedDataset, ...) "
+                    "— a bare batch iterator bakes in a fixed worker "
+                    "count, so its rounds cannot be re-sharded at a "
+                    "membership event")
         start = 0
         if resume_from is not None:
             start = self.resume(resume_from)
@@ -188,17 +304,32 @@ class Trainer:
                 raise ValueError(
                     f"checkpoint {resume_from} is at round {start}, at or "
                     f"past n_rounds={n_rounds} - nothing left to run")
+            if ds is not None and ds.p != self.n_workers:
+                ds.resize(self.n_workers)
         if ds is not None:
             batches = ds.batches(start_round=start)
         t0 = time.time()
         mf = open(metrics_path, "a") if metrics_path else None
         try:
             for r in range(start, n_rounds):
+                if membership_schedule is not None:
+                    target = membership_schedule.p_of(r)
+                    if target != self.n_workers:
+                        self.resize(target, round=r)
+                        ds.resize(target)
+                        batches = ds.batches(start_round=r)
                 batch = {k: torch.as_tensor(v).to(self.device)
                          for k, v in next(batches).items()}
+                if masks is not None:
+                    cs = self.state.comm_state
+                    cs = ({**cs, "active": masks[r]} if isinstance(cs, dict)
+                          else masks[r])
+                    self.state = self.state._replace(comm_state=cs)
                 self.state, metrics = self._step(self.state, batch)
                 rec = {k: v.cpu().numpy() for k, v in metrics.items()}
                 rec["round"] = r
+                if membership_schedule is not None:
+                    rec["p"] = self.n_workers
                 self.history.append(rec)
                 if order_state is not None:
                     seg = segment_fn(r) if segment_fn else 0

@@ -23,7 +23,6 @@ orders, so the trajectories drift apart by rounding only):
 import os
 import subprocess
 import sys
-import tempfile
 
 import numpy as np
 import pytest
@@ -339,32 +338,13 @@ def test_entry_points_without_a_card_raise(monkeypatch):
             call()
 
 
-def _resume_at_another_p(params, axes):
-    """A p=2 checkpoint resumed by a p=3 trainer (JAX resizes through
-    elastic membership)."""
-    with tempfile.TemporaryDirectory() as d:
-        tr = Trainer(_port_loss(mlp_apply), params, axes, TrainConfig(), 2,
-                     device="cpu")
-        tr.save_checkpoint(d, 0)
-        tr._ckpt.wait()
-        Trainer(_port_loss(mlp_apply), params, axes, TrainConfig(), 3,
-                device="cpu").resume(d)
-
-
 @pytest.mark.parametrize("make", [
     lambda p, a: Trainer(_port_loss(mlp_apply), p, a, TrainConfig(), 2,
                          device="cpu", pipeline="parity"),
-    _resume_at_another_p,
     lambda p, a: HotSwapBridge(object(), telemetry=object()),
-    lambda p, a: Trainer(_port_loss(mlp_apply), p, a, TrainConfig(
-        wasgd=WASGDConfig(async_mode="on_device")), 2, device="cpu"),
     lambda p, a: Trainer(_port_loss(mlp_apply), p, a, TrainConfig(), 2,
                          device="cpu").run(iter([]), 1, telemetry=object()),
-    lambda p, a: Trainer(_port_loss(mlp_apply), p, a, TrainConfig(), 2,
-                         device="cpu").run(iter([]), 1,
-                                           membership_schedule=object()),
-], ids=["pipeline", "resume_other_p", "bridge_telemetry", "async",
-        "telemetry", "membership"])
+], ids=["pipeline", "bridge_telemetry", "telemetry"])
 def test_what_is_not_ported_raises(make):
     params = init_mlp(0, 4, 8, 2, device="cpu")
     axes = {k: (None,) * v.dim() for k, v in params.items()}
@@ -378,6 +358,8 @@ import repro_torch, repro_torch.configs, repro_torch.core, repro_torch.data
 import repro_torch.kernels.build, repro_torch.kernels.wagg
 import repro_torch.models, repro_torch.optim, repro_torch.train
 import repro_torch.checkpoint, repro_torch.train.evaluate
+import repro_torch.core.async_sim, repro_torch.core.async_device
+import repro_torch.core.membership
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
