@@ -12,8 +12,10 @@ full-width, full-depth gemma3-1b with synchronous WASGD+ through
 ``Trainer.run``, runs the paper's baseline rules and a checkpoint round
 trip on CNN6, swaps the trained gemma3-1b consensus into a running engine
 and evaluates it, trains CNN6 and gemma3-1b with Alg. 4 straggler rounds
-(the masked ``wagg_fused``) and CNN6 with elastic membership, and checks
-that the served and the trained paths went through their kernels.
+(the masked ``wagg_fused``) and CNN6 with elastic membership, trains
+full-width, full-depth stablelm-3b with the int4 payload and ``remat``,
+serves full-width yi-6b, and checks that the served and the trained paths
+went through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -24,12 +26,13 @@ Prints one JSON object per phase:
                 one launch a call
   kernel_time   paged_decode_attn, plain version, library call and bound at
                 the serve run's shapes
-  wagg_check    wagg_fused vs its plain version over x dtype x payload x
-                mask x p x N
+  wagg_check    wagg_fused vs its plain version over x dtype x payload
+                (none, bf16, int8, int4 in int8) x mask x p x N
   wagg_time     wagg_fused, plain version, two-call library reference and
                 bound at the CNN6 round's leaves and at a gemma3-1b MLP leaf;
                 the masked kernel at that leaf (one row inactive) against
-                GEMV + lerp + where
+                GEMV + lerp + where; the int4 payload at a stablelm-3b MLP
+                leaf (p 3)
   rmsnorm_check rmsnorm and the fused residual add (forward and backward)
                 vs their plain versions over dtype x d x rows x groups, and
                 unaligned rows; the fused sum bitwise equal to x + delta
@@ -79,7 +82,12 @@ Prints one JSON object per phase:
   ssm_serve_profile  device busy time, idle share, top kernels and the
                 device operations of one decode step
   train_agree   one CNN6 round through pallas_wagg vs through einsum, in
-                the f32 and int8 codecs: params agree
+                the f32, int8 and int4 codecs (the same payload): params
+                agree; pallas_wagg:int4 within int4's error_bound of f32
+  int4_codec    the int4 draw on the card vs the CPU (equal but within an
+                ulp of an integer), within error_bound of f32 (einsum,
+                pallas_wagg, masked), unbiased over 64 keys, its encode
+                time; CNN6 with pallas_wagg:int4 through Trainer.run
   train         Trainer.run, WASGD+, CNN6 at its published width, p=8,
                 tau=8, 30 rounds: seconds per round, losses, peak memory,
                 launches == rounds x 6 worker leaves
@@ -87,9 +95,14 @@ Prints one JSON object per phase:
   lm_agree      one local step of full-width gemma3-1b: per-worker losses
                 and gradients through the kernels vs the plain versions,
                 f32 and bf16 compute
+  lm_remat      gemma3-1b, p=4: one local step with remat off and on
+                (losses and gradients within 2e-2, peak over the backward),
+                the update tree-wise and leaf-wise (peaks), and 2 timed
+                rounds each way (s/round, peak)
   lm_train      Trainer.run, WASGD+, gemma3-1b at full width and depth,
-                p=4, tau=4, 10 rounds after 2: s/round, tokens/s, losses,
-                peak memory, launches of rmsnorm, fused_ce and wagg_fused
+                remat on, p=4, tau=4, 10 rounds after 2: s/round, tokens/s,
+                losses, peak memory, launches of rmsnorm (4 L + 1 a step),
+                fused_ce and wagg_fused
   lm_train_profile device busy time, idle share and top kernels of 2 rounds
   baselines     the CNN6 training smoke's settings with each of spsgd,
                 easgd (alpha 0.9/16), omwu, mmwu and seq: s/round beside
@@ -137,6 +150,16 @@ Prints one JSON object per phase:
                 trainer is freed: the first masked round's wagg_fused held
                 to the plain version leaf by leaf (1e-4); s/round, peak
                 memory, launches (wagg_fused all masked)
+  lm_windowed   gemma3-1b's loss at one 2048-token sequence with
+                windowed_qblock off and on: logits within 2e-2, ms each
+  lm3b_train    Trainer.run, WASGD+, stablelm-3b at full width and depth,
+                p=3, tau=4, seq 640, pallas_wagg:int4, remat on, 5 rounds
+                after 2: the first round's wagg_fused held to the plain
+                version leaf by leaf (1e-4) with its int4 payload checked
+                and its peak split at the aggregate; s/round, tokens/s,
+                peak memory, launches; one profiled round (idle share)
+  yi_agree      agree on yi-6b at full width (GQA group 8, head_dim 128)
+  yi_serve      serve on yi-6b at full width in bf16
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -186,6 +209,17 @@ LM = {"p": 4, "tau": 4, "b_local": 1, "seq_len": 640, "lr": 0.03,
       "warmup_rounds": 2, "rounds": 10, "n_seq": 32, "n_segments": 2,
       "order_seed": 7, "backend": "pallas_wagg:f32", "beta": 0.9}
 LM_AGREE_P = 2                  # workers in lm_agree (two gradient trees)
+# WASGD+ training of stablelm-3b at full width and depth: lm_train's
+# settings at p=3 with the int4 payload; remat on (the config's), the
+# leaf-wise update; params and gradients are 31.25 GiB each at p=3
+LM3B_ARCH = "stablelm-3b"
+LM3B = {**LM, "p": 3, "rounds": 5, "backend": "pallas_wagg:int4"}
+LM3B_LEAF = (3, 2560 * 6912)    # p=3 x one stablelm-3b MLP matrix
+# yi-6b served at full width in bf16 (GQA group 8, head_dim 128)
+YI_ARCH = "yi-6b"
+# gemma3-1b's loss at one 2048-token sequence, where the q-blocked
+# windowed attention skips half the key blocks of its local layers
+WINDOWED = {"b": 1, "seq_len": 2048, "reps": 3}
 # rmsnorm vs its plain version, relative to max|plain|: f32 the order of
 # the sum of squares; bf16 output one ulp (2^-8); gradients: two formulas
 # of the same derivative (the Function's, autograd's of the plain ops)
@@ -511,7 +545,7 @@ def phase_agree(cfg, params_f32, dev):
             "decode_steps": steps, "finite": True, "checks": results,
             "limit_reason": "f32: summation order; bf16: one-ulp differences "
                             "in attention and norm outputs carried through "
-                            "26 layers"}
+                            f"{cfg.n_layers} layers"}
 
 
 def serve_requests(cfg, seed):
@@ -699,6 +733,10 @@ def wagg_inputs(p, n, x_dtype, payload, mask, gen, dev):
         q = torch.randint(-127, 128, (p, n), generator=gen, device=dev,
                           dtype=torch.int8)
         theta = theta * (4.0 / 127.0)
+    elif payload == "int4":                 # int4 values carried in int8
+        q = torch.randint(-7, 8, (p, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        theta = theta * (4.0 / 7.0)
     act = None
     if mask == "mixed":
         act = (torch.arange(p, device=dev) % 3 != 1).float()
@@ -718,8 +756,9 @@ def rel_err(out, ref):
 
 
 def phase_wagg_check(dev):
-    """wagg_fused against its plain version over x dtype x payload x mask
-    x p x N (N = 1000 takes the four-column path; 1, 4097 and 2^20 + 3,
+    """wagg_fused against its plain version over x dtype x payload (none,
+    bf16, int8, int4 values in [-7, 7] carried in int8) x mask x p x N
+    (N = 1000 takes the four-column path; 1, 4097 and 2^20 + 3,
     which are not multiples of 4, the one-column path)."""
     import torch
     from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
@@ -730,7 +769,7 @@ def phase_wagg_check(dev):
     n_cases = 0
     for xd in (torch.float32, torch.bfloat16):
         xname = str(xd).split(".")[1]
-        for payload in ("none", "bfloat16", "int8"):
+        for payload in ("none", "bfloat16", "int8", "int4"):
             for mask in ("none", "mixed", "one_active"):
                 for p in (1, 3, 8, 33):
                     for n in (1, 1000, 4097, 2 ** 20 + 3):
@@ -775,8 +814,10 @@ def wagg_work(p, n, x_bytes, q_bytes, masked=False):
 
 def phase_wagg_time(dev):
     """wagg_fused at the shapes of the CNN6 round (its 6 worker leaves at
-    p=8, one call = one round's aggregation) and at one gemma3-1b MLP leaf
-    (p=4, N=1152*6912, f32 x: 127 MB, past the 50 MB L2)."""
+    p=8, one call = one round's aggregation), at one gemma3-1b MLP leaf
+    (p=4, N=1152*6912, f32 x: 127 MB, past the 50 MB L2) and, with the
+    int4 payload of the stablelm-3b run, at one stablelm-3b MLP leaf (p=3,
+    N=2560*6912)."""
     import torch
     from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
     from repro_torch.models import init_cnn6
@@ -786,10 +827,13 @@ def phase_wagg_time(dev):
     p_cnn = TRAIN["p"]
     cnn_n = [v.numel() for _, v in sorted(init_cnn6(0, device=dev).items())]
     shapes = {"cnn6_round": [(p_cnn, n) for n in cnn_n],
-              "lm_mlp_leaf": [LM_LEAF]}
+              "lm_mlp_leaf": [LM_LEAF], "lm3b_mlp_leaf": [LM3B_LEAF]}
+    payloads = {"cnn6_round": ("none", "bfloat16", "int8"),
+                "lm_mlp_leaf": ("none", "bfloat16", "int8"),
+                "lm3b_mlp_leaf": ("int4",)}
     res = {}
     for shape_name, leaves in shapes.items():
-        for payload in ("none", "bfloat16", "int8"):
+        for payload in payloads[shape_name]:
             sets = [wagg_inputs(p, n, torch.float32, payload, "none", gen,
                                 dev) for p, n in leaves]
 
@@ -818,7 +862,7 @@ def phase_wagg_time(dev):
             if not err <= WAGG_TOL["float32"]:
                 raise AssertionError(f"wagg_time {shape_name}/{payload}: "
                                      f"rel_err {err}")
-            q_bytes = {"none": 0, "bfloat16": 2, "int8": 1}[payload]
+            q_bytes = {"none": 0, "bfloat16": 2, "int8": 1, "int4": 1}[payload]
             bytes_moved, flops = map(sum, zip(*(wagg_work(p, n, 4, q_bytes)
                                                 for p, n in leaves)))
             t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -913,7 +957,10 @@ def phase_train_agree(dev):
     """One CNN6 round from the same params and batch: the tau local steps
     run once (cuDNN's weight gradients are not bitwise reproducible, and
     CNN6 amplifies a last-bit difference across 8 steps), then each spec's
-    rule aggregates the same pre-aggregate params and energies."""
+    rule aggregates the same pre-aggregate params and energies. The int4
+    codec's draw depends on the params' bits, so both int4 specs encode
+    the same payload: pallas_wagg:int4 within 1e-5 of einsum:int4, and
+    within int4's error_bound of pallas_wagg:f32."""
     import torch
     from repro_torch.core import get_codec, replicate_workers, shared_axes
     from repro_torch.models import init_cnn6
@@ -939,20 +986,25 @@ def phase_train_agree(dev):
     state, metrics = step(init_state(params, opt.init(params), p, comm),
                           batch)
     out = {"einsum:f32": state.params}
-    for spec in ("pallas_wagg:f32", "pallas_wagg:int8", "einsum:int8"):
+    for spec in ("pallas_wagg:f32", "pallas_wagg:int8", "einsum:int8",
+                 "pallas_wagg:int4", "einsum:int4"):
         out[spec] = wasgd_rule(tcfg(spec).wasgd)(
             seen["params"], axes, seen["h"], seen["comm_state"])[0]
     torch.cuda.synchronize()
     theta = metrics["theta"]
     checks = []
+    # (spec, spec, the bound's codec): the same payload on both sides but
+    # for the last pair, where int4 stands against f32 within its bound
     for a, b, codec in (("pallas_wagg:f32", "einsum:f32", "f32"),
-                        ("pallas_wagg:int8", "einsum:int8", "int8")):
+                        ("pallas_wagg:int8", "einsum:int8", "int8"),
+                        ("pallas_wagg:int4", "einsum:int4", "f32"),
+                        ("pallas_wagg:int4", "pallas_wagg:f32", "int4")):
         worst, worst_ratio = 0.0, 0.0
         for k in sorted(out[a]):
             if not bool(torch.isfinite(out[a][k]).all()):
                 raise AssertionError(f"train_agree {a}/{k}: non-finite")
             diff = (out[a][k] - out[b][k]).abs().max().item()
-            bound = (1e-5 if codec == "f32" else get_codec("int8")
+            bound = (1e-5 if codec == "f32" else get_codec(codec)
                      .error_bound(seen["params"][k], theta, 0.9).item())
             worst = max(worst, diff)
             worst_ratio = max(worst_ratio, diff / bound)
@@ -962,12 +1014,139 @@ def phase_train_agree(dev):
         checks.append({"specs": [a, b], "max_abs_diff": worst,
                        "max_diff_over_bound": worst_ratio,
                        "bound": "1e-5" if codec == "f32" else
-                                "int8 error_bound per leaf"})
+                                f"{codec} error_bound per leaf"})
     int8_vs_f32 = max((out["pallas_wagg:int8"][k] - out["einsum:f32"][k])
                       .abs().max().item() for k in out["einsum:f32"])
     return {"phase": "train_agree", "p": p, "tau": TRAIN["tau"],
             "b_local": TRAIN["b_local"], "theta": theta.tolist(),
             "checks": checks, "int8_vs_f32_max_abs_diff": int8_vs_f32}
+
+
+INT4 = {"seed": 5, "leaf_index": 7, "keys": 64, "unbiased_shape": (4, 16384),
+        "cnn6_rounds": 5, "encode_reps": 3}
+
+
+def phase_int4_codec(dev):
+    """The int4 codec's counter-based draw on the card, at one stablelm-3b
+    MLP leaf (p=3 x 2560*6912, the largest matrix the lm3b_train round
+    encodes): the card's payload equals the CPU's but where
+    x / scale + u lies within one float32 ulp of an integer (counted on
+    the CPU; there the two may round apart), the keys and scales are
+    equal; einsum:int4 and pallas_wagg:int4 (unmasked and masked, whose
+    stragglers adopt m whole: its bound at beta 1) stay within error_bound
+    of einsum:f32; the mean over 64 keys of
+    q * scale is unbiased (the leaf's mean error within 4 standard
+    errors, each element's standard deviation scale * sqrt(f (1 - f)) for
+    its fractional part f); the encode's time; CNN6 through
+    Trainer.run with pallas_wagg:int4 (the int8-carried payload in
+    wagg_fused): launches, finite and falling losses."""
+    import torch
+    from repro_torch.core import backends
+    from repro_torch.core.codecs import (get_codec, int4_key, int4_uniform,
+                                         INT4_CHUNK)
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.train import Trainer
+    codec = get_codec("int4")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(INT4["seed"])
+    p, n = LM3B_LEAF
+    x = torch.randn(p, n, generator=gen, device=dev) * 0.02
+    ctx = backends.AggregationContext(leaf_index=INT4["leaf_index"])
+    codec.encode(x, ctx)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(INT4["encode_reps"]):
+        q_dev, s_dev = codec.encode(x, ctx)
+    end.record()
+    torch.cuda.synchronize()
+    encode_ms = start.elapsed_time(end) / INT4["encode_reps"]
+    xc = x.cpu()
+    q_cpu, s_cpu = codec.encode(xc, ctx)
+    key_dev = int4_key(x, None, INT4["leaf_index"]).item()
+    key_cpu = int4_key(xc, None, INT4["leaf_index"]).item()
+    flat, qd, qc = xc.reshape(-1), q_dev.cpu().reshape(-1), q_cpu.reshape(-1)
+    n_diff = n_near = n_diff_not_near = 0
+    for a in range(0, flat.numel(), INT4_CHUNK):
+        b = min(a + INT4_CHUNK, flat.numel())
+        v = flat[a:b] / s_cpu + int4_uniform(torch.tensor(key_cpu), a, b)
+        ulp = torch.nextafter(v.abs(), torch.tensor(float("inf"))) - v.abs()
+        near = (v - torch.round(v)).abs() <= ulp
+        diff = qd[a:b] != qc[a:b]
+        n_diff += int(diff.sum())
+        n_near += int(near.sum())
+        n_diff_not_near += int((diff & ~near).sum())
+    draw = {"elements": flat.numel(), "key_card": key_dev,
+            "key_cpu": key_cpu, "scale_equal": bool(s_dev.cpu() == s_cpu),
+            "payload_differs": n_diff, "within_one_ulp_of_an_integer": n_near,
+            "differs_elsewhere": n_diff_not_near, "encode_ms": encode_ms}
+    if not (key_dev == key_cpu and draw["scale_equal"]
+            and n_diff_not_near == 0 and int(q_dev.abs().max()) <= 7):
+        raise AssertionError(f"int4_codec: card vs CPU draw {draw}")
+    del xc, flat, qd, qc, q_cpu
+
+    h = torch.rand(p, generator=gen, device=dev) + 0.5
+    theta = torch.softmax(-h, dim=0)
+    params, axes = {"leaf": x}, {"leaf": ("worker", None)}
+    bounds = {}
+    for spec, act in (("einsum:int4", None), ("pallas_wagg:int4", None),
+                      ("pallas_wagg:int4", "masked")):
+        active = (None if act is None else
+                  (torch.arange(p, device=dev) != 1).float())
+        th = theta if active is None else theta * active / (theta * active
+                                                            ).sum()
+        # a straggler adopts m whole: a masked round's bound is at beta 1
+        bound = codec.error_bound(x, th, 0.9 if act is None else 1.0).item()
+        c = backends.AggregationContext(active=active)
+        out = backends.aggregate_with(spec, params, axes, th, 0.9, ctx=c)
+        ref = backends.aggregate_with("einsum:f32", params, axes, th, 0.9,
+                                      ctx=c)
+        err = (out["leaf"] - ref["leaf"]).abs().max().item()
+        name = spec + ("" if act is None else "/masked")
+        bounds[name] = {"max_abs_err": err, "error_bound": bound}
+        if not err <= bound:
+            raise AssertionError(f"int4_codec {name}: {err} > {bound}")
+        del out, ref
+    del x, q_dev, params
+
+    xs = torch.randn(*INT4["unbiased_shape"], generator=gen, device=dev)
+    scale = codec.encode(xs)[1]
+    acc = torch.zeros_like(xs)
+    for k in range(INT4["keys"]):
+        acc += codec.encode(xs, backends.AggregationContext(key=k))[0]
+    mean_err = acc / INT4["keys"] * scale - xs
+    f = xs / scale - torch.floor(xs / scale)
+    var = scale ** 2 * f * (1 - f) / INT4["keys"]
+    z_leaf = (mean_err.mean() / (var.sum().sqrt() / xs.numel())).item()
+    z = mean_err.abs() / var.sqrt().clamp_min(1e-30)
+    unbiased = {"keys": INT4["keys"], "elements": xs.numel(),
+                "leaf_mean_err_in_se": z_leaf,
+                "elements_over_3_se": int((z > 3).sum()),
+                "elements_over_4_se": int((z > 4).sum()),
+                "normal_tail_over_3_se": 0.0027 * xs.numel()}
+    if not abs(z_leaf) <= 4:
+        raise AssertionError(f"int4_codec: biased, {unbiased}")
+
+    loss_fn, tcfg, dataset = cnn6_setup()
+    from repro_torch.core import shared_axes
+    from repro_torch.models import init_cnn6
+    params = init_cnn6(0, device=dev)
+    tr = Trainer(loss_fn, params, shared_axes(params),
+                 tcfg("pallas_wagg:int4"), TRAIN["p"], rule="wasgd+",
+                 device=dev)
+    wagg_fused.launches = 0
+    wall, _ = run_trainer(tr, dataset, INT4["cnn6_rounds"])
+    losses = tr.losses()
+    launches = wagg_fused.launches
+    if not (launches == INT4["cnn6_rounds"] * CNN6_LEAVES
+            and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"int4_codec: CNN6 int4 run, launches "
+                             f"{launches}, losses {losses}")
+    return {"phase": "int4_codec", "leaf": list(LM3B_LEAF), "draw": draw,
+            "within_error_bound": bounds, "unbiased": unbiased,
+            "cnn6": {"backend": "pallas_wagg:int4",
+                     "rounds": INT4["cnn6_rounds"], "launches": launches,
+                     "seconds_per_round": wall / INT4["cnn6_rounds"],
+                     "losses": [float(v) for v in losses]}}
 
 
 def run_trainer(tr, dataset, rounds, **kw):
@@ -2099,14 +2278,18 @@ def lm_batch_on(cfg, p, seed, dev):
 
 def tree_sq(tree_a, tree_b=None):
     """Per-worker squared L2 norm over the leaves of a worker-stacked tree
-    (of tree_a - tree_b when tree_b is given): (p,) float64."""
+    (of tree_a - tree_b when tree_b is given): (p,) float64. One worker's
+    slice at a time, so the float64 temporaries stay a slice's size."""
+    import torch
     from repro_torch.tree import tree_leaves
     la = tree_leaves(tree_a)
     lb = tree_leaves(tree_b) if tree_b is not None else [None] * len(la)
-    total = 0.0
+    total = torch.zeros(la[0].shape[0], dtype=torch.float64,
+                        device=la[0].device)
     for a, b in zip(la, lb):
-        d = a.double() if b is None else a.double() - b.double()
-        total = total + d.reshape(d.shape[0], -1).square().sum(dim=1)
+        for w in range(a.shape[0]):
+            d = a[w].double() if b is None else a[w].double() - b[w].double()
+            total[w] += d.square().sum()
     return total
 
 
@@ -2180,24 +2363,134 @@ def phase_lm_agree(cfg, dev):
                             "carried through 26 layers and the backward"}
 
 
-def lm_dataset(cfg):
+REMAT = {"warmup_rounds": 1, "rounds": 2}
+
+
+def phase_lm_remat(cfg, dev):
+    """gemma3-1b at full width, p=4 (seq 640, b_local 1), remat off and on:
+    (a) one local step's per-worker losses and gradients on the same
+    params and batch through ``_round_parts(make_lm_loss(c))`` (the
+    round's worker-stacked loss), within the bf16 limit (2e-2), with
+    max_memory_allocated over the backward pass (as if only the params
+    were alive before it); (b) the update of those gradients, tree-wise
+    (``update``: new params beside the old and the gradients) and
+    leaf-wise (``apply``, the round's), with max_memory_allocated over
+    each; (c) a fresh trainer each way, 1 warm-up and 2 timed rounds:
+    s/round and peak."""
+    import torch
+    from repro_torch.configs import WASGDConfig
+    from repro_torch.core import replicate_workers
+    from repro_torch.models import init_params, param_axes
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_lm_loss
+    from repro_torch.train.step import _round_parts
+    from repro_torch.tree import tree_leaves
+    gib = 2 ** 30
+    p, limit = LM["p"], 2e-2
+    base = init_params(cfg, seed=1, device=dev)
+    params, axes = replicate_workers(base, param_axes(base), p)
+    del base
+    params_gib = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(params)) / gib
+    mb = lm_batch_on(cfg, p, 1, dev)
+    opt = make_optimizer("sgd", LM["lr"])
+    step, out = {}, {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        parts = _round_parts(make_lm_loss(c), opt, axes, WASGDConfig(tau=1),
+                             p)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads, losses = parts.worker_grads(params, mb)
+        torch.cuda.synchronize()
+        step[f"remat_{remat}"] = {
+            "backward_s": time.perf_counter() - t0,
+            "peak_backward_gib": params_gib + (
+                torch.cuda.max_memory_allocated() - before) / gib}
+        out[remat] = (grads, losses)
+        del grads, losses
+    (g_off, l_off), (g_on, l_on) = out[False], out[True]
+    loss_rel = ((l_on - l_off).abs() / l_off.abs()).max().item()
+    grad_rel = (tree_sq(g_on, g_off) / tree_sq(g_off)).sqrt().max().item()
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in [l_on, l_off] + tree_leaves(g_on))
+    if not (finite and loss_rel <= limit and grad_rel <= limit):
+        raise AssertionError(f"lm_remat: finite {finite}, loss rel_err "
+                             f"{loss_rel}, grad rel_err {grad_rel}")
+    del out, g_off
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new, _ = opt.update(g_on, (), params)
+    torch.cuda.synchronize()
+    update = {"treewise_peak_gib": torch.cuda.max_memory_allocated() / gib}
+    del new
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt.apply(g_on, (), params)
+    torch.cuda.synchronize()
+    update["leafwise_peak_gib"] = torch.cuda.max_memory_allocated() / gib
+    del g_on, params
+    torch.cuda.empty_cache()
+
+    rounds = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        tr, ds = new_lm_trainer(c, dev), lm_dataset(c)
+        batches = ds.batches()
+        run_lm_rounds(tr, ds, batches, REMAT["warmup_rounds"], 0)
+        torch.cuda.reset_peak_memory_stats()
+        wall = run_lm_rounds(tr, ds, batches, REMAT["rounds"],
+                             REMAT["warmup_rounds"])
+        losses = tr.losses()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"lm_remat: losses {losses}")
+        rounds[f"remat_{remat}"] = {
+            "seconds_per_round": wall / REMAT["rounds"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / gib,
+            "losses": [float(v) for v in losses]}
+        del tr, batches
+        torch.cuda.empty_cache()
+    return {"phase": "lm_remat", "arch": cfg.name, "p": p,
+            "seq_len": LM["seq_len"], "b_local": LM["b_local"],
+            "params_gib": params_gib, "losses_remat": l_on.tolist(),
+            "loss_rel_err": loss_rel, "grad_rel_l2_err": grad_rel,
+            "limit": limit, "local_step": step, "update": update,
+            "rounds": rounds, "round_settings": {**LM, **REMAT}}
+
+
+def lm_dataset(cfg, st=LM):
     from repro_torch.data import OrderedDataset, make_tokens
-    toks = make_tokens(0, LM["n_seq"], LM["seq_len"], cfg.vocab_size)
+    toks = make_tokens(0, st["n_seq"], st["seq_len"], cfg.vocab_size)
     return OrderedDataset({"tokens": toks[:, :-1], "labels": toks[:, 1:]},
-                          LM["p"], LM["tau"], LM["b_local"],
-                          n_segments=LM["n_segments"], seed=LM["order_seed"])
+                          st["p"], st["tau"], st["b_local"],
+                          n_segments=st["n_segments"], seed=st["order_seed"])
 
 
-def new_lm_trainer(cfg, dev):
+def new_lm_trainer(cfg, dev, st=LM):
+    """A WASGD+ trainer of ``cfg`` (random weights, seed 0) at the
+    settings ``st``."""
     from repro_torch.configs import TrainConfig, WASGDConfig
     from repro_torch.models import init_params, param_axes
     from repro_torch.train import Trainer, make_lm_loss
-    tcfg = TrainConfig(learning_rate=LM["lr"], optimizer="sgd",
-                       wasgd=WASGDConfig(tau=LM["tau"], beta=LM["beta"],
-                                         backend=LM["backend"]))
+    tcfg = TrainConfig(learning_rate=st["lr"], optimizer="sgd",
+                       wasgd=WASGDConfig(tau=st["tau"], beta=st["beta"],
+                                         backend=st["backend"]))
     params = init_params(cfg, seed=0, device=dev)
     return Trainer(make_lm_loss(cfg), params, param_axes(params), tcfg,
-                   LM["p"], rule="wasgd+", device=dev)
+                   st["p"], rule="wasgd+", device=dev)
+
+
+def norms_per_step(cfg):
+    """rmsnorm launches of one local step of the LM round (forward and
+    backward), all and fused: 2 a layer and the final one in the forward,
+    all but the first layer's first fused; with remat each layer's two run
+    again in the backward pass."""
+    n_layers = cfg.n_layers
+    if cfg.remat:
+        return 4 * n_layers + 1, 4 * n_layers - 1
+    return 2 * n_layers + 1, 2 * n_layers
 
 
 def run_lm_rounds(tr, ds, batches, rounds, done, **kw):
@@ -2230,8 +2523,9 @@ def phase_lm_train(cfg, tr, ds, batches):
                 "fused_ce": fused_ce_fwd.launches,
                 "wagg_fused": wagg_fused.launches}
     n_leaves = len(tree_leaves(tr.state.params))
-    want = {"rmsnorm": rounds * tau * (2 * cfg.n_layers + 1),
-            "rmsnorm_fused": rounds * tau * 2 * cfg.n_layers,
+    norms, fused = norms_per_step(cfg)
+    want = {"rmsnorm": rounds * tau * norms,
+            "rmsnorm_fused": rounds * tau * fused,
             "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves}
     if launches != want:
         raise AssertionError(f"lm_train: launches {launches}, want {want}")
@@ -2246,7 +2540,8 @@ def phase_lm_train(cfg, tr, ds, batches):
     tokens = rounds * LM["p"] * tau * LM["b_local"] * LM["seq_len"]
     return {"phase": "lm_train", "arch": cfg.name,
             "params": sum(x[0].numel() for x in tree_leaves(tr.state.params)),
-            "compute_dtype": cfg.compute_dtype, **LM, "rule": "wasgd+",
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, **LM,
+            "rule": "wasgd+",
             "optimizer": "sgd", "launches": launches,
             "worker_leaves": n_leaves, "seconds_per_round": wall / rounds,
             "wall_s": wall, "warmup_s": warm_s, "tokens_per_s": tokens / wall,
@@ -2293,6 +2588,7 @@ def phase_train_to_serve(cfg, tr, ds, batches, done, dev):
     from repro_torch.tree import tree_leaves
     rounds, tau = TRAIN_TO_SERVE_ROUNDS, LM["tau"]
     n_norms, n_attn = 2 * cfg.n_layers + 1, cfg.n_layers
+    train_norms = norms_per_step(cfg)[0]
     n_leaves = len(tree_leaves(tr.state.params))
     torch.cuda.reset_peak_memory_stats()
     paged_decode_attn.launches = rmsnorm_fwd.launches = 0
@@ -2334,7 +2630,8 @@ def phase_train_to_serve(cfg, tr, ds, batches, done, dev):
                 "rmsnorm": rmsnorm_fwd.launches, **train_launches}
     steps, prefills = eng.decode_steps, eng.prefills
     want = {"paged_decode_attn": n_attn * steps,
-            "rmsnorm": rounds * tau * n_norms + n_norms * (steps + prefills),
+            "rmsnorm": rounds * tau * train_norms
+            + n_norms * (steps + prefills),
             "wagg_fused": rounds * n_leaves, "fused_ce": rounds * tau}
     swaps = bridge.swaps
     keys = {"loss", "loss_last", "h", "theta", "scores", "theta_entropy",
@@ -2460,8 +2757,9 @@ def phase_lm_async(cfg, dev):
                 "fused_ce": fused_ce_fwd.launches,
                 "wagg_fused": wagg_fused.launches,
                 "wagg_fused_masked": wagg_fused.masked_launches}
-    want = {"rmsnorm": rounds * tau * (2 * cfg.n_layers + 1),
-            "rmsnorm_fused": rounds * tau * 2 * cfg.n_layers,
+    norms, fused = norms_per_step(cfg)
+    want = {"rmsnorm": rounds * tau * norms,
+            "rmsnorm_fused": rounds * tau * fused,
             "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves,
             "wagg_fused_masked": rounds * n_leaves}
     if launches != want:
@@ -2484,6 +2782,176 @@ def phase_lm_async(cfg, dev):
             "launches": launches, "worker_leaves": n_leaves,
             "seconds_per_round": wall / rounds, "warmup_s": warm_s,
             "losses": [float(x) for x in losses], "peak_mem_gib": peak}
+
+
+def phase_lm3b_train(dev):
+    """WASGD+ on stablelm-3b at full width and depth (2.80B parameters, f32
+    params, bf16 compute), ``LM3B``'s settings: p=3, tau=4, b_local 1, seq
+    640, SGD lr 0.03, pallas_wagg:int4, remat on, through Trainer.run
+    (a fresh trainer; the gemma3-1b trainers are freed first). The first
+    round holds every leaf's wagg_fused call to the plain version (1e-4)
+    and checks its int4 payload (int8, |q| <= 7), and splits the round's
+    peak memory at the aggregate (the local steps', then the
+    aggregate's). Then 1 more warm-up round, 5 timed rounds (s/round,
+    tokens/s, peak, launches of rmsnorm, fused_ce and wagg_fused), 1
+    unprofiled and 1 profiled round (idle share)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import backends
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.wagg import ops as wagg_ops
+    from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
+    from repro_torch.tree import tree_leaves
+    gib = 2 ** 30
+    st = LM3B
+    cfg = get_config(LM3B_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    tr, ds = new_lm_trainer(cfg, dev, st), lm_dataset(cfg, st)
+    batches = ds.batches()
+    init_peak = torch.cuda.max_memory_allocated() / gib
+    warm, rounds, tau = st["warmup_rounds"], st["rounds"], st["tau"]
+    errs, payloads, split = [], set(), {}
+    real_wagg, real_agg = wagg_ops.wagg_fused, backends.aggregate_from_config
+
+    def held(x, theta, beta, payload=None, active=None):
+        out = real_wagg(x, theta, beta, payload=payload, active=active)
+        ref = wagg_fused_ref(x, theta, beta, payload=payload, active=active)
+        errs.append((out.float() - ref.float()).abs().max())
+        payloads.add((str(payload.dtype), int(payload.abs().max()) <= 7))
+        return out
+
+    def split_peak(*args, **kw):
+        torch.cuda.synchronize()
+        split["local_steps_peak_gib"] = torch.cuda.max_memory_allocated() / gib
+        torch.cuda.reset_peak_memory_stats()
+        out = real_agg(*args, **kw)
+        torch.cuda.synchronize()
+        split["aggregate_peak_gib"] = torch.cuda.max_memory_allocated() / gib
+        return out
+
+    wagg_ops.wagg_fused, backends.aggregate_from_config = held, split_peak
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        warm_s = run_lm_rounds(tr, ds, batches, 1, 0)
+    finally:
+        wagg_ops.wagg_fused, backends.aggregate_from_config = (real_wagg,
+                                                               real_agg)
+    err = torch.stack(errs).max().item()
+    n_leaves = len(tree_leaves(tr.state.params))
+    if not (len(errs) == n_leaves and err <= 1e-4
+            and payloads == {("torch.int8", True)}):
+        raise AssertionError(f"lm3b_train: first round, {len(errs)} leaves "
+                             f"held, max_abs_err {err}, payloads {payloads}")
+    warm_s += run_lm_rounds(tr, ds, batches, warm - 1, 1)
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_fwd.launches = add_rmsnorm_fwd.launches = 0
+    fused_ce_fwd.launches = wagg_fused.launches = 0
+    wall = run_lm_rounds(tr, ds, batches, rounds, warm)
+    peak = torch.cuda.max_memory_allocated() / gib
+    launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                "fused_ce": fused_ce_fwd.launches,
+                "wagg_fused": wagg_fused.launches}
+    norms, fused = norms_per_step(cfg)
+    want = {"rmsnorm": rounds * tau * norms,
+            "rmsnorm_fused": rounds * tau * fused,
+            "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves}
+    if launches != want:
+        raise AssertionError(f"lm3b_train: launches {launches}, want {want}")
+    done = warm + rounds
+    wall1 = run_lm_rounds(tr, ds, batches, 1, done)
+    with device_profile() as prof:
+        wall_prof = run_lm_rounds(tr, ds, batches, 1, done + 1)
+    losses = tr.losses()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"lm3b_train: losses {losses}")
+    for x in tree_leaves(tr.state.params):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("lm3b_train: non-finite params")
+    n_params = sum(x[0].numel() for x in tree_leaves(tr.state.params))
+    theta = np.stack([h["theta"] for h in tr.history])
+    del tr, batches
+    torch.cuda.empty_cache()
+    tokens = rounds * st["p"] * tau * st["b_local"] * st["seq_len"]
+    return {"phase": "lm3b_train", "arch": cfg.name, "params": n_params,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, **st,
+            "rule": "wasgd+", "optimizer": "sgd", "launches": launches,
+            "worker_leaves": n_leaves, "first_round_wagg_max_abs_err": err,
+            "first_round_payloads": sorted(map(list, payloads)),
+            "first_round_peak_split": split, "init_peak_gib": init_peak,
+            "seconds_per_round": wall / rounds, "wall_s": wall,
+            "warmup_s": warm_s, "tokens_per_s": tokens / wall,
+            "losses": [float(v) for v in losses],
+            "theta_min": float(theta.min()), "theta_max": float(theta.max()),
+            "peak_mem_gib": peak,
+            "profile": {"rounds": 1, "wall_ms": wall1 * 1e3,
+                        "wall_ms_profiled": wall_prof * 1e3,
+                        **device_summary(prof, wall1, 12)}}
+
+
+def phase_lm_windowed(dev):
+    """gemma3-1b at full width (f32 params, bf16 compute): loss_fn at one
+    2048-token sequence with windowed_qblock off and on (the local layers'
+    512-token window: the q-blocked form attends 1024 keys a query block
+    where the chunked one walks all 2048), alternated off on on off, no
+    gradient: logits within the bf16 limit (2e-2 of max|logit|), the
+    losses within 2e-2, and each form's ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import forward, init_params, loss_fn
+    cfg = get_config(ARCH)
+    params = init_params(cfg, seed=2, device=dev)
+    raw = lm_batch(3, WINDOWED["b"], WINDOWED["seq_len"], cfg.vocab_size)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in raw.items()}
+    cfgs = {flag: dataclasses.replace(cfg, windowed_qblock=flag)
+            for flag in (False, True)}
+    times = {False: [], True: []}
+    with torch.no_grad():
+        logits = {f: forward(c, params, batch["tokens"])[0].float()
+                  for f, c in cfgs.items()}
+        losses = {f: loss_fn(c, params, batch)[0].item()
+                  for f, c in cfgs.items()}
+        for flag in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(WINDOWED["reps"]):
+                loss_fn(cfgs[flag], params, batch)
+            torch.cuda.synchronize()
+            times[flag].append((time.perf_counter() - t0)
+                               / WINDOWED["reps"] * 1e3)
+    rel = ((logits[True] - logits[False]).abs().max()
+           / logits[False].abs().max()).item()
+    loss_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    if not (bool(torch.isfinite(logits[True]).all()) and rel <= 2e-2
+            and loss_rel <= 2e-2):
+        raise AssertionError(f"lm_windowed: logits rel_err {rel}, losses "
+                             f"{losses}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"phase": "lm_windowed", "arch": cfg.name, **WINDOWED,
+            "window": cfg.attn_window, "block": 512,
+            "logits_rel_err": rel, "loss": losses[False],
+            "loss_windowed": losses[True], "loss_rel_err": loss_rel,
+            "limit": 2e-2, "chunked_ms": times[False],
+            "windowed_ms": times[True]}
+
+
+def phase_yi_agree(cfg, params_f32, dev):
+    """``agree`` on yi-6b at full width: decode steps through
+    paged_decode_attn and rmsnorm vs the plain versions, f32 and bf16."""
+    rec = phase_agree(cfg, params_f32, dev)
+    rec.update(phase="yi_agree", arch=cfg.name)
+    return rec
+
+
+def phase_yi_serve(cfg, eng):
+    """``serve`` on yi-6b at full width in bf16: the serve smoke's settings
+    and six requests; tokens/s, peak memory, launches."""
+    rec = phase_serve(cfg, eng)
+    rec["phase"] = "yi_serve"
+    return rec
 
 
 def decode_inputs(b, S, kv, g, hd, q_dtype, kv_dtype, gen, dev):
@@ -2754,7 +3222,7 @@ def phase_legacy_agree(cfg, params_f32, dev):
                 "tokens_equal": True, "tokens": toks_legacy.tolist()},
             "limit_reason": "f32: summation order; bf16: one-ulp differences "
                             "in attention and norm outputs carried through "
-                            "26 layers"}
+                            f"{cfg.n_layers} layers"}
 
 
 def phase_legacy_serve(cfg, params, cont_eng, dev):
@@ -3291,7 +3759,7 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attn import paged_decode_attn
-    from repro_torch.models import init_params
+    from repro_torch.models import cast_params, init_params
     from repro_torch.serve import ContinuousEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3357,6 +3825,7 @@ def main():
     torch.cuda.empty_cache()
 
     run_phase(phase_train_agree, dev)
+    int4 = run_phase(phase_int4_codec, dev)
     train = run_phase(phase_train, dev)
     run_phase(phase_train_profile, dev)
     run_phase(phase_baselines, dev, train["seconds_per_round"])
@@ -3369,6 +3838,7 @@ def main():
 
     run_phase(phase_lm_agree, cfg, dev)
     torch.cuda.empty_cache()
+    run_phase(phase_lm_remat, cfg, dev)
     tr, ds = new_lm_trainer(cfg, dev), lm_dataset(cfg)
     batches = ds.batches()
     lm = run_phase(phase_lm_train, cfg, tr, ds, batches)
@@ -3379,11 +3849,27 @@ def main():
     torch.cuda.empty_cache()
     lm_async = run_phase(phase_lm_async, cfg, dev)
     torch.cuda.empty_cache()
+    run_phase(phase_lm_windowed, dev)
+    lm3b = run_phase(phase_lm3b_train, dev)
+
+    ycfg = get_config(YI_ARCH)
+    yparams = init_params(ycfg, seed=0, device=dev)        # float32
+    run_phase(phase_yi_agree, ycfg, yparams, dev)
+    ybf16 = cast_params(yparams, torch.bfloat16)
+    del yparams             # the engine keeps what it is handed: 12 GB, not 24
+    torch.cuda.empty_cache()
+    yeng = ContinuousEngine(ycfg, ybf16, n_slots=N_SLOTS, max_len=MAX_LEN,
+                            block_size=BLOCK, chunk=CHUNK, device=dev)
+    del ybf16
+    yi_serve = run_phase(phase_yi_serve, ycfg, yeng)
+    del yeng
+    torch.cuda.empty_cache()
 
     t = timing["ring512"]
     w = wagg_timing["cnn6_round/none"]
     lm_leaf = wagg_timing["lm_mlp_leaf/none"]
     lm_leaf_masked = wagg_timing["lm_mlp_leaf/none/masked"]
+    lm3b_leaf = wagg_timing["lm3b_mlp_leaf/int4"]
     nt = norm_timing["fused_train"]
     keys = ("x", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{
@@ -3399,6 +3885,7 @@ def main():
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "train_to_serve_launches": t2s["launches"]["paged_decode_attn"],
+        "yi_serve_launches": yi_serve["launches"],
         "serve_profile_device_kernels": serve_prof[
             "paged_decode_device_kernels"],
         "kernel_launches_one_decode_step": {
@@ -3417,6 +3904,11 @@ def main():
                                                 "bound_by", "library_ms")},
         "lm_train_launches": lm["launches"]["wagg_fused"],
         "train_to_serve_launches": t2s["launches"]["wagg_fused"],
+        "lm3b_train_int4_launches": lm3b["launches"]["wagg_fused"],
+        "cnn6_int4_launches": int4["cnn6"]["launches"],
+        "lm3b_mlp_leaf_int4": {k: lm3b_leaf[k] for k in (
+            "leaves", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
         "lm_mlp_leaf_masked": {k: lm_leaf_masked[k] for k in (
             "mask", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library")},
@@ -3439,7 +3931,7 @@ def main():
         "note": "the residual add fused in (s = x + delta, then the norm), "
                 "at one local step of the LM run: x (4, 640, 1152) bf16, a "
                 "scale per worker; launches from lm_train (all, fused or "
-                "not)",
+                "not; remat runs each layer's norms again in the backward)",
         "decode": {k: norm_timing["fused_decode"][k] for k in keys},
         "plain_norm": {k: norm_timing["train"][k] for k in keys},
         "plain_norm_decode": {k: norm_timing["decode"][k] for k in keys},
@@ -3448,7 +3940,9 @@ def main():
         "ssm_serve_launches": ssm_serve["rmsnorm_launches"],
         "legacy_serve_launches": legacy["rmsnorm_launches"],
         "train_to_serve_launches": t2s["launches"]["rmsnorm"],
-        "evaluate_lm_launches": t2s["eval_launches"]["rmsnorm"]}, {
+        "evaluate_lm_launches": t2s["eval_launches"]["rmsnorm"],
+        "lm3b_train_launches": lm3b["launches"]["rmsnorm"],
+        "yi_serve_launches": yi_serve["rmsnorm_launches"]}, {
         "name": "fused_ce", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
@@ -3462,7 +3956,8 @@ def main():
         "note": "one local step of the LM run: 2560 x 262144 f32 logits; "
                 "launches from lm_train",
         "train_to_serve_launches": t2s["launches"]["fused_ce"],
-        "evaluate_lm_launches": t2s["eval_launches"]["fused_ce"]}, {
+        "evaluate_lm_launches": t2s["eval_launches"]["fused_ce"],
+        "lm3b_train_launches": lm3b["launches"]["fused_ce"]}, {
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/decode_attn.py:78",

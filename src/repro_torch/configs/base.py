@@ -40,15 +40,17 @@ class ModelConfig:
     """The JAX fields that change only the schedule or the memory, not the
     numbers, are kept so that every arch config carries over as it is:
 
-    * ``unroll_attn_scan`` and ``windowed_qblock`` pick how JAX's attention
-      walks the key blocks; the port takes the same ``flash_attention``
-      for every value.
+    * ``windowed_qblock`` takes ``flash_attention_windowed`` (query blocks
+      that skip the key blocks outside the window) on sliding-window
+      layers, in training and in prefill, as JAX does.
+    * ``unroll_attn_scan`` picks how JAX's attention scan is unrolled; the
+      port's loop over key blocks is the same for either value.
     * ``sharded_ce`` picks JAX's one-hot or gather form of the same
       per-token CE; the port's ``loss_fn`` takes ``fused_ce`` for both.
-    * ``remat`` (True in every full config) recomputes each block in the
-      backward pass. ``torch.utils.checkpoint`` does not compose with the
-      ``torch.func.vmap``/``grad`` of the training round (its saved-tensor
-      hooks), so the port keeps every activation and does not raise on it.
+    * ``remat`` (True in every full config) recomputes each layer in the
+      backward pass of the training round
+      (``models.transformer.worker_losses``: ``torch.utils.checkpoint``
+      around each layer's ``vmap``).
     """
     name: str
     family: str                       # dense | moe | ssm | hybrid | vlm | audio
@@ -81,11 +83,11 @@ class ModelConfig:
     sharded_ce: bool = False            # JAX: one-hot CE form; the port's
                                         # loss takes fused_ce either way
     tie_embeddings: bool = False
-    remat: bool = True                  # JAX: checkpoint each block; read,
-                                        # not applied, by the port (below)
+    remat: bool = True                  # recompute each layer in the round's
+                                        # backward pass
     logits_softcap: float = 0.0
     unroll_attn_scan: bool = False      # schedule only: same flash_attention
-    windowed_qblock: bool = False       # schedule only: same flash_attention
+    windowed_qblock: bool = False       # q-blocked sliding-window attention
 
     source: str = ""
 

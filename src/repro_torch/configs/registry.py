@@ -10,6 +10,8 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES: Dict[str, str] = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "yi-6b": "repro_torch.configs.yi_6b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
 }
 

@@ -29,14 +29,14 @@ collectives; the port has no collectives and no such thunk yet.)
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import dtype_of
 from repro_torch.core.aggregate import fma_late_join, is_worker_leaf
-from repro_torch.core.codecs import (NOT_PORTED as CODECS_NOT_PORTED,
-                                     available_codecs, codec_for_dtype,
+from repro_torch.core.codecs import (available_codecs, codec_for_dtype,
                                      get_codec)
 from repro_torch.tree import tree_map
 
@@ -50,10 +50,18 @@ class AggregationContext:
     ``active``     (w,) Alg. 4 activity mask, bool or float32 0/1 (the
                    kernel's form, which the Alg. 4 rule casts once a
                    round); ``None``: all active.
+    ``key``        integer seed of stochastic codecs (``int4``); ``None``:
+                   the codec's fixed default.
+    ``leaf_index`` position of the current leaf in the flattened tree, set
+                   per leaf by ``ComposedBackend.aggregate`` so that
+                   stochastic codecs draw distinct noise for equal-content
+                   leaves.
     """
     comm_dtype: torch.dtype = torch.float32
     n_pods: int = 1
     active: Optional[torch.Tensor] = None
+    key: Optional[int] = None
+    leaf_index: Optional[int] = None
 
 
 DEFAULT_CONTEXT = AggregationContext()
@@ -165,9 +173,6 @@ def resolve_spec(name: str) -> Tuple[str, Optional[str]]:
     if sched in _NOT_PORTED:
         raise NotImplementedError(f"aggregation spec {name!r}: {sched!r} "
                                   f"{MESH_NOT_PORTED}")
-    if codec in CODECS_NOT_PORTED:
-        raise NotImplementedError(f"aggregation spec {name!r}: "
-                                  f"{CODECS_NOT_PORTED[codec]}")
     if name in _ALIASES:
         return _ALIASES[name]
     if codec:
@@ -216,14 +221,17 @@ class ComposedBackend:
         if validate is not None:
             validate(theta, ctx)
         theta = theta.float()
+        position = itertools.count()
 
         def leaf(x, ax):
+            i = next(position)              # the flatten order: sorted keys
             if not is_worker_leaf(ax):
                 return x
-            state = sched.prepare(x, theta, codec, ctx)
+            lctx = dataclasses.replace(ctx, leaf_index=i)
+            state = sched.prepare(x, theta, codec, lctx)
             for phase in range(sched.n_phases):
-                state = sched.reduce_phase(phase, state, theta, codec, ctx)
-            return sched.finalize(state, x, theta, beta, codec, ctx)
+                state = sched.reduce_phase(phase, state, theta, codec, lctx)
+            return sched.finalize(state, x, theta, beta, codec, lctx)
 
         return tree_map(leaf, params, axes)
 

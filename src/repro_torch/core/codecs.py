@@ -9,11 +9,20 @@ Eq. 10 reduce carries for each worker-stacked leaf. The counterpart of
 ``bf16``  bfloat16 payload; the reduce runs in bfloat16.
 ``int8``  symmetric per-leaf int8: scale = max|x| / 127 over all p workers
           of the leaf (in ``aux``), q = round(x / scale) half to even.
+``int4``  int4-range stochastic rounding, carried in int8: scale =
+          max|x| / 7, q = clip(floor(x / scale + u), -7, 7) with u
+          uniform in [0, 1), so E[q] = x / scale.
 
 ``codec.error_bound(x, theta, beta)`` bounds ``|out - out_f32|`` per
-element for one Eq. 10 step, as in the JAX package. The ``int4`` codec
-(stochastic rounding from ``jax.random`` bits that no torch generator
-reproduces) is not ported yet; naming it raises.
+element for one Eq. 10 step, as in the JAX package.
+
+The int4 draw cannot be JAX's (threefry fold-ins, which no torch generator
+reproduces). It is a counter-based hash in integer torch ops, so the CPU
+and a CUDA card draw the same bits: a 32-bit key mixes ``ctx.key``
+(default ``0x144``, JAX's), the leaf's size, the wrapping u32 sum of its
+float32 bits (JAX's content hash: fresh noise whenever the parameters
+change) and ``ctx.leaf_index`` (distinct noise for equal-content leaves);
+element ``i`` draws ``mix32(i * golden ^ key)``, whose top 24 bits are u.
 """
 from __future__ import annotations
 
@@ -21,9 +30,16 @@ from typing import Dict, Tuple
 
 import torch
 
-NOT_PORTED = {"int4": "the int4 codec draws its rounding noise from "
-                      "jax.random fold-ins and is not ported yet "
-                      "(ROADMAP.md queue 1.1)"}
+# The int4 draw runs in int64 tensors holding u32 values: every product
+# (a u32 value times a constant below 2^31, or an index below 2^31 times
+# a u32 constant) stays below 2^63, so no operation overflows.
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B1
+_MIX = ((17, 0x7FEB352D), (11, 0x31848BAB), (15, 0x2C1B3C6D))
+INT4_DEFAULT_KEY = 0x144
+# elements a chunk of the int4 encode: its int64 temporaries stay at
+# 128 MiB each whatever the leaf's size
+INT4_CHUNK = 1 << 24
 
 
 class _DtypeCodec:
@@ -76,6 +92,77 @@ class _Int8Codec:
         return (beta * self._scale(x) / 2).float() + 1e-5
 
 
+def mix32(h):
+    """A bijective 32-bit xorshift-multiply mix of ``h`` (a Python int or
+    an int64 tensor, values in [0, 2^32))."""
+    for shift, mult in _MIX:
+        h = ((h ^ (h >> shift)) * mult) & _M32
+    return h ^ (h >> 16)
+
+
+def _chunks(n: int):
+    for start in range(0, n, INT4_CHUNK):
+        yield start, min(start + INT4_CHUNK, n)
+
+
+def int4_key(x: torch.Tensor, key=None, leaf_index=None) -> torch.Tensor:
+    """The leaf's 32-bit draw key, an int64 scalar on x's device: ``key``
+    (default ``0x144``), then x's size, then the wrapping u32 sum of x's
+    float32 bits, then ``leaf_index`` when given, each mixed in."""
+    flat = x.float().reshape(-1)
+    bits = flat.view(torch.int32)
+    content = sum(bits[a:b].sum() for a, b in _chunks(flat.numel()))
+    seed = INT4_DEFAULT_KEY if key is None else int(key)
+    k = mix32((mix32(seed & _M32) + flat.numel()) & _M32)
+    k = mix32((content + k) & _M32)
+    if leaf_index is not None:
+        k = mix32((k + mix32(int(leaf_index) & _M32)) & _M32)
+    return k
+
+
+def int4_uniform(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """u in [0, 1) (float32, multiples of 2^-24) of the flat elements
+    [start, stop) under ``key``."""
+    i = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    h = mix32(((i * _GOLDEN) & _M32) ^ key)
+    return (h >> 8).float() * 2.0 ** -24
+
+
+class _Int4StochasticCodec:
+    """int4-range payload with unbiased stochastic rounding, carried in
+    int8. The encode runs in chunks of ``INT4_CHUNK`` elements."""
+
+    name = "int4"
+    wire_dtype = torch.int8
+    reduce_dtype = torch.float32
+    quantizing = True
+
+    @staticmethod
+    def _scale(x):
+        # max|x| without an |x| temporary the size of the leaf
+        return torch.clamp_min(torch.maximum(x.max(), -x.min()).float(),
+                               1e-12) / 7.0
+
+    def encode(self, x, ctx=None):
+        scale = self._scale(x)
+        key = int4_key(x, getattr(ctx, "key", None),
+                       getattr(ctx, "leaf_index", None))
+        flat = x.float().reshape(-1)
+        q = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
+        for a, b in _chunks(flat.numel()):
+            u = int4_uniform(key, a, b)
+            q[a:b] = torch.clamp(torch.floor(flat[a:b] / scale + u), -7, 7)
+        return q.reshape(x.shape), scale
+
+    def decode_reduced(self, m, aux):
+        return m.float() * aux
+
+    def error_bound(self, x, theta, beta):
+        # stochastic rounding: |q * scale - x| < scale (one step), and the
+        # aggregate is a theta-convex combination.
+        return (beta * self._scale(x)).float() + 1e-5
+
+
 _CODECS: Dict[str, object] = {}
 
 
@@ -87,9 +174,6 @@ def register_codec(codec) -> None:
 
 
 def get_codec(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"payload codec {name!r}: "
-                                  f"{NOT_PORTED[name]}")
     if name not in _CODECS:
         raise KeyError(f"unknown payload codec {name!r}; "
                        f"known: {sorted(_CODECS)}")
@@ -108,3 +192,4 @@ def codec_for_dtype(dtype):
 register_codec(_DtypeCodec("f32", torch.float32))
 register_codec(_DtypeCodec("bf16", torch.bfloat16))
 register_codec(_Int8Codec())
+register_codec(_Int4StochasticCodec())

@@ -1,6 +1,8 @@
 """GQA attention for prefill: chunked (flash-style) softmax over key blocks
-with causal and sliding-window masking, the counterpart of
-``flash_attention`` and ``_block_mask`` in ``repro/models/attention.py``.
+with causal and sliding-window masking, and its q-blocked form for
+sliding windows that skips the key blocks outside the window, the
+counterparts of ``flash_attention``, ``flash_attention_windowed`` and
+``_block_mask`` in ``repro/models/attention.py``.
 
 Plain torch ops, chunked over keys like the JAX version so that peak
 memory stays O(seq * block); the JAX version is no Pallas kernel, so
@@ -84,3 +86,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def flash_attention_windowed(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int,
+                             block: int = 512) -> torch.Tensor:
+    """Causal sliding-window attention by query blocks: query block i
+    attends only to the keys [max(0, (i - wb) * block), (i + 1) * block),
+    wb = ceil(window / block), so the work is O(s * (window + block))
+    instead of O(s^2). Falls back to ``flash_attention`` when
+    ``s <= block`` or ``window >= s``, as JAX's does. Shapes as
+    ``flash_attention``."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    if s <= block or window >= s:
+        return flash_attention(q, k, v, causal=True, window=window,
+                               block_k=block)
+    blk = block
+    nqb = -(-s // blk)
+    padq = nqb * blk - s
+    if padq:
+        pad = (0, 0, 0, 0, 0, padq)
+        q = torch.nn.functional.pad(q, pad)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    sp = nqb * blk
+    wb = -(-window // blk)
+    span = (wb + 1) * blk
+    scale = hd ** -0.5
+    dev = q.device
+
+    outs = []
+    for i in range(nqb):
+        q_i = (q[:, i * blk:(i + 1) * blk].reshape(b, blk, kvh, g, hd)
+               * scale).float()
+        start = min(max(0, (i - wb) * blk), max(0, sp - span))
+        kspan = k[:, start:start + min(span, sp)].float()
+        vspan = v[:, start:start + min(span, sp)].float()
+        q_pos = i * blk + torch.arange(blk, device=dev)
+        k_pos = start + torch.arange(kspan.shape[1], device=dev)
+        mask = _block_mask(q_pos, k_pos, True, window, k_valid=k_pos < s)
+        sc = torch.einsum("bqkgd,btkd->bkgqt", q_i, kspan)
+        sc = torch.where(mask[None, None, None], sc,
+                         torch.full_like(sc, NEG_INF))
+        pr = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bkgqt,btkd->bkgqd", pr, vspan)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, blk, h, hd))
+    return torch.cat(outs, dim=1)[:, :s].to(q.dtype)

@@ -27,8 +27,18 @@ through ``kernels.fused_ce``, every SSM layer's prefill through
 versions on the CPU. The functions take these as keyword arguments
 (``norm``, ``ce``, ``ssd``, ``attn``, ``attn_kernel``) that default to the
 kernels; only ``chip_smoke.py``'s agreement phases pass the plain
-versions. The training forward keeps every activation: JAX's ``remat`` is
-read but not applied (``configs/base.py``).
+versions.
+
+``worker_losses`` is the training round's form of ``loss_fn``: the
+per-worker losses of worker-stacked parameters, ``torch.func.vmap`` of
+each piece (embedding, each layer, head and CE) in turn. With
+``cfg.remat`` each layer's vmapped call runs under
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of each block): the
+backward pass recomputes the layer from its inputs, the pair (x, pending
+residual), instead of keeping its activations and weight casts. The
+checkpoint lies outside the ``vmap``, so it sees plain worker-stacked
+tensors. ``cfg.windowed_qblock`` takes ``flash_attention_windowed`` on
+sliding-window layers, in training and in ``prefill``, as JAX does.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.func import vmap
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
@@ -48,7 +60,9 @@ from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.ssd_chunk import ssd_chunked_kernel
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.models.attention import KVCache, attention_init, flash_attention
+from repro_torch.models.attention import (KVCache, attention_init,
+                                         flash_attention,
+                                         flash_attention_windowed)
 from repro_torch.models.param import ParamBuilder, build
 
 
@@ -173,6 +187,15 @@ def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
     return x, L.mlp(lp["mlp"], h, dt)
 
 
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """Causal self-attention over the whole sequence: q-blocked on a
+    sliding-window layer when ``cfg.windowed_qblock`` is set."""
+    if cfg.windowed_qblock and window is not None:
+        return flash_attention_windowed(q, k, v, window=window)
+    return flash_attention(q, k, v, causal=True, window=window)
+
+
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
             delta: Optional[torch.Tensor], dt: torch.dtype,
             norm: L.NormFn) -> torch.Tensor:
@@ -198,7 +221,7 @@ def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
     the next norm's launch: takes and returns (x, the pending residual)."""
     x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps, norm)
     q, k, v = _qkv(lp["attn"], h, rope, dt)
-    att = flash_attention(q, k, v, causal=True, window=cfg.window_for_layer(i))
+    att = _attend(cfg, q, k, v, cfg.window_for_layer(i))
     return _ffn(cfg, lp, x, _out(att, lp["attn"]["wo"].to(dt)), dt, norm)
 
 
@@ -235,9 +258,58 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
     (``cfg.sharded_ce``: one-hot contraction, or ``log_softmax`` and a
     gather) are that same function, so both take ``ce`` here."""
     logits, moe_loss = forward(cfg, params, batch["tokens"], norm=norm)
-    nll = ce(logits.float(), batch["labels"])
-    loss_ce = nll.mean()
+    return _loss_of_logits(logits, moe_loss, batch["labels"], ce)
+
+
+def _loss_of_logits(logits, moe_loss, labels, ce):
+    loss_ce = ce(logits.float(), labels).mean()
     return loss_ce + moe_loss, {"ce": loss_ce, "moe_loss": moe_loss}
+
+
+def worker_losses(cfg: ModelConfig, params: Dict, in_dims: Dict,
+                  batch: Dict, *, norm: L.NormFn = rmsnorm_kernel,
+                  ce: Callable = fused_ce) -> Tuple[torch.Tensor, Dict]:
+    """``vmap(loss_fn)`` over the worker axis, piece by piece: params
+    worker-stacked as ``in_dims`` says (0 or None a leaf), batch leaves
+    (p, b, s). Returns (losses (p,), {"ce", "moe_loss"} each (p,)), the
+    same numbers as ``vmap(lambda q, b: loss_fn(cfg, q, b))``. With
+    ``cfg.remat`` each layer is recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant; no dropout, so no RNG
+    state to keep): its norms run twice a step, 4 * n_layers + 1 calls of
+    ``norm`` a forward and backward."""
+    _check_trainable(cfg)
+    dt = dtype_of(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    x = vmap(lambda e, t: L.embed(e, t, dt),
+             in_dims=(in_dims["embed"], 0))(params["embed"], tokens)
+    b, s = tokens.shape[1:]
+    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
+                         cfg.head_dim, cfg.rope_theta)
+    delta = None
+    for i in range(cfg.n_layers):
+        def layer(lp, x, delta, i=i):
+            return _apply_layer(cfg, lp, x, delta, rope, i, dt, norm)
+        key = f"L{i}"
+        run = vmap(layer, in_dims=(in_dims["layers"][key], 0,
+                                   None if delta is None else 0))
+        if cfg.remat:
+            x, delta = checkpoint(run, params["layers"][key], x, delta,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, delta = run(params["layers"][key], x, delta)
+
+    out_key = "embed" if cfg.tie_embeddings else "head"
+    tail_params = {k: params[k] for k in ("final_norm", out_key)}
+    tail_dims = {k: in_dims[k] for k in tail_params}
+
+    def tail(tp, x, delta, labels):
+        moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        return _loss_of_logits(_logits(cfg, tp, x, delta, dt, norm),
+                               moe_loss, labels, ce)
+
+    return vmap(tail, in_dims=(tail_dims, 0, 0, 0))(
+        tail_params, x, delta, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +373,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps,
                                  norm)
             q, k, v = _qkv(lp["attn"], h, rope, dt)
-            att = flash_attention(q, k, v, causal=True, window=w)
+            att = _attend(cfg, q, k, v, w)
             delta = _out(att, lp["attn"]["wo"].to(dt))
             if w is not None and s >= size:
                 # ring layout: the slot of token p is p % size
@@ -496,4 +568,5 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 __all__ = ["KVCache", "PagedKV", "cache_layout", "cast_params",
            "check_supported", "decode_step", "decode_step_paged", "forward",
-           "init_cache", "init_params", "loss_fn", "param_axes", "prefill"]
+           "init_cache", "init_params", "loss_fn", "param_axes", "prefill",
+           "worker_losses"]

@@ -1,8 +1,19 @@
 """Optimizers over parameter trees: SGD, momentum SGD and AdamW, and the
 gradient-norm and learning-rate helpers, the counterparts of
-``repro/optim/optimizers.py``. Updates are functional
-(new tensors, as in the JAX package) and element-wise, so the worker
-dimension of the parameters is transparent."""
+``repro/optim/optimizers.py``. Updates are element-wise, so the worker
+dimension of the parameters is transparent, and write no tensor (new
+tensors, as in the JAX package). Each optimizer is one per-leaf rule in
+two forms:
+
+``apply(grads, state, params) -> new_state``
+    leaf-wise: one leaf at a time, its new tensor replaces the old one in
+    ``params``' (and the state's) dicts and its gradient is popped from
+    ``grads``, so the old value and the gradient are freed before the next
+    leaf. The training round takes this form: it consumes its state, as
+    JAX's donated step does, and holds parameters and gradients plus one
+    leaf instead of three copies.
+``update(grads, state, params) -> (new_params, new_state)``
+    functional: ``apply`` on copies of the dicts, the inputs untouched."""
 from __future__ import annotations
 
 import math
@@ -17,6 +28,7 @@ class Optimizer(NamedTuple):
     init: Callable[[Dict], Any]
     update: Callable[[Dict, Any, Dict], Tuple[Dict, Any]]
     name: str
+    apply: Callable[[Dict, Any, Dict], Any]
 
 
 class AdamState(NamedTuple):
@@ -28,6 +40,31 @@ class AdamState(NamedTuple):
 def _tree_zeros(params):
     return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
                     params)
+
+
+def _dicts(tree):
+    """A copy of a tree's dicts (and of an ``AdamState``'s) that shares its
+    leaves."""
+    if isinstance(tree, dict):
+        return {k: _dicts(v) for k, v in tree.items()}
+    if isinstance(tree, AdamState):
+        return AdamState(_dicts(tree.mu), _dicts(tree.nu), tree.count)
+    return tree
+
+
+def _leafwise(fn: Callable, params: Dict, grads: Dict, *states: Dict
+              ) -> None:
+    """``fn(p, g, *s) -> (p', *s')`` leaf by leaf in sorted key order:
+    each result replaces the leaf in ``params`` and ``states`` (in their
+    dicts) and the gradient is popped from ``grads`` before the next."""
+    for k in sorted(params):
+        if isinstance(params[k], dict):
+            _leafwise(fn, params[k], grads[k], *(s[k] for s in states))
+            continue
+        out = fn(params[k], grads.pop(k), *(s[k] for s in states))
+        params[k] = out[0]
+        for s, new in zip(states, out[1:]):
+            s[k] = new
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -74,25 +111,27 @@ def make_optimizer(name: str = "sgd", learning_rate: float = 1e-3,
         def init(params):
             return ()
 
-        def upd(p, g):
-            pf, gf = p.float(), g.float()
-            if weight_decay:
-                gf = gf + weight_decay * pf
-            return (pf - lr * gf).to(p.dtype)
-
-        def update(grads, state, params):
-            return tree_map(upd, params, grads), state
+        def apply(grads, state, params):
+            def leaf(p, g):
+                pf, gf = p.float(), g.float()
+                if weight_decay:
+                    gf = gf + weight_decay * pf
+                # p - lr * g, bit for bit (a - b is a + (-b) in IEEE, and
+                # (-lr) * g is -(lr * g)), with one temporary the leaf's size
+                return (torch.mul(gf, -lr).add_(pf).to(p.dtype),)
+            _leafwise(leaf, params, grads)
+            return state
 
     elif name == "momentum":
         def init(params):
             return _tree_zeros(params)
 
-        def update(grads, state, params):
-            new_m = tree_map(lambda m, g: momentum * m + g.float(), state,
-                             grads)
-            new_p = tree_map(lambda p, m: (p.float() - lr * m).to(p.dtype),
-                             params, new_m)
-            return new_p, new_m
+        def apply(grads, state, params):
+            def leaf(p, g, m):
+                m = torch.mul(m, momentum).add_(g.float())
+                return torch.mul(m, -lr).add_(p.float()).to(p.dtype), m
+            _leafwise(leaf, params, grads, state)
+            return state
 
     elif name == "adamw":
         def init(params):
@@ -100,24 +139,28 @@ def make_optimizer(name: str = "sgd", learning_rate: float = 1e-3,
             return AdamState(_tree_zeros(params), _tree_zeros(params),
                              torch.zeros((), dtype=torch.int32, device=dev))
 
-        def update(grads, state, params):
+        def apply(grads, state, params):
             count = state.count + 1
-            mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                          state.mu, grads)
-            nu = tree_map(lambda v, g: b2 * v + (1 - b2)
-                          * torch.square(g.float()), state.nu, grads)
             c1 = 1 - torch.pow(torch.full_like(count, b1, dtype=torch.float32),
                                count.float())
             c2 = 1 - torch.pow(torch.full_like(count, b2, dtype=torch.float32),
                                count.float())
 
-            def upd(p, m, v):
+            def leaf(p, g, m, v):
+                m = b1 * m + (1 - b1) * g.float()
+                v = b2 * v + (1 - b2) * torch.square(g.float())
                 step = (m / c1) / (torch.sqrt(v / c2) + eps)
                 pf = p.float()
-                return (pf - lr * (step + weight_decay * pf)).to(p.dtype)
-
-            return (tree_map(upd, params, mu, nu), AdamState(mu, nu, count))
+                return (pf - lr * (step + weight_decay * pf)).to(p.dtype), m, v
+            _leafwise(leaf, params, grads, state.mu, state.nu)
+            return AdamState(state.mu, state.nu, count)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
 
-    return Optimizer(init, update, name)
+    def update(grads, state, params):
+        """``apply`` on fresh dicts: new trees, the inputs untouched."""
+        new_params = _dicts(params)
+        new_state = apply(_dicts(grads), _dicts(state), new_params)
+        return new_params, new_state
+
+    return Optimizer(init, update, name, apply)

@@ -1,7 +1,12 @@
 """LM glue, the counterpart of ``repro/train/lm.py::make_lm_loss``: a
 ``ModelConfig`` wired into the ``loss_fn(params, batch)`` the round builder
 and the ``Trainer`` take. (The JAX module's dry-run helpers
-``abstract_lm_state`` and ``lm_batch_specs`` are not ported yet.)"""
+``abstract_lm_state`` and ``lm_batch_specs`` are not ported yet.)
+
+The loss carries the model's worker-stacked form as ``loss.stacked``
+(``models.transformer.worker_losses``): the round takes it in place of a
+``vmap`` of the whole loss, so that ``cfg.remat`` can checkpoint each
+layer outside its ``vmap``."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
@@ -10,12 +15,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import loss_fn as lm_loss
+from repro_torch.models.transformer import worker_losses
 
 
 def make_lm_loss(cfg: ModelConfig
                  ) -> Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]:
     """``loss(params, batch) -> (loss, {"ce", "moe_loss"})`` through the
-    kernels (``models.transformer.loss_fn``'s defaults)."""
+    kernels (``models.transformer.loss_fn``'s defaults), with
+    ``loss.stacked(params, in_dims, batch) -> (losses (p,), aux)``."""
     def loss(params, batch):
         return lm_loss(cfg, params, batch)
+
+    def stacked(params, in_dims, batch):
+        return worker_losses(cfg, params, in_dims, batch)
+
+    loss.stacked = stacked
     return loss

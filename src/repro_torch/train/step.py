@@ -7,9 +7,11 @@ Shape contract: every batch leaf has leading dim B = p * tau * b_local,
 laid out worker-major; it is reshaped to (p, tau, b_local, ...) and then
 swapped to (tau, p, b_local, ...), so step t hands worker w its own
 samples. Per-worker gradients come from autograd through
-``torch.func.vmap`` of the loss over the worker-stacked parameters: each
-worker's gradient of its own loss (the JAX package takes the gradient of
-the mean over workers and scales it by p; the two agree up to rounding).
+``torch.func.vmap`` of the loss over the worker-stacked parameters (or
+the loss's own worker-stacked form, ``loss_fn.stacked``, where it has one:
+the LM loss, whose layers ``cfg.remat`` checkpoints): each worker's
+gradient of its own loss (the JAX package takes the gradient of the mean
+over workers and scales it by p; the two agree up to rounding).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch.core.weights import (compute_theta, omega,
                                       policy_from_config, theta_entropy)
 from repro_torch.optim import Optimizer
 from repro_torch.train.state import TrainState
-from repro_torch.tree import tree_assign, tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]
 
@@ -128,7 +130,12 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
     in_dims = agg.worker_in_axes(axes)
     tau = wcfg.tau
     mask = record_mask(tau, wcfg.m_estimate, wcfg.record_chunks)
-    worker_losses = vmap(loss_fn, in_dims=(in_dims, 0))
+    stacked = getattr(loss_fn, "stacked", None)
+    if stacked is not None:             # the loss's own worker-stacked form
+        def worker_losses(params, mb):
+            return stacked(params, in_dims, mb)
+    else:
+        worker_losses = vmap(loss_fn, in_dims=(in_dims, 0))
 
     def worker_grads(params, mb):
         """Per-worker gradients and losses (p,). Autograd runs through the
@@ -185,24 +192,22 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
 
     def run_scan(state, mb):
         """tau local steps; returns (params, opt_state, energy) and the
-        (tau,) per-step mean losses. Each step's new parameters replace
-        the leaves of the ``state.params`` dicts (no tensor is written
-        in place): the round consumes its input state, as the JAX Trainer
-        donates it to the jitted step (``donate_argnums=(0,)``). Otherwise
-        the round-start parameters and the previous step's gradients
-        would stay alive through every later step, two more copies of
-        the worker-stacked parameters."""
+        (tau,) per-step mean losses. The optimizer's leaf-wise ``apply``
+        replaces each leaf of the ``state.params`` (and optimizer state)
+        dicts by its new tensor and drops its gradient before the next
+        leaf (no tensor is written in place): the round consumes its input
+        state, as the JAX Trainer donates it to the jitted step
+        (``donate_argnums=(0,)``), and a step holds the parameters, their
+        gradients and one new leaf, not a third copy of the worker-stacked
+        parameters."""
         params, opt_state, energy = (state.params, state.opt_state,
                                      state.energy)
         step_losses = []
         for t in range(tau):
             grads, losses = worker_grads(params,
                                          tree_map(lambda x: x[t], mb))
-            new_params, opt_state = optimizer.update(grads, opt_state,
-                                                     params)
+            opt_state = optimizer.apply(grads, opt_state, params)
             del grads
-            tree_assign(params, new_params)
-            del new_params
             if mask[t]:
                 energy = energy + losses
             step_losses.append(losses.mean())

@@ -21,14 +21,3 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
-
-
-def tree_assign(dst: Dict, src: Dict) -> None:
-    """Replaces the leaves of ``dst`` by the matching leaves of ``src`` (a
-    tree of the same structure), in place in ``dst``'s dicts; the leaves
-    themselves are not written."""
-    for k, v in src.items():
-        if isinstance(v, dict):
-            tree_assign(dst[k], v)
-        else:
-            dst[k] = v

@@ -267,15 +267,6 @@ def test_codecs_match_jax(codec, dtype):
         ref.error_bound(xj, jnp.asarray(theta), 0.9), rtol=1e-6, atol=0)
 
 
-def test_int4_is_not_ported_and_says_so():
-    with pytest.raises(NotImplementedError, match="int4"):
-        tcodecs.get_codec("int4")
-    with pytest.raises(NotImplementedError, match="int4"):
-        tbk.get_backend("pallas_wagg:int4")
-    with pytest.raises(NotImplementedError, match="int4"):
-        wasgd_rule(tcfg.WASGDConfig(backend="pallas_wagg:int4"))
-
-
 # ---------------------------------------------------------------------------
 # Eq. 10 and the aggregation specs
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's dense LM training slice against the JAX package.
 
-gemma3's and stablelm-1.6b's smoke configs run through both packages from
-JAX's parameters carried across (``params_from_numpy``); token batches
+The smoke configs of gemma3, stablelm-1.6b, stablelm-3b and yi-6b (GQA
+group 4, rope_theta 5e6) run through both packages from JAX's parameters
+carried across (``params_from_numpy``); token batches
 come from numpy. On the CPU the port's norms and CE take the kernels'
 plain versions through their ``autograd.Function``s (``setup_context``,
 the ``vmap`` rule and the backward run as on the card).
@@ -56,7 +57,7 @@ from repro_torch.serve import PagedCache  # noqa: E402
 from repro_torch.train import Trainer, make_lm_loss  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-ARCHS = ["gemma3-1b", "stablelm-1.6b"]
+ARCHS = ["gemma3-1b", "stablelm-1.6b", "stablelm-3b", "yi-6b"]
 NEW_FIELDS = ("remat", "sharded_ce", "unroll_attn_scan", "windowed_qblock")
 
 
@@ -106,6 +107,15 @@ def test_stablelm_config_matches_jax_field_for_field(which):
     ours = (get_config if which == "full" else get_smoke_config)(
         "stablelm-1.6b")
     ref = (jax_get_config if which == "full" else jax_smoke)("stablelm-1.6b")
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+
+
+@pytest.mark.parametrize("which", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "yi-6b"])
+def test_dense_configs_match_jax_field_for_field(arch, which):
+    ours = (get_config if which == "full" else get_smoke_config)(arch)
+    ref = (jax_get_config if which == "full" else jax_smoke)(arch)
     for f in dataclasses.fields(ours):
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
 
@@ -363,3 +373,31 @@ def test_round_frees_round_start_params_after_the_first_step():
     assert alive == [len(refs), 0, 0]
     for k, v in _flat(base).items():
         np.testing.assert_array_equal(v, held[k], err_msg=k)
+
+
+# -- serving the new dense configs ------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "yi-6b"])
+def test_greedy_serve_matches_jax_engine(arch):
+    """Four requests on two slots through both ``ContinuousEngine``s, float32
+    weights and cache: the port's greedy tokens are JAX's."""
+    from repro.serve import ContinuousEngine as JEngine
+    from repro_torch.serve import ContinuousEngine
+
+    jcfg, cfg = _cfgs(arch)
+    jp, _, tp = _params(arch, seed=4)
+    kw = dict(n_slots=2, max_len=48, block_size=8, chunk=4)
+    jeng = JEngine(jcfg, jp, cache_dtype=jnp.float32, **kw)
+    teng = ContinuousEngine(cfg, tp, cache_dtype=torch.float32,
+                            device="cpu", **kw)
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in ((7, 9), (19, 4), (3, 12), (11, 6))]
+    outs = []
+    for eng in (jeng, teng):
+        rids = [eng.submit(p, n) for p, n in reqs]
+        done = eng.run()
+        outs.append([np.asarray(done[r]) for r in rids])
+    for want, got in zip(*outs):
+        np.testing.assert_array_equal(got, want)
+    assert [len(g) for g in outs[1]] == [n for _, n in reqs]
