@@ -1063,12 +1063,13 @@ def phase_int4_codec(dev):
     xc = x.cpu()
     q_cpu, s_cpu = codec.encode(xc, ctx)
     key_dev = int4_key(x, None, INT4["leaf_index"]).item()
-    key_cpu = int4_key(xc, None, INT4["leaf_index"]).item()
+    key_cpu_t = int4_key(xc, None, INT4["leaf_index"])
+    key_cpu = key_cpu_t.item()
     flat, qd, qc = xc.reshape(-1), q_dev.cpu().reshape(-1), q_cpu.reshape(-1)
     n_diff = n_near = n_diff_not_near = 0
     for a in range(0, flat.numel(), INT4_CHUNK):
         b = min(a + INT4_CHUNK, flat.numel())
-        v = flat[a:b] / s_cpu + int4_uniform(torch.tensor(key_cpu), a, b)
+        v = torch.addcdiv(int4_uniform(key_cpu_t, a, b), flat[a:b], s_cpu)
         ulp = torch.nextafter(v.abs(), torch.tensor(float("inf"))) - v.abs()
         near = (v - torch.round(v)).abs() <= ulp
         diff = qd[a:b] != qc[a:b]
@@ -2000,13 +2001,18 @@ def add_rmsnorm_case(x, delta, s, gen):
             "dscale": rel_err(grads[0][2], grads[1][2])}
 
 
+RMS_CHECK = {"d": [1152, 2048, 2560, 1000, 1001, 4096],
+             "rows": [1, 4, 640, 2560, 2561], "groups": [1, 3, 4]}
+
+
 def phase_rmsnorm_check(dev):
     """rmsnorm against its plain version over dtype x d x rows x groups:
-    d = 1152 (gemma3-1b), 2048 (stablelm-1.6b), 1000 (16-byte vectors),
-    1001 (the one-element path) and 4096 (past the 2048 elements a warp
-    holds in registers: the two-pass path); rows 1, 4 (a decode step),
-    2560 (one local step of the LM run), 2561; G = 1 (one scale) or 4 (x
-    (4, rows, d), a scale per worker). The fused residual add over the same
+    d = 1152 (gemma3-1b), 2048 (stablelm-1.6b), 2560 (stablelm-3b), 1000
+    (16-byte vectors), 1001 (the one-element path) and 4096 (yi-6b; past
+    the 2048 elements a warp holds in registers: the two-pass path); rows
+    1, 4 (a decode step), 640 (a worker's local step of the LM runs),
+    2560, 2561; G = 1 (one scale), 3 (x (3, rows, d), a scale per worker:
+    the stablelm-3b round) or 4 (the gemma3-1b round). The fused residual add over the same
     grid, its s bitwise equal to torch's x + delta. One case of each starts
     one element past an aligned base."""
     import torch
@@ -2029,9 +2035,9 @@ def phase_rmsnorm_check(dev):
 
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for d in (1152, 2048, 1000, 1001, 4096):
-            for rows in (1, 4, 2560, 2561):
-                for groups in (1, 4):
+        for d in RMS_CHECK["d"]:
+            for rows in RMS_CHECK["rows"]:
+                for groups in RMS_CHECK["groups"]:
                     shape = (rows, d) if groups == 1 else (groups, rows, d)
                     x = torch.randn(shape, generator=gen, device=dev).to(dt)
                     delta = torch.randn(shape, generator=gen,
@@ -2052,9 +2058,8 @@ def phase_rmsnorm_check(dev):
         record(f"{dname}/unaligned", rmsnorm_case(x, s, gen), dname)
         record(f"fused/{dname}/unaligned",
                add_rmsnorm_case(x, delta, s, gen), dname)
-    return {"phase": "rmsnorm_check", "cases": n_cases,
-            "d": [1152, 2048, 1000, 1001, 4096], "rows": [1, 4, 2560, 2561],
-            "groups": [1, 4], "fused_s_bitwise": True,
+    return {"phase": "rmsnorm_check", "cases": n_cases, **RMS_CHECK,
+            "fused_s_bitwise": True,
             "paths": sorted(map(str, paths)),
             "worst_rel_err": worst,
             "tol": {"y/rstd": RMS_TOL, "dx/ddelta": RMS_GRAD_TOL,
@@ -2171,13 +2176,20 @@ def phase_rmsnorm_time(dev):
                       "CUDA events", **res}
 
 
+CE_CHECK = {"V": [262144, 100352, 1000, 1001], "T": [1, 7, 2560],
+            # stablelm-3b's padded vocabulary at one worker's tokens and at
+            # the round's three workers' (the vmap rule's one launch)
+            "V_T": [[50432, 640], [50432, 1920]]}
+
+
 def phase_ce_check(dev):
     """fused_ce against its plain version over V = 262,144 (gemma3-1b),
     100,352 (stablelm-1.6b), 1000 and 1001 (the one-element path) x T = 1,
-    7, 2560: nll and lse, and the backward through the Function (kernel
-    forward, PyTorch backward) against autograd of the plain version. At
-    T = 7 two labels lie outside [0, V) (nll = lse). One case starts one
-    element past an aligned base."""
+    7, 2560, and at V = 50,432 (stablelm-3b) with T = 640 and 1920: nll
+    and lse, and the backward through the Function (kernel forward,
+    PyTorch backward) against autograd of the plain version. At T = 7 two
+    labels lie outside [0, V) (nll = lse). One case starts one element
+    past an aligned base."""
     import torch
     from repro_torch.kernels.fused_ce import (FusedCEFunction, fused_ce_fwd,
                                               fused_ce_fwd_ref)
@@ -2211,20 +2223,19 @@ def phase_ce_check(dev):
                                  f"is not its lse")
         n_cases += 1
 
-    for v in (262144, 100352, 1000, 1001):
-        for t in (1, 7, 2560):
-            logits = 4.0 * torch.randn(t, v, generator=gen, device=dev)
-            labels = torch.randint(0, v, (t,), generator=gen, device=dev)
-            if t == 7:
-                labels[0], labels[1] = -1, v
-            case(logits, labels, f"V{v}/T{t}")
-            del logits, labels
-            torch.cuda.empty_cache()
+    grid = [(v, t) for v in CE_CHECK["V"] for t in CE_CHECK["T"]]
+    for v, t in grid + [tuple(vt) for vt in CE_CHECK["V_T"]]:
+        logits = 4.0 * torch.randn(t, v, generator=gen, device=dev)
+        labels = torch.randint(0, v, (t,), generator=gen, device=dev)
+        if t == 7:
+            labels[0], labels[1] = -1, v
+        case(logits, labels, f"V{v}/T{t}")
+        del logits, labels
+        torch.cuda.empty_cache()
     buf = 4.0 * torch.randn(7 * 1000 + 1, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (7,), generator=gen, device=dev)
     case(buf[1:].view(7, 1000), labels, "V1000/T7/unaligned")
-    return {"phase": "ce_check", "cases": n_cases,
-            "V": [262144, 100352, 1000, 1001], "T": [1, 7, 2560],
+    return {"phase": "ce_check", "cases": n_cases, **CE_CHECK,
             "worst_abs_err": worst, "tol": CE_TOL,
             "tol_reason": "f32; nll/lse of order 20: the sum of exps over "
                           "<= 262,144 terms in another order; dlogits in "
@@ -2293,22 +2304,25 @@ def tree_sq(tree_a, tree_b=None):
     return total
 
 
-def phase_lm_agree(cfg, dev):
-    """One local step of full-width gemma3-1b on p = 2 workers (seq 640,
-    b_local 1), as the round takes it (``worker_grads`` of
-    ``train/step.py``: autograd through the vmapped loss over
-    worker-stacked params): per-worker losses and gradients through the
-    kernels and through the plain versions, on the same params and batch,
-    in f32 and bf16 compute. The kernels' path must launch each norm once
-    for both workers (the vmap rules) and fused_ce once."""
-    import functools
+def phase_lm_agree(cfg, dev, phase="lm_agree"):
+    """One local step of ``cfg`` at full width and depth on p = 2 workers
+    (seq 640, b_local 1), as the round takes it (``worker_grads`` of
+    ``train/step.py``: autograd through ``make_lm_loss(c).stacked``, each
+    layer vmapped over the worker-stacked params and, with the config's
+    remat, recomputed in the backward): per-worker losses and gradients
+    through the kernels and through the plain versions, on the same params
+    and batch, in f32 and bf16 compute. The kernels' path must launch each
+    norm once for both workers (the vmap rules; twice a layer with remat)
+    and fused_ce once. Run on gemma3-1b and on stablelm-3b (``lm3b_agree``:
+    the params, and both paths' gradients, 62.5 GiB)."""
     import torch
     from repro_torch.configs import WASGDConfig
     from repro_torch.core import replicate_workers
     from repro_torch.kernels.fused_ce import fused_ce_fwd, fused_ce_ref
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd, rmsnorm_ref
-    from repro_torch.models import init_params, loss_fn, param_axes
+    from repro_torch.models import init_params, param_axes
     from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_lm_loss
     from repro_torch.train.step import _round_parts
     from repro_torch.tree import tree_leaves
     p = LM_AGREE_P
@@ -2316,7 +2330,7 @@ def phase_lm_agree(cfg, dev):
     params, axes = replicate_workers(base, param_axes(base), p)
     del base
     mb = lm_batch_on(cfg, p, 1, dev)
-    n_norms = 2 * cfg.n_layers + 1
+    n_norms = norms_per_step(cfg)[0]
     checks = []
     for dtype, limit in (("float32", 1e-4), ("bfloat16", 2e-2)):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
@@ -2324,7 +2338,7 @@ def phase_lm_agree(cfg, dev):
         for path, kw in (("kernels", {}),
                          ("plain", {"norm": rmsnorm_ref,
                                     "ce": fused_ce_ref})):
-            parts = _round_parts(functools.partial(loss_fn, c, **kw),
+            parts = _round_parts(make_lm_loss(c, **kw),
                                  make_optimizer("sgd", LM["lr"]), axes,
                                  WASGDConfig(tau=1), p)
             rmsnorm_fwd.launches = fused_ce_fwd.launches = 0
@@ -2352,15 +2366,20 @@ def phase_lm_agree(cfg, dev):
                        "limit": limit, "launches_rmsnorm_fused_ce": list(nk)})
         del out, gk, gp
         torch.cuda.empty_cache()
-    return {"phase": "lm_agree", "arch": cfg.name, "p": p,
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    return {"phase": phase, "arch": cfg.name, "p": p,
             "b_local": LM["b_local"], "seq_len": LM["seq_len"],
-            "finite": True, "checks": checks,
+            "remat": cfg.remat, "finite": True, "checks": checks,
+            "peak_mem_gib": peak,
             "limit_reason": "per worker: loss relative error, and the L2 "
                             "norm of the gradient difference over all "
                             "leaves relative to the gradient's; f32: "
-                            "summation order through 26 layers; bf16: "
+                            f"summation order through {n} layers; bf16: "
                             "one-ulp differences of the norm outputs "
-                            "carried through 26 layers and the backward"}
+                            f"carried through {n} layers and the backward"}
 
 
 REMAT = {"warmup_rounds": 1, "rounds": 2}
@@ -2376,7 +2395,9 @@ def phase_lm_remat(cfg, dev):
     (``update``: new params beside the old and the gradients) and
     leaf-wise (``apply``, the round's), with max_memory_allocated over
     each; (c) a fresh trainer each way, 1 warm-up and 2 timed rounds:
-    s/round and peak."""
+    s/round and peak, then 1 unprofiled and 1 profiled round (device busy
+    time, idle share, kernel launches and the top kernels: where remat's
+    recompute spends its time)."""
     import torch
     from repro_torch.configs import WASGDConfig
     from repro_torch.core import replicate_workers
@@ -2443,13 +2464,20 @@ def phase_lm_remat(cfg, dev):
         torch.cuda.reset_peak_memory_stats()
         wall = run_lm_rounds(tr, ds, batches, REMAT["rounds"],
                              REMAT["warmup_rounds"])
+        peak = torch.cuda.max_memory_allocated() / gib
+        done = REMAT["warmup_rounds"] + REMAT["rounds"]
+        wall1 = run_lm_rounds(tr, ds, batches, 1, done)
+        with device_profile() as prof:
+            wall_prof = run_lm_rounds(tr, ds, batches, 1, done + 1)
         losses = tr.losses()
         if not np.isfinite(losses).all():
             raise AssertionError(f"lm_remat: losses {losses}")
         rounds[f"remat_{remat}"] = {
             "seconds_per_round": wall / REMAT["rounds"],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / gib,
-            "losses": [float(v) for v in losses]}
+            "peak_mem_gib": peak, "losses": [float(v) for v in losses],
+            "profile": {"rounds": 1, "wall_ms": wall1 * 1e3,
+                        "wall_ms_profiled": wall_prof * 1e3,
+                        **device_summary(prof, wall1, 10)}}
         del tr, batches
         torch.cuda.empty_cache()
     return {"phase": "lm_remat", "arch": cfg.name, "p": p,
@@ -2888,6 +2916,44 @@ def phase_lm3b_train(dev):
             "profile": {"rounds": 1, "wall_ms": wall1 * 1e3,
                         "wall_ms_profiled": wall_prof * 1e3,
                         **device_summary(prof, wall1, 12)}}
+
+
+LM3B_F32 = {**LM3B, "backend": "pallas_wagg:f32", "warmup_rounds": 1,
+            "rounds": 2}
+
+
+def phase_lm3b_f32(dev, int4_s_per_round):
+    """``lm3b_train``'s run with the f32 payload (pallas_wagg:f32) in place
+    of int4, a fresh trainer once that one is freed: 1 warm-up and 2
+    timed rounds, s/round beside int4's, peak, launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.tree import tree_leaves
+    st = LM3B_F32
+    cfg = get_config(LM3B_ARCH)
+    tr, ds = new_lm_trainer(cfg, dev, st), lm_dataset(cfg, st)
+    batches = ds.batches()
+    warm, rounds = st["warmup_rounds"], st["rounds"]
+    warm_s = run_lm_rounds(tr, ds, batches, warm, 0)
+    torch.cuda.reset_peak_memory_stats()
+    wagg_fused.launches = 0
+    wall = run_lm_rounds(tr, ds, batches, rounds, warm)
+    n_leaves = len(tree_leaves(tr.state.params))
+    launches = wagg_fused.launches
+    losses = tr.losses()
+    if not (launches == rounds * n_leaves and np.isfinite(losses).all()):
+        raise AssertionError(f"lm3b_f32: wagg_fused launches {launches}, "
+                             f"want {rounds * n_leaves}; losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del tr, batches
+    torch.cuda.empty_cache()
+    return {"phase": "lm3b_f32", "arch": cfg.name, **st,
+            "wagg_fused_launches": launches, "warmup_s": warm_s,
+            "seconds_per_round": wall / rounds,
+            "int4_seconds_per_round": int4_s_per_round,
+            "int4_over_f32": int4_s_per_round / (wall / rounds),
+            "losses": [float(v) for v in losses], "peak_mem_gib": peak}
 
 
 def phase_lm_windowed(dev):
@@ -3850,7 +3916,10 @@ def main():
     lm_async = run_phase(phase_lm_async, cfg, dev)
     torch.cuda.empty_cache()
     run_phase(phase_lm_windowed, dev)
+    run_phase(phase_lm_agree, get_config(LM3B_ARCH), dev, "lm3b_agree")
+    torch.cuda.empty_cache()
     lm3b = run_phase(phase_lm3b_train, dev)
+    run_phase(phase_lm3b_f32, dev, lm3b["seconds_per_round"])
 
     ycfg = get_config(YI_ARCH)
     yparams = init_params(ycfg, seed=0, device=dev)        # float32

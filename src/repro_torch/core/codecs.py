@@ -22,7 +22,9 @@ and a CUDA card draw the same bits: a 32-bit key mixes ``ctx.key``
 (default ``0x144``, JAX's), the leaf's size, the wrapping u32 sum of its
 float32 bits (JAX's content hash: fresh noise whenever the parameters
 change) and ``ctx.leaf_index`` (distinct noise for equal-content leaves);
-element ``i`` draws ``mix32(i * golden ^ key)``, whose top 24 bits are u.
+element ``i`` draws ``mix32(i * golden + key)``, whose top 24 bits give u.
+The hash runs on int32 lanes holding the u32 bits: products wrap modulo
+2^32 and right shifts are made logical by a mask.
 """
 from __future__ import annotations
 
@@ -30,15 +32,13 @@ from typing import Dict, Tuple
 
 import torch
 
-# The int4 draw runs in int64 tensors holding u32 values: every product
-# (a u32 value times a constant below 2^31, or an index below 2^31 times
-# a u32 constant) stays below 2^63, so no operation overflows.
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B1
-_MIX = ((17, 0x7FEB352D), (11, 0x31848BAB), (15, 0x2C1B3C6D))
+# lowbias32's xorshift-multiply rounds, then a last xorshift by 16
+_MIX = ((16, 0x7FEB352D), (15, 0x846CA68B))
 INT4_DEFAULT_KEY = 0x144
-# elements a chunk of the int4 encode: its int64 temporaries stay at
-# 128 MiB each whatever the leaf's size
+# elements a chunk of the int4 encode: its temporaries stay at 64 MiB
+# each whatever the leaf's size
 INT4_CHUNK = 1 << 24
 
 
@@ -92,12 +92,27 @@ class _Int8Codec:
         return (beta * self._scale(x) / 2).float() + 1e-5
 
 
-def mix32(h):
-    """A bijective 32-bit xorshift-multiply mix of ``h`` (a Python int or
-    an int64 tensor, values in [0, 2^32))."""
+def _i32(v: int) -> int:
+    """The int32 with the bits of ``v`` mod 2^32."""
+    v &= _M32
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _xorshift_(h: torch.Tensor, shift: int) -> torch.Tensor:
+    """h ^= h >>> shift on int32 lanes, in place."""
+    return h.bitwise_xor_((h >> shift).bitwise_and_((1 << (32 - shift)) - 1))
+
+
+def mix32(h: torch.Tensor) -> torch.Tensor:
+    """lowbias32, a bijective 32-bit mix, on int32 lanes, in place."""
     for shift, mult in _MIX:
-        h = ((h ^ (h >> shift)) * mult) & _M32
-    return h ^ (h >> 16)
+        _xorshift_(h, shift).mul_(_i32(mult))
+    return _xorshift_(h, 16)
+
+
+def _mixed(v: int) -> int:
+    """mix32 of a Python int's low 32 bits, as the int32 of its bits."""
+    return int(mix32(torch.tensor(_i32(v), dtype=torch.int32)))
 
 
 def _chunks(n: int):
@@ -106,26 +121,28 @@ def _chunks(n: int):
 
 
 def int4_key(x: torch.Tensor, key=None, leaf_index=None) -> torch.Tensor:
-    """The leaf's 32-bit draw key, an int64 scalar on x's device: ``key``
+    """The leaf's 32-bit draw key, an int32 scalar on x's device: ``key``
     (default ``0x144``), then x's size, then the wrapping u32 sum of x's
     float32 bits, then ``leaf_index`` when given, each mixed in."""
     flat = x.float().reshape(-1)
     bits = flat.view(torch.int32)
     content = sum(bits[a:b].sum() for a, b in _chunks(flat.numel()))
     seed = INT4_DEFAULT_KEY if key is None else int(key)
-    k = mix32((mix32(seed & _M32) + flat.numel()) & _M32)
-    k = mix32((content + k) & _M32)
+    # the int64 sum's low 32 bits as the int32 of the same bits
+    k = (((content & _M32) ^ 1 << 31) - (1 << 31)).to(torch.int32)
+    k = mix32(k.add_(_mixed(_mixed(seed) + flat.numel())))
     if leaf_index is not None:
-        k = mix32((k + mix32(int(leaf_index) & _M32)) & _M32)
+        k = mix32(k.add_(_mixed(int(leaf_index))))
     return k
 
 
 def int4_uniform(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
     """u in [0, 1) (float32, multiples of 2^-24) of the flat elements
-    [start, stop) under ``key``."""
-    i = torch.arange(start, stop, dtype=torch.int64, device=key.device)
-    h = mix32(((i * _GOLDEN) & _M32) ^ key)
-    return (h >> 8).float() * 2.0 ** -24
+    [start, stop) under ``key``: mix32(i * golden + key), i = start + j."""
+    h = torch.arange(stop - start, dtype=torch.int32, device=key.device)
+    h.mul_(_i32(_GOLDEN)).add_(key + _i32(start * _GOLDEN))
+    # the top 24 bits as a signed v in [-2^23, 2^23): u = v / 2^24 + 1/2
+    return (mix32(h) >> 8).float().mul_(2.0 ** -24).add_(0.5)
 
 
 class _Int4StochasticCodec:
@@ -150,8 +167,8 @@ class _Int4StochasticCodec:
         flat = x.float().reshape(-1)
         q = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
         for a, b in _chunks(flat.numel()):
-            u = int4_uniform(key, a, b)
-            q[a:b] = torch.clamp(torch.floor(flat[a:b] / scale + u), -7, 7)
+            q[a:b] = torch.addcdiv(int4_uniform(key, a, b), flat[a:b],
+                                   scale).floor_().clamp_(-7, 7)
         return q.reshape(x.shape), scale
 
     def decode_reduced(self, m, aux):

@@ -225,6 +225,32 @@ def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
     return _ffn(cfg, lp, x, _out(att, lp["attn"]["wo"].to(dt)), dt, norm)
 
 
+def _call_layer(layer: Callable, key: str, lp: Dict, x: torch.Tensor,
+                delta: Optional[torch.Tensor]):
+    """Runs ``layer`` as it is: the per-layer call of ``forward``."""
+    return layer(lp, x, delta)
+
+
+def _layers(cfg: ModelConfig, layer_params: Dict, x: torch.Tensor,
+            dt: torch.dtype, norm: L.NormFn, call: Callable = _call_layer
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer loop of the training forward over x (..., b, s, d): returns
+    (x, the pending residual). ``call(layer, key, lp, x, delta)`` runs
+    layer ``key``, ``layer(lp, x, delta)`` on one model's tensors:
+    ``forward`` calls it as it is, ``worker_losses`` under ``vmap`` (and
+    ``checkpoint``)."""
+    b, s = x.shape[-3:-1]
+    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
+                         cfg.head_dim, cfg.rope_theta)
+    delta = None
+    for i in range(cfg.n_layers):
+        def layer(lp, x, delta, i=i):
+            return _apply_layer(cfg, lp, x, delta, rope, i, dt, norm)
+        key = f"L{i}"
+        x, delta = call(layer, key, layer_params[key], x, delta)
+    return x, delta
+
+
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             norm: L.NormFn = rmsnorm_kernel
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,13 +262,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     _check_trainable(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
-    b, s = tokens.shape
-    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
-                         cfg.head_dim, cfg.rope_theta)
-    delta = None
-    for i in range(cfg.n_layers):
-        x, delta = _apply_layer(cfg, params["layers"][f"L{i}"], x, delta,
-                                rope, i, dt, norm)
+    x, delta = _layers(cfg, params["layers"], x, dt, norm)
     moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x, delta, dt, norm), moe_loss
 
@@ -279,26 +299,18 @@ def worker_losses(cfg: ModelConfig, params: Dict, in_dims: Dict,
     ``norm`` a forward and backward."""
     _check_trainable(cfg)
     dt = dtype_of(cfg.compute_dtype)
-    tokens = batch["tokens"]
     x = vmap(lambda e, t: L.embed(e, t, dt),
-             in_dims=(in_dims["embed"], 0))(params["embed"], tokens)
-    b, s = tokens.shape[1:]
-    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
-                         cfg.head_dim, cfg.rope_theta)
-    delta = None
-    for i in range(cfg.n_layers):
-        def layer(lp, x, delta, i=i):
-            return _apply_layer(cfg, lp, x, delta, rope, i, dt, norm)
-        key = f"L{i}"
+             in_dims=(in_dims["embed"], 0))(params["embed"], batch["tokens"])
+
+    def call(layer, key, lp, x, delta):
         run = vmap(layer, in_dims=(in_dims["layers"][key], 0,
                                    None if delta is None else 0))
         if cfg.remat:
-            x, delta = checkpoint(run, params["layers"][key], x, delta,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-        else:
-            x, delta = run(params["layers"][key], x, delta)
+            return checkpoint(run, lp, x, delta, use_reentrant=False,
+                              preserve_rng_state=False)
+        return run(lp, x, delta)
 
+    x, delta = _layers(cfg, params["layers"], x, dt, norm, call)
     out_key = "embed" if cfg.tie_embeddings else "head"
     tail_params = {k: params[k] for k in ("final_norm", out_key)}
     tail_dims = {k: in_dims[k] for k in tail_params}

@@ -3,10 +3,10 @@
 and the ``Trainer`` take. (The JAX module's dry-run helpers
 ``abstract_lm_state`` and ``lm_batch_specs`` are not ported yet.)
 
-The loss carries the model's worker-stacked form as ``loss.stacked``
-(``models.transformer.worker_losses``): the round takes it in place of a
-``vmap`` of the whole loss, so that ``cfg.remat`` can checkpoint each
-layer outside its ``vmap``."""
+The loss also has the model's worker-stacked form, ``loss.stacked``
+(``models.transformer.worker_losses``; ``train.step.StackedLoss``): the
+round takes it in place of a ``vmap`` of the whole loss, so that
+``cfg.remat`` can checkpoint each layer outside its ``vmap``."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
@@ -14,20 +14,33 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_ce import fused_ce
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.models.transformer import loss_fn as lm_loss
 from repro_torch.models.transformer import worker_losses
 
 
-def make_lm_loss(cfg: ModelConfig
-                 ) -> Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]:
-    """``loss(params, batch) -> (loss, {"ce", "moe_loss"})`` through the
-    kernels (``models.transformer.loss_fn``'s defaults), with
-    ``loss.stacked(params, in_dims, batch) -> (losses (p,), aux)``."""
-    def loss(params, batch):
-        return lm_loss(cfg, params, batch)
+class LMLoss:
+    """``loss(params, batch) -> (loss, {"ce", "moe_loss"})`` of one model
+    and ``loss.stacked(params, in_dims, batch) -> (losses (p,), aux)`` of
+    worker-stacked params, both through ``norm`` and ``ce``."""
 
-    def stacked(params, in_dims, batch):
-        return worker_losses(cfg, params, in_dims, batch)
+    def __init__(self, cfg: ModelConfig, norm: Callable, ce: Callable):
+        self.cfg, self.norm, self.ce = cfg, norm, ce
 
-    loss.stacked = stacked
-    return loss
+    def __call__(self, params: Dict, batch: Dict
+                 ) -> Tuple[torch.Tensor, Dict]:
+        return lm_loss(self.cfg, params, batch, norm=self.norm, ce=self.ce)
+
+    def stacked(self, params: Dict, in_dims: Dict, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict]:
+        return worker_losses(self.cfg, params, in_dims, batch,
+                             norm=self.norm, ce=self.ce)
+
+
+def make_lm_loss(cfg: ModelConfig, *, norm: Callable = rmsnorm_kernel,
+                 ce: Callable = fused_ce) -> LMLoss:
+    """The loss of ``cfg`` through the kernels (``models.transformer.
+    loss_fn``'s defaults), or through ``norm`` and ``ce`` when given (the
+    kernels' plain versions, for an agreement check)."""
+    return LMLoss(cfg, norm, ce)

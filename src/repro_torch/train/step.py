@@ -8,7 +8,7 @@ laid out worker-major; it is reshaped to (p, tau, b_local, ...) and then
 swapped to (tau, p, b_local, ...), so step t hands worker w its own
 samples. Per-worker gradients come from autograd through
 ``torch.func.vmap`` of the loss over the worker-stacked parameters (or
-the loss's own worker-stacked form, ``loss_fn.stacked``, where it has one:
+the loss's own worker-stacked form where it has one, ``StackedLoss``:
 the LM loss, whose layers ``cfg.remat`` checkpoints): each worker's
 gradient of its own loss (the JAX package takes the gradient of the mean
 over workers and scales it by p; the two agree up to rounding).
@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 import types
-from typing import Callable, Dict, Optional, Tuple
+from typing import (Callable, Dict, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import torch
 from torch.func import vmap
@@ -35,6 +36,19 @@ from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_leaves, tree_map
 
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]
+
+
+@runtime_checkable
+class StackedLoss(Protocol):
+    """A loss with its own worker-stacked form (``train.lm.LMLoss``), which
+    the round calls in place of ``vmap(loss)``: params worker-stacked as
+    ``in_dims`` says, batch leaves (p, ...) -> (losses (p,), aux)."""
+
+    def __call__(self, params: Dict, batch: Dict
+                 ) -> Tuple[torch.Tensor, Dict]: ...
+
+    def stacked(self, params: Dict, in_dims: Dict, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict]: ...
 
 
 def _check_pods(wcfg, name: str) -> None:
@@ -130,10 +144,9 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
     in_dims = agg.worker_in_axes(axes)
     tau = wcfg.tau
     mask = record_mask(tau, wcfg.m_estimate, wcfg.record_chunks)
-    stacked = getattr(loss_fn, "stacked", None)
-    if stacked is not None:             # the loss's own worker-stacked form
+    if isinstance(loss_fn, StackedLoss):
         def worker_losses(params, mb):
-            return stacked(params, in_dims, mb)
+            return loss_fn.stacked(params, in_dims, mb)
     else:
         worker_losses = vmap(loss_fn, in_dims=(in_dims, 0))
 

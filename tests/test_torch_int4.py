@@ -132,6 +132,32 @@ def test_int4_draw_is_unbiased_over_keys():
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
 
 
+def _lowbias32(h):
+    m = 0xFFFFFFFF
+    h ^= h >> 16
+    h = (h * 0x7FEB352D) & m
+    h ^= h >> 15
+    h = (h * 0x846CA68B) & m
+    return h ^ (h >> 16)
+
+
+@pytest.mark.parametrize("start", [0, 123456789, 2 ** 31 + 5, 3 * 2 ** 31])
+def test_int4_uniform_is_the_u32_hash_on_int32_lanes(start):
+    """The draw on int32 lanes (wrapping products, masked shifts) gives
+    the bits of the u32 hash in Python integers: u = (h >>> 8 xor 2^23) /
+    2^24, h = lowbias32(i * golden + key mod 2^32), also for a flat index
+    past 2^31."""
+    x = _t(np.random.default_rng(8).normal(size=(3, 50)).astype(np.float32))
+    key = tcodecs.int4_key(x, None, 5)
+    assert key.dtype == torch.int32 and key.dim() == 0
+    k = int(key) & 0xFFFFFFFF
+    u = tcodecs.int4_uniform(key, start, start + 64)
+    ref = [((_lowbias32(((start + j) * 0x9E3779B1 + k) & 0xFFFFFFFF) >> 8)
+            ^ 1 << 23) * 2.0 ** -24 for j in range(64)]
+    assert u.dtype == torch.float32
+    assert u.tolist() == ref
+
+
 def test_int4_encode_is_deterministic_per_content_leaf_index_and_key():
     codec = tcodecs.get_codec("int4")
     x = _t(np.random.default_rng(5).normal(size=(4, 257)).astype(np.float32))

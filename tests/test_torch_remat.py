@@ -35,12 +35,13 @@ from repro_torch.configs import (TrainConfig, WASGDConfig,  # noqa: E402
                                  get_smoke_config)
 from repro_torch.core import replicate_workers, worker_in_axes  # noqa: E402
 from repro_torch.data import OrderedDataset, lm_batch, make_tokens  # noqa: E402
+from repro_torch.kernels.fused_ce import fused_ce_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_ref  # noqa: E402
 from repro_torch.models import (init_params, loss_fn, param_axes,  # noqa: E402
                                 params_from_numpy, worker_losses)
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.train import Trainer, make_lm_loss  # noqa: E402
-from repro_torch.train.step import _round_parts  # noqa: E402
+from repro_torch.train.step import StackedLoss, _round_parts  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 ARCHS = ["gemma3-1b", "stablelm-3b", "yi-6b"]
@@ -129,6 +130,35 @@ def test_remat_runs_each_layers_norms_again_in_the_backward(remat):
     assert len(calls) == 2 * cfg.n_layers + 1
     torch.autograd.grad(losses.sum(), tree_leaves(params))
     assert len(calls) == (4 if remat else 2) * cfg.n_layers + 1
+
+
+def test_make_lm_loss_is_a_stacked_loss_through_its_norm_and_ce():
+    """The round takes the LM loss's worker-stacked form (a ``StackedLoss``)
+    and vmaps any other loss; both forms of ``make_lm_loss(cfg, norm=,
+    ce=)`` run the norm and CE they are given."""
+    _, cfg = _cfgs("gemma3-1b", True)
+    assert isinstance(make_lm_loss(cfg), StackedLoss)
+    assert not isinstance(functools.partial(loss_fn, cfg), StackedLoss)
+    base = init_params(cfg, 0, device="cpu")
+    params, axes = replicate_workers(base, param_axes(base), P)
+    _, mb = _batch(3, vocab=cfg.vocab_size)
+    calls = {"norm": 0, "ce": 0}
+
+    def norm(x, scale, eps):
+        calls["norm"] += 1
+        return rmsnorm_ref(x, scale, eps)
+
+    def ce(logits, labels):
+        calls["ce"] += 1
+        return fused_ce_ref(logits, labels)
+
+    lf = make_lm_loss(cfg, norm=norm, ce=ce)
+    losses, _ = lf.stacked(params, worker_in_axes(axes), mb)
+    assert calls == {"norm": 2 * cfg.n_layers + 1, "ce": 1}
+    one = {k: v[0] for k, v in mb.items()}
+    loss, _ = lf(tree_map(lambda x: x[0], params), one)
+    assert calls == {"norm": 4 * cfg.n_layers + 2, "ce": 2}
+    torch.testing.assert_close(loss, losses[0], rtol=1e-5, atol=0)
 
 
 # -- the leaf-wise update ---------------------------------------------------------
