@@ -14,8 +14,11 @@ trip on CNN6, swaps the trained gemma3-1b consensus into a running engine
 and evaluates it, trains CNN6 and gemma3-1b with Alg. 4 straggler rounds
 (the masked ``wagg_fused``) and CNN6 with elastic membership, trains
 full-width, full-depth stablelm-3b with the int4 payload and ``remat``,
-serves full-width yi-6b, and checks that the served and the trained paths
-went through their kernels.
+serves full-width yi-6b, trains full-width, full-depth mamba2-370m
+(ssd_chunk in the training forward) and olmoe-1b-7b (one copy of the
+experts), serves olmoe-1b-7b and one full-width period of jamba-v0.1-52b,
+and checks that the served and the trained paths went through their
+kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -160,6 +163,38 @@ Prints one JSON object per phase:
                 peak memory, launches; one profiled round (idle share)
   yi_agree      agree on yi-6b at full width (GQA group 8, head_dim 128)
   yi_serve      serve on yi-6b at full width in bf16
+  ssd_train_check  SSDChunkFunction under vmap over p = 4 workers, each
+                with its own decay rates, at mamba2-370m's and jamba's
+                widths (seq 640): one ssd_chunk launch a call, outputs and
+                the gradients of xs, dt, a, B, C against autograd through
+                the plain version
+  ssm_lm_agree  one local step of full-width, full-depth mamba2-370m at
+                p=2 (remat on): f32 losses and gradients through the
+                kernels vs the plain versions; bf16 each SSM layer on its
+                own inputs (output and gradients)
+  ssm_lm_train  Trainer.run, WASGD+, mamba2-370m at full width and depth,
+                lm_train's settings, 10 rounds after 2: s/round,
+                tokens/s, peak, launches (ssd_chunk 2 x 48 x tau a round
+                with remat), one profiled round
+  moe_agree     olmoe-1b-7b at full width (64 experts, top 8): decode
+                steps through the kernels, each rmsnorm and
+                paged_decode_attn call held to its plain version on its
+                own inputs, against the plain versions routed alike: f32
+                logits within 1e-4; bf16 logits reported beside the
+                model's sensitivity to a one-ulp change
+  olmoe_serve   serve on olmoe-1b-7b at full width in bf16
+  olmoe_train   Trainer.run, WASGD+, olmoe-1b-7b at full width and depth,
+                p=4, remat on, 5 rounds after 2: the experts one copy,
+                wagg_fused once per worker leaf and never on an expert
+                leaf; s/round, tokens/s, peak, one profiled round
+  jamba_serve   jamba-v0.1-52b at full width with n_layers cut to 8 (one
+                period: 7 Mamba layers, 1 attention, MoE every other),
+                13.3B params in bf16: every kernel call of a prefill and
+                decode steps held to its plain version on its own inputs
+                (logits reported as moe_agree's), then ContinuousEngine on
+                the serve
+                requests: tokens/s, peak, launches of ssd_chunk,
+                paged_decode_attn and rmsnorm
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -235,6 +270,23 @@ LEGACY = {"b": 4, "prompt": 480, "n_new": 96, "max_len": 1024}
 SSM_ARCH = "mamba2-370m"
 # ssd_chunk vs its plain version, relative to max|plain|
 SSD_TOL = 1e-5
+
+
+# SSM training: mamba2-370m at full width and depth with lm_train's
+# settings (p 4, tau 4, b_local 1, seq 640, lr 0.03, pallas_wagg:f32,
+# remat as configured: on), 2 + 10 rounds
+SSM_LM = dict(LM)
+# olmoe-1b-7b at full width and depth: served in bf16 with the serve
+# smoke's settings, and trained with lm_train's settings at p 4, remat on,
+# 2 + 5 rounds; the experts are one f32 copy (their params and gradients
+# 48.0 GiB), the other 476M params four copies (14.2 GiB)
+OLMOE_ARCH = "olmoe-1b-7b"
+OLMOE_TRAIN = {**LM, "rounds": 5}
+# jamba-v0.1-52b at full width, n_layers cut from 32 to 8: one period of
+# its 1:7 interleave (layers 0-6 Mamba, 7 attention; MoE on 1, 3, 5, 7),
+# 13.3B params initialised in bf16
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8
 
 
 def emit(obj):
@@ -486,6 +538,119 @@ def phase_kernel_time(dev):
     return {"phase": "kernel_time",
             "method": "CUDA graph of 32 calls on 32 distinct working sets "
                       "(> 50 MB L2), 10 replays, CUDA events", **res}
+
+
+def ulp_pattern(t):
+    """A fixed pseudo-random pattern in [-1, 1] of ``t``'s shape (no random
+    op, so it also runs under ``vmap``)."""
+    import torch
+    i = torch.arange(t.numel(), device=t.device).reshape(t.shape)
+    return torch.sin(i * 12.9898)
+
+
+def nudged_norm(x, scale, eps):
+    """``rmsnorm_ref`` of x moved by up to one float32 ulp (2^-23 relative)
+    before the norm: a float32-level difference, as between the kernel
+    and its plain version, that changes a bf16 output only where it lies
+    next to a rounding boundary."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    xf = x.float() * (1 + 2.0 ** -23 * ulp_pattern(x))
+    return rmsnorm_ref(xf, scale, eps).to(x.dtype)
+
+
+def max_rel(out, ref):
+    """max|out - ref| / max|ref| in float32."""
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp(min=1e-30)).item()
+
+
+def held_kernels(errs):
+    """(norm, attn, ssd): the kernels' ops as a model call takes them, each
+    call also run through its plain version on the call's own inputs, the
+    error (``max_rel``) appended to ``errs[name]``; the kernel's output is
+    what the model goes on with. The fused residual add must equal
+    ``x + delta`` bitwise."""
+    import torch
+    from repro_torch.kernels.decode_attn import (paged_decode_attn,
+                                                 paged_decode_attn_ref)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunked_kernel
+    from repro_torch.models import ssd_chunked
+    for name in ("rmsnorm", "paged_decode_attn", "ssd_chunk"):
+        errs.setdefault(name, [])
+
+    def norm(x, scale, eps):
+        y = rmsnorm(x, scale, eps)
+        errs["rmsnorm"].append(max_rel(y, rmsnorm_ref(x, scale, eps)))
+        return y
+
+    def fused(x, delta, scale, eps):
+        s, y = rmsnorm.fused_add(x, delta, scale, eps)
+        ref = x + delta
+        if not torch.equal(s, ref):
+            raise AssertionError("held rmsnorm: the fused sum differs from "
+                                 "x + delta")
+        errs["rmsnorm"].append(max_rel(y, rmsnorm_ref(ref, scale, eps)))
+        return s, y
+
+    norm.fused_add = fused
+
+    def attn(*args, **kw):
+        out = paged_decode_attn(*args, **kw)
+        errs["paged_decode_attn"].append(
+            max_rel(out, paged_decode_attn_ref(*args, **kw)))
+        return out
+
+    def ssd(*args, **kw):
+        y, st = ssd_chunked_kernel(*args, **kw)
+        y_ref, st_ref = ssd_chunked(*args, **kw)
+        errs["ssd_chunk"].append(max(max_rel(y, y_ref), max_rel(st, st_ref)))
+        return y, st
+
+    return norm, attn, ssd
+
+
+@contextlib.contextmanager
+def moe_routing(record=None, replay=None):
+    """Records (``record``, a list) or replays (``replay``, the list a
+    recording filled) the expert choices of every ``moe_ffn`` call: its
+    ``torch.topk`` of the router's probabilities. A replayed call keeps
+    its own probabilities at the recorded experts (gates and aux losses
+    from its own router logits). Routing is a discontinuous function of
+    its inputs: a one-ulp difference of a bf16 hidden state can swap a
+    near-tied expert, after which two paths compute different functions,
+    so an agreement check routes both paths alike and reports how many
+    choices each path would have made differently on its own."""
+    import torch
+    from repro_torch.models import moe as MOE
+    real = torch.topk
+    calls = iter(replay) if replay is not None else None
+
+    class _Torch:
+        """``torch`` as ``models.moe`` sees it, with its topk wrapped."""
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def topk(x, k, dim=-1, **kw):
+            vals, idx = real(x, k, dim=dim, **kw)
+            if calls is not None:
+                want = next(calls)
+                replay_flips.append(int((torch.sort(idx, dim=-1).values
+                                         != torch.sort(want, dim=-1)
+                                         .values).any(dim=-1).sum()))
+                idx, vals = want, torch.gather(x, dim, want)
+            elif record is not None:
+                record.append(idx)
+            return vals, idx
+
+    replay_flips = []
+    MOE.torch = _Torch()
+    try:
+        yield replay_flips
+    finally:
+        MOE.torch = torch
 
 
 def phase_agree(cfg, params_f32, dev):
@@ -2510,15 +2675,28 @@ def new_lm_trainer(cfg, dev, st=LM):
                    st["p"], rule="wasgd+", device=dev)
 
 
+def layer_norms(cfg, i):
+    """RMSNorms of layer ``i``: one before attention, one before the SSM
+    mixer, one before the FFN (an MLP or the MoE FFN)."""
+    ffn = cfg.layer_is_moe(i) or (cfg.d_ff > 0 and (
+        cfg.layer_is_attn(i) or cfg.family == "hybrid"))
+    return int(cfg.layer_is_attn(i)) + int(cfg.layer_is_ssm(i)) + int(ffn)
+
+
 def norms_per_step(cfg):
     """rmsnorm launches of one local step of the LM round (forward and
-    backward), all and fused: 2 a layer and the final one in the forward,
-    all but the first layer's first fused; with remat each layer's two run
-    again in the backward pass."""
-    n_layers = cfg.n_layers
+    backward), all and fused: the layers' norms (2 a layer for a dense or
+    MoE model, 1 for mamba2) and the final one in the forward, all but the
+    first layer's first fused; with remat each layer's norms run again in
+    the backward pass."""
+    n = sum(layer_norms(cfg, i) for i in range(cfg.n_layers))
     if cfg.remat:
-        return 4 * n_layers + 1, 4 * n_layers - 1
-    return 2 * n_layers + 1, 2 * n_layers
+        return 2 * n + 1, 2 * n - 1
+    return n + 1, n
+
+
+def ssm_layers(cfg):
+    return sum(cfg.layer_is_ssm(i) for i in range(cfg.n_layers))
 
 
 def run_lm_rounds(tr, ds, batches, rounds, done, **kw):
@@ -3018,6 +3196,569 @@ def phase_yi_serve(cfg, eng):
     rec = phase_serve(cfg, eng)
     rec["phase"] = "yi_serve"
     return rec
+
+
+def phase_ssm_lm_agree(cfg, dev):
+    """One local step of mamba2-370m at full width and depth on p = 2
+    workers (each with its own A_log, so the Function's vmap rule takes a
+    row of decay rates per worker), as the round takes it
+    (``worker_grads`` over ``make_lm_loss(c).stacked``, remat as
+    configured): f32 per-worker losses and gradients through the kernels
+    (ssd_chunk, rmsnorm, fused_ce) against the plain versions: losses
+    within 1e-4, gradients within 1e-4 or twice the model's own
+    sensitivity to a 2^-20 relative change of every SSD output, the
+    larger (a random 48-layer Mamba2 amplifies last-bit differences; the
+    plain path against itself with the SSD's outputs nudged measures
+    it).
+    The kernels' path launches ssd_chunk once per SSM layer for both
+    workers (twice with remat), rmsnorm norms_per_step times and fused_ce
+    once. bf16: a random-weight Mamba2 of 48 layers turns a last-bit
+    change into percents of its output (``ssm_agree``), so each SSM layer
+    is held on its own inputs instead: the plain bf16 forward of each
+    worker records every SSM layer's normed input, and the layer (vmapped
+    over the workers) runs through ssd_chunked_kernel and through
+    ssd_chunked; outputs and the gradients of the input and of every
+    parameter of the layer, for a random cotangent, within 2e-2 of the
+    plain ones' largest entry."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.configs import WASGDConfig
+    from repro_torch.core import replicate_workers
+    from repro_torch.kernels.fused_ce import fused_ce_fwd, fused_ce_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd, rmsnorm_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunked_kernel
+    from repro_torch.models import forward, init_params, param_axes
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import ssd_chunked
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_lm_loss
+    from repro_torch.train.step import _round_parts
+    from repro_torch.tree import tree_leaves
+    p = LM_AGREE_P
+    base = init_params(cfg, seed=1, device=dev)
+    params, axes = replicate_workers(base, param_axes(base), p)
+    del base
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for lp in params["layers"].values():
+        a = lp["ssm"]["A_log"]
+        lp["ssm"]["A_log"] = a + 0.1 * torch.randn(a.shape, generator=gen,
+                                                   device=dev)
+    mb = lm_batch_on(cfg, p, 1, dev)
+    n_norms = norms_per_step(cfg)[0]
+    n_ssd = ssm_layers(cfg) * (2 if cfg.remat else 1)
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+
+    def nudged(*args, **kw):
+        """The plain SSD with every output moved by up to 2^-20 relative
+        (8 float32 ulps, below the kernel's measured error against its
+        plain version: 1.4e-6 to 2.1e-6 of max|plain| in ssd_check), by a
+        fixed pseudo-random pattern (no random op under the round's
+        vmap)."""
+        y, st = ssd_chunked(*args, **kw)
+        return y * (1 + 2.0 ** -20 * ulp_pattern(y[0])), st
+
+    plain = {"norm": rmsnorm_ref, "ce": fused_ce_ref, "ssd": ssd_chunked}
+    out = {}
+    for path, kw in (("kernels", {}), ("plain", plain),
+                     ("nudged", {**plain, "ssd": nudged})):
+        parts = _round_parts(make_lm_loss(c, **kw),
+                             make_optimizer("sgd", LM["lr"]), axes,
+                             WASGDConfig(tau=1), p)
+        rmsnorm_fwd.launches = fused_ce_fwd.launches = 0
+        ssd_chunk.launches = 0
+        grads, losses = parts.worker_grads(params, mb)
+        torch.cuda.synchronize()
+        out[path] = (grads, losses, (rmsnorm_fwd.launches,
+                                     fused_ce_fwd.launches,
+                                     ssd_chunk.launches))
+        del grads, losses
+    (gk, lk, nk), (gp, lp_, npl) = out["kernels"], out["plain"]
+    floor = (tree_sq(out["nudged"][0], gp) / tree_sq(gp)).sqrt().max().item()
+    limit = max(1e-4, 2 * floor)
+    if nk != (n_norms, 1, n_ssd) or npl != (0, 0, 0):
+        raise AssertionError(f"ssm_lm_agree: launches (rmsnorm, fused_ce, "
+                             f"ssd_chunk) {nk} through the kernels, {npl} "
+                             f"through the plain versions; want "
+                             f"({n_norms}, 1, {n_ssd}) and (0, 0, 0)")
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in [lk, lp_] + tree_leaves(gk))
+    loss_rel = ((lk - lp_).abs() / lp_.abs()).max().item()
+    grad_rel = (tree_sq(gk, gp) / tree_sq(gp)).sqrt().max().item()
+    if not (finite and loss_rel <= 1e-4 and grad_rel <= limit):
+        raise AssertionError(f"ssm_lm_agree/float32: finite {finite}, loss "
+                             f"rel_err {loss_rel}, grad rel_err {grad_rel} "
+                             f"(limit {limit})")
+    f32 = {"losses": lk.tolist(), "loss_rel_err": loss_rel,
+           "grad_rel_l2_err": grad_rel, "loss_limit": 1e-4,
+           "grad_limit": limit, "grad_sensitivity_2e-20": floor,
+           "launches_rmsnorm_fused_ce_ssd_chunk": list(nk)}
+    del out, gk, gp
+    torch.cuda.empty_cache()
+
+    c = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    seen = [[] for _ in range(cfg.n_layers)]    # each layer's inputs
+    real_layer, calls = SSM.ssm_layer, [0]
+
+    def recording(lp, h, *args, **kw):
+        seen[calls[0] % cfg.n_layers].append(h.detach())
+        calls[0] += 1
+        return real_layer(lp, h, *args, **kw)
+
+    SSM.ssm_layer = recording
+    try:
+        with torch.no_grad():
+            for w in range(p):
+                forward(c, _worker_slice(params, w), mb["tokens"][w],
+                        norm=rmsnorm_ref, ssd=ssd_chunked)
+    finally:
+        SSM.ssm_layer = real_layer
+    worst, by_leaf = {"y": 0.0, "grad": 0.0}, {}
+    ssd_chunk.launches = 0
+    for i in range(cfg.n_layers):
+        lp = params["layers"][f"L{i}"]["ssm"]
+        h = torch.stack(seen[i])                          # (p, b, s, d) bf16
+        cot = torch.randn(h.shape, generator=gen, device=dev).to(h.dtype)
+        res = []
+        for ssd in (ssd_chunked_kernel, ssd_chunked):
+            leaves = {k: v.detach().requires_grad_() for k, v in lp.items()}
+            hh = h.detach().requires_grad_()
+            y = vmap(lambda q, x: real_layer(q, x, c.ssm, c.d_model,
+                                             torch.bfloat16, ssd=ssd)[0])(
+                leaves, hh)
+            names = ["h"] + sorted(leaves)
+            g = torch.autograd.grad(y, [hh] + [leaves[k] for k in names[1:]],
+                                    cot)
+            res.append((y.detach(), dict(zip(names, g))))
+        (yk, gk), (yp, gpl) = res
+        err_y = ((yk.float() - yp.float()).abs().max()
+                 / yp.float().abs().max()).item()
+        errs = {k: ((gk[k].float() - gpl[k].float()).abs().max()
+                    / gpl[k].float().abs().max().clamp(min=1e-30)).item()
+                for k in gk}
+        err_g = max(errs.values())
+        for k, e in errs.items():
+            by_leaf[k] = max(by_leaf.get(k, 0.0), e)
+        if not (bool(torch.isfinite(yk).all()) and err_y <= 2e-2
+                and err_g <= 2e-2):
+            raise AssertionError(f"ssm_lm_agree/bf16 layer {i}: y rel_err "
+                                 f"{err_y}, grad rel_err {err_g}")
+        worst = {"y": max(worst["y"], err_y), "grad": max(worst["grad"],
+                                                           err_g)}
+    if ssd_chunk.launches != cfg.n_layers:
+        raise AssertionError(f"ssm_lm_agree/bf16: {ssd_chunk.launches} "
+                             f"ssd_chunk launches for {cfg.n_layers} layers "
+                             f"vmapped over {p} workers")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, seen
+    torch.cuda.empty_cache()
+    return {"phase": "ssm_lm_agree", "arch": cfg.name, "p": p,
+            "b_local": LM["b_local"], "seq_len": LM["seq_len"],
+            "remat": cfg.remat, "finite": True, "float32": f32,
+            "bfloat16_layers": {"layers": cfg.n_layers,
+                                "worst_y_rel_err": worst["y"],
+                                "worst_grad_rel_err": worst["grad"],
+                                "worst_grad_rel_err_by_leaf": by_leaf,
+                                "limit": 2e-2,
+                                "ssd_chunk_launches": cfg.n_layers},
+            "peak_mem_gib": peak,
+            "limit_reason": "f32: per worker, loss relative error (1e-4) "
+                            "and the gradient difference's L2 norm over all "
+                            "leaves relative to the gradient's, within 1e-4 "
+                            "or twice the model's own sensitivity (the plain "
+                            "path against itself with every SSD output moved "
+                            "by up to 2^-20 relative), the larger: summation "
+                            "order "
+                            "through 48 layers of a random Mamba2, which "
+                            "amplifies a last-bit change; bf16: each layer "
+                            "on its own "
+                            "inputs, relative to the plain output's and each "
+                            "plain gradient's largest entry (one-ulp "
+                            "differences of the bf16 casts after the SSD)"}
+
+
+def _worker_slice(params, w):
+    """Worker ``w``'s copy of a worker-stacked tree (every leaf stacked)."""
+    if isinstance(params, dict):
+        return {k: _worker_slice(v, w) for k, v in params.items()}
+    return params[w]
+
+
+def lm_train_run(cfg, st, phase, dev):
+    """WASGD+ on ``cfg`` at ``st``'s settings through Trainer.run (a fresh
+    trainer, random weights from seed 0, f32 params): ``warmup_rounds``,
+    then ``rounds`` timed rounds (s/round, tokens/s, peak memory; launches
+    of rmsnorm, fused_ce, wagg_fused and ssd_chunk against the round's
+    counts: wagg_fused once per worker leaf and on nothing else, the
+    shapes it was handed recorded), then 1 unprofiled and 1 profiled
+    round (device busy time, idle share, top kernels)."""
+    import torch
+    from repro_torch.core import is_worker_leaf
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.kernels.wagg import ops as wagg_ops
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.tree import tree_leaves
+    gib = 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    tr, ds = new_lm_trainer(cfg, dev, st), lm_dataset(cfg, st)
+    batches = ds.batches()
+    init_peak = torch.cuda.max_memory_allocated() / gib
+    pairs = list(zip(tree_leaves(tr.state.params), tree_leaves(tr.axes)))
+    # (rows, elements a row) of each leaf, as wagg_fused takes it: (p, N)
+    worker = [(x.shape[0], x[0].numel()) for x, ax in pairs
+              if is_worker_leaf(ax)]
+    shared = [tuple(x.shape) for x, ax in pairs if not is_worker_leaf(ax)]
+    n_params = (sum(x[0].numel() for x, ax in pairs if is_worker_leaf(ax))
+                + sum(x.numel() for x, ax in pairs if not is_worker_leaf(ax)))
+    del pairs           # the round replaces the leaves: keep no old ones
+    warm, rounds, tau = st["warmup_rounds"], st["rounds"], st["tau"]
+    warm_s = run_lm_rounds(tr, ds, batches, warm, 0)
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_fwd.launches = add_rmsnorm_fwd.launches = 0
+    fused_ce_fwd.launches = wagg_fused.launches = ssd_chunk.launches = 0
+    handed, real = [], wagg_ops.wagg_fused
+
+    def recording(x, *args, **kw):
+        handed.append((x.shape[0], x[0].numel()))
+        return real(x, *args, **kw)
+
+    wagg_ops.wagg_fused = recording
+    try:
+        wall = run_lm_rounds(tr, ds, batches, rounds, warm)
+    finally:
+        wagg_ops.wagg_fused = real
+    peak = torch.cuda.max_memory_allocated() / gib
+    launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                "fused_ce": fused_ce_fwd.launches,
+                "wagg_fused": wagg_fused.launches,
+                "ssd_chunk": ssd_chunk.launches}
+    norms, fused = norms_per_step(cfg)
+    want = {"rmsnorm": rounds * tau * norms,
+            "rmsnorm_fused": rounds * tau * fused,
+            "fused_ce": rounds * tau, "wagg_fused": rounds * len(worker),
+            "ssd_chunk": rounds * tau * ssm_layers(cfg)
+            * (2 if cfg.remat else 1)}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
+    if sorted(handed) != sorted(worker * rounds):
+        raise AssertionError(f"{phase}: wagg_fused was handed other leaves "
+                             f"than the worker leaves")
+    done = warm + rounds
+    wall1 = run_lm_rounds(tr, ds, batches, 1, done)
+    with device_profile() as prof:
+        wall_prof = run_lm_rounds(tr, ds, batches, 1, done + 1)
+    losses = tr.losses()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{phase}: losses {losses}")
+    for x in tree_leaves(tr.state.params):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{phase}: non-finite params")
+    theta = np.stack([h["theta"] for h in tr.history])
+    measured = losses[warm:warm + rounds]
+    del tr, batches
+    torch.cuda.empty_cache()
+    tokens = rounds * st["p"] * tau * st["b_local"] * st["seq_len"]
+    return {"phase": phase, "arch": cfg.name, "params": n_params,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, **st,
+            "rule": "wasgd+", "optimizer": "sgd", "launches": launches,
+            "worker_leaves": len(worker), "shared_leaves": len(shared),
+            "shared_leaf_shapes": sorted(set(shared)),
+            "init_peak_gib": init_peak,
+            "seconds_per_round": wall / rounds, "wall_s": wall,
+            "warmup_s": warm_s, "tokens_per_s": tokens / wall,
+            "loss_first": float(measured[0]),
+            "loss_last": float(measured[-1]),
+            "losses": [float(v) for v in losses],
+            "theta_min": float(theta.min()), "theta_max": float(theta.max()),
+            "peak_mem_gib": peak,
+            "profile": {"rounds": 1, "wall_ms": wall1 * 1e3,
+                        "wall_ms_profiled": wall_prof * 1e3,
+                        **device_summary(prof, wall1, 12)}}
+
+
+def phase_ssm_lm_train(cfg, dev):
+    """WASGD+ on mamba2-370m at full width and depth (368M params, f32
+    params, bf16 compute, remat on), ``SSM_LM``'s settings: ssd_chunk
+    launches once per SSM layer per local step for all four workers, and
+    again in the backward pass's recompute (2 x 48 x tau a round)."""
+    return lm_train_run(cfg, SSM_LM, "ssm_lm_train", dev)
+
+
+def phase_moe_agree(cfg, params_f32, dev):
+    """olmoe-1b-7b at full width (64 experts top-8; kv 16, g 1, hd 128):
+    two prompts (600 and 37 tokens) prefilled once into three paged
+    caches, then 4 decode steps along three paths: through the kernels
+    (rmsnorm, paged_decode_attn), each call also held to its plain
+    version on that call's own inputs (``held_kernels``); through the
+    plain versions; and through the plain versions with every norm's
+    input moved by up to one float32 ulp (``nudged_norm``: the model's
+    own sensitivity). The later paths route as the kernels' path
+    (``moe_routing``), and the expert choices they would have made
+    otherwise are counted.
+
+    Each held call is within TOL of its plain version (f32 1e-4, bf16
+    2e-2: one ulp), and the f32 logits within 1e-4. The bf16 logits are
+    reported beside the model's own sensitivity, not held to a limit:
+    the expert weights are drawn with std n_experts^-0.5 (``ParamBuilder``'s
+    shape[0] rule, as JAX's), so each random MoE layer's output outweighs
+    the residual it joins and a one-ulp difference of a bf16 output is
+    carried undamped through the 16 layers (on an H100: 4.0e-2 between
+    the paths, 1.4e-2 from the one-ulp nudge alone)."""
+    import torch
+    from repro_torch.kernels.decode_attn import paged_decode_attn_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.models import (cast_params, decode_step_paged,
+                                    init_cache, prefill)
+    from repro_torch.serve import PagedCache
+    steps = 4
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (600, 37)]
+    feed = rng.integers(0, cfg.vocab_size, (steps, 2, 1)).astype(np.int32)
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        c = dataclasses.replace(cfg, compute_dtype=name)
+        params = cast_params(params_f32, dtype)
+        errs = {}
+        held_norm, held_attn, _ = held_kernels(errs)
+        paths = [(held_attn, held_norm),
+                 (paged_decode_attn_ref, rmsnorm_ref),
+                 (paged_decode_attn_ref, nudged_norm)]
+        caches = [PagedCache(c, 2, MAX_LEN, BLOCK, dtype=dtype, device=dev)
+                  for _ in paths]
+        for slot, p in enumerate(prompts):
+            mono = init_cache(c, 1, MAX_LEN, dtype, dev)
+            prefill(c, params, torch.from_numpy(p[None]).to(dev), mono)
+            for cache in caches:
+                cache.reserve(slot, len(p) + steps)
+                cache.write_prefill(slot, mono, len(p))
+            del mono
+        index = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                             device=dev)
+        worst, floor, flips = 0.0, 0.0, [0, 0]
+        for t in range(steps):
+            tok = torch.from_numpy(feed[t]).to(dev)
+            lg, routes = [], []
+            for i, (cache, (kern, norm)) in enumerate(zip(caches, paths)):
+                with (moe_routing(replay=routes) if routes
+                      else moe_routing(record=routes)) as replayed:
+                    lg.append(decode_step_paged(
+                        c, params, tok, cache.pools, cache.tables, index,
+                        max_len=MAX_LEN, block_size=BLOCK, attn_kernel=kern,
+                        norm=norm)[0].float())
+                if i:
+                    flips[i - 1] += sum(replayed)
+            if not all(bool(torch.isfinite(x).all()) for x in lg) \
+                    or lg[0].shape != (2, 1, cfg.padded_vocab):
+                raise AssertionError(f"moe_agree/{name}: logits "
+                                     f"{tuple(lg[0].shape)} or not finite")
+            worst = max(worst, max_rel(lg[0], lg[1]))
+            floor = max(floor, max_rel(lg[2], lg[1]))
+            index += 1
+        held = {k: max(v) for k, v in errs.items() if v}
+        calls = {k: len(v) for k, v in errs.items() if v}
+        if not all(e <= TOL[name] for e in held.values()) \
+                or (dtype == torch.float32 and not worst <= TOL[name]):
+            raise AssertionError(f"moe_agree/{name}: held calls {held} "
+                                 f"(limit {TOL[name]}), logits rel_err "
+                                 f"{worst}")
+        results.append({"dtype": name, "held_calls": calls,
+                        "held_max_rel_err": held, "held_limit": TOL[name],
+                        "logits_rel_err": worst,
+                        "logits_limit": TOL[name] if name == "float32"
+                        else None,
+                        "sensitivity_one_f32_ulp": floor,
+                        "routing_differs_token_layers": {
+                            "plain": flips[0], "nudged": flips[1]}})
+        del params, caches
+        torch.cuda.empty_cache()
+    return {"phase": "moe_agree", "arch": cfg.name,
+            "prompts": [len(p) for p in prompts], "decode_steps": steps,
+            "finite": True, "checks": results,
+            "limit_reason": "each kernel call against its plain version on "
+                            "its own inputs, relative to max|plain| (f32: "
+                            "summation order; bf16: one ulp); f32 logits "
+                            "1e-4; bf16 logits reported beside the model's "
+                            "own sensitivity (see the docstring)"}
+
+
+def phase_olmoe_serve(cfg, eng):
+    """``serve`` on olmoe-1b-7b at full width in bf16: the serve smoke's
+    settings and six requests; tokens/s, peak memory, launches. Every
+    decode step routes all four slots' rows together, as JAX's does."""
+    rec = phase_serve(cfg, eng)
+    rec["phase"] = "olmoe_serve"
+    return rec
+
+
+def phase_olmoe_train(cfg, dev):
+    """WASGD+ on olmoe-1b-7b at full width and depth (6.92B params: 6.44B
+    in the experts, one copy; f32 params, bf16 compute, remat on),
+    ``OLMOE_TRAIN``'s settings: wagg_fused once per worker leaf a round
+    and never on an expert leaf."""
+    return lm_train_run(cfg, OLMOE_TRAIN, "olmoe_train", dev)
+
+
+def hybrid_agree(cfg, params, dev):
+    """bf16 prefill of two prompts (300 and 37 tokens) and 4 decode steps
+    along three paths, each into its own paged cache: through the kernels
+    (ssd_chunk, rmsnorm, paged_decode_attn), each call also held to its
+    plain version on that call's own inputs (``held_kernels``: within
+    2e-2 of max|plain|, the SSD within 1e-4); through the plain versions
+    (ssd_chunked, rmsnorm_ref, paged_decode_attn_ref); and through the
+    plain versions with every norm's input moved by up to one float32 ulp
+    (``nudged_norm``). The later paths route as the kernels' path
+    (``moe_routing``). The prefill's and each step's logits are reported
+    against the plain path's beside that sensitivity, as ``moe_agree``
+    reports olmoe's bf16 logits."""
+    import torch
+    from repro_torch.kernels.decode_attn import paged_decode_attn_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.models import (decode_step_paged, init_cache, prefill,
+                                    ssd_chunked)
+    from repro_torch.serve import PagedCache
+    steps, limits = 4, {"rmsnorm": 2e-2, "paged_decode_attn": 2e-2,
+                        "ssd_chunk": 1e-4}
+    rng = np.random.default_rng(7)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))
+                                .astype(np.int32)).to(dev) for n in (300, 37)]
+    feed = rng.integers(0, cfg.vocab_size, (steps, 2, 1)).astype(np.int32)
+    errs = {}
+    held_norm, held_attn, held_ssd = held_kernels(errs)
+    paths = ((held_ssd, held_norm, held_attn),
+             (ssd_chunked, rmsnorm_ref, paged_decode_attn_ref),
+             (ssd_chunked, nudged_norm, paged_decode_attn_ref))
+    caches = [PagedCache(cfg, 2, MAX_LEN, BLOCK, dtype=torch.bfloat16,
+                         device=dev) for _ in paths]
+    worst = {"prefill": 0.0, "decode": 0.0}
+    floor, flips = dict(worst), [0, 0]
+
+    def run(fn, i, routes):
+        with (moe_routing(replay=routes) if routes
+              else moe_routing(record=routes)) as replayed:
+            out = fn()
+        if i:
+            flips[i - 1] += sum(replayed)
+        return out
+
+    ssd_chunk.launches = 0
+    for slot, p in enumerate(prompts):
+        lg, routes = [], []
+        for i, (cache, (ssd, norm, _)) in enumerate(zip(caches, paths)):
+            mono = init_cache(cfg, 1, MAX_LEN, torch.bfloat16, dev)
+            lg.append(run(lambda: prefill(cfg, params, p, mono, norm=norm,
+                                          ssd=ssd)[0].float(), i, routes))
+            cache.reserve(slot, p.shape[1] + steps)
+            cache.write_prefill(slot, mono, p.shape[1])
+            del mono
+        worst["prefill"] = max(worst["prefill"], max_rel(lg[0], lg[1]))
+        floor["prefill"] = max(floor["prefill"], max_rel(lg[2], lg[1]))
+    if ssd_chunk.launches != ssm_layers(cfg) * len(prompts):
+        raise AssertionError(f"jamba agree: {ssd_chunk.launches} ssd_chunk "
+                             f"launches for {len(prompts)} prefills")
+    index = torch.tensor([p.shape[1] for p in prompts], dtype=torch.int32,
+                         device=dev)
+    for t in range(steps):
+        tok = torch.from_numpy(feed[t]).to(dev)
+        lg, routes = [], []
+        for i, (cache, (_, norm, attn)) in enumerate(zip(caches, paths)):
+            lg.append(run(lambda: decode_step_paged(
+                cfg, params, tok, cache.pools, cache.tables, index,
+                max_len=MAX_LEN, block_size=BLOCK, attn_kernel=attn,
+                norm=norm)[0].float(), i, routes))
+        if not all(bool(torch.isfinite(x).all()) for x in lg) \
+                or lg[0].shape != (2, 1, cfg.padded_vocab):
+            raise AssertionError(f"jamba agree: logits "
+                                 f"{tuple(lg[0].shape)} or not finite")
+        worst["decode"] = max(worst["decode"], max_rel(lg[0], lg[1]))
+        floor["decode"] = max(floor["decode"], max_rel(lg[2], lg[1]))
+        index += 1
+    held = {k: max(v) for k, v in errs.items() if v}
+    if set(held) != set(limits) \
+            or not all(held[k] <= limits[k] for k in held):
+        raise AssertionError(f"jamba agree: held calls {held}, limits "
+                             f"{limits}")
+    del caches
+    torch.cuda.empty_cache()
+    return {"prompts": [p.shape[1] for p in prompts], "decode_steps": steps,
+            "dtype": "bfloat16",
+            "held_calls": {k: len(v) for k, v in errs.items()},
+            "held_max_rel_err": held, "held_limits": limits,
+            "logits_rel_err": worst, "sensitivity_one_f32_ulp": floor,
+            "routing_differs_token_layers": {"plain": flips[0],
+                                             "nudged": flips[1]}}
+
+
+def phase_jamba_serve(dev):
+    """jamba-v0.1-52b at full width (d 4096; 16 experts of d_ff 14336,
+    top-2; Mamba nh 128, ds 16; GQA kv 8, g 4), n_layers cut from 32 to 8
+    (one period of the 1:7 interleave), 13.3B params initialised directly
+    in bf16 (seed 0): ``hybrid_agree`` (kernels against the plain
+    versions), then ContinuousEngine with the serve smoke's settings and
+    six requests, greedy: tokens/s, peak memory, launches of ssd_chunk (7
+    a prefill), paged_decode_attn (1 a decode step) and rmsnorm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import paged_decode_attn
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.models import init_params
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.tree import tree_leaves
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev,
+                         param_dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    agree = hybrid_agree(cfg, params, dev)
+    eng = ContinuousEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                           block_size=BLOCK, chunk=CHUNK, device=dev)
+    del params
+    n_ssm, n_attn = ssm_layers(cfg), cfg.n_layers - ssm_layers(cfg)
+    n_norms = sum(layer_norms(cfg, i) for i in range(cfg.n_layers)) + 1
+    run_engine(eng, [(p[:16], 4) for p, _ in serve_requests(cfg, 99)[:2]])
+    reqs = serve_requests(cfg, 0)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_chunk.launches = paged_decode_attn.launches = 0
+    rmsnorm_fwd.launches = add_rmsnorm_fwd.launches = 0
+    eng.decode_steps = eng.prefills = 0
+    outs, wall = run_engine(eng, reqs)
+    steps, prefills = eng.decode_steps, eng.prefills
+    launches = {"ssd_chunk": ssd_chunk.launches,
+                "paged_decode_attn": paged_decode_attn.launches,
+                "rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches}
+    want = {"ssd_chunk": n_ssm * prefills,
+            "paged_decode_attn": n_attn * steps,
+            "rmsnorm": n_norms * (steps + prefills),
+            "rmsnorm_fused": (n_norms - 1) * (steps + prefills)}
+    if launches != want or steps == 0:
+        raise AssertionError(f"jamba_serve: launches {launches}, want {want}")
+    for (p, n), toks in zip(reqs, outs):
+        if toks.shape != (n,) or toks.min() < 0 \
+                or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"jamba_serve: bad output for request "
+                                 f"({len(p)}, {n}): {toks}")
+    tokens = sum(len(t) for t in outs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng
+    torch.cuda.empty_cache()
+    return {"phase": "jamba_serve", "arch": cfg.name,
+            "cut": {"n_layers": [full.n_layers, JAMBA_LAYERS]},
+            "params": n_params, "param_dtype": "bfloat16",
+            "init_peak_gib": init_peak, "agree": agree,
+            "n_slots": N_SLOTS, "max_len": MAX_LEN, "block_size": BLOCK,
+            "chunk": CHUNK, "requests": REQUESTS, "decode_steps": steps,
+            "prefills": prefills, "launches": launches, "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "peak_mem_gib": peak}
 
 
 def decode_inputs(b, S, kv, g, hd, q_dtype, kv_dtype, gen, dev):
@@ -3599,6 +4340,89 @@ def phase_ssd_time(dev):
                       "CUDA events", **res}
 
 
+# the SSD Function's gradients against autograd through the plain version,
+# relative to max|plain|: both backwards are the plain version's own, on
+# the same saved inputs; what differs is the forward the cotangents meet
+# (none) and the order of float32 sums of the folded batch; a bf16 input's
+# gradient is rounded to bf16 in both
+SSD_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# (name, b_local, nc, L, nh, hd, ds): mamba2-370m's round (seq 640) and
+# jamba's widths (128 heads, d_state 16) at the same length
+SSD_TRAIN_SHAPES = (("mamba2-370m", 1, 10, 64, 32, 64, 128),
+                    ("jamba-v0.1-52b", 1, 10, 64, 128, 64, 16))
+SSD_TRAIN_P = 4
+
+
+def phase_ssd_train_check(dev):
+    """``SSDChunkFunction`` under ``vmap`` over p = 4 workers, each with
+    its own decay rates ``a`` (a worker leaf's A_log), as the training
+    round runs it: one ``ssd_chunk`` launch a call whatever p is; y_diag,
+    states and totals against the plain version worker by worker
+    (SSD_TOL), and the gradients of xs, dt, a, B and C for random
+    cotangents against autograd through ``ssd_chunk_ref``
+    (SSD_GRAD_TOL), in f32 and bf16 inputs, at mamba2-370m's and jamba's
+    widths."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.kernels.ssd_chunk import (SSDChunkFunction, ssd_chunk,
+                                               ssd_chunk_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    p = SSD_TRAIN_P
+    cases, worst_fwd, worst_grad = [], 0.0, 0.0
+    for name, b, nc, L, nh, hd, ds in SSD_TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            sets = [ssd_inputs(b, nc, L, nh, hd, ds, dtype, gen, dev,
+                               pad_tail=7 * (w % 2)) for w in range(p)]
+            inputs = [torch.stack(parts) for parts in zip(*sets)]
+            cot = [torch.randn(shape, generator=gen, device=dev) for shape in
+                   ((p, b, nc, L, nh, hd), (p, b, nc, nh, ds, hd),
+                    (p, b, nc, nh))]
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            before = ssd_chunk.launches
+            outs = vmap(SSDChunkFunction.apply)(*leaves)
+            launches = ssd_chunk.launches - before
+            grads = torch.autograd.grad(outs, leaves, cot)
+            torch.cuda.synchronize()
+            if launches != 1 or ssd_chunk.launches != before + 1:
+                raise AssertionError(f"ssd_train_check/{name}: {launches} "
+                                     f"launches under vmap over p={p}, "
+                                     f"{ssd_chunk.launches - before} after "
+                                     f"the backward; want 1")
+            ref_leaves = [t.detach().requires_grad_() for t in inputs]
+            ref_outs = [torch.stack(o) for o in zip(*(
+                ssd_chunk_ref(*(t[w] for t in ref_leaves))
+                for w in range(p)))]
+            ref_grads = torch.autograd.grad(ref_outs, ref_leaves, cot)
+            tol = SSD_GRAD_TOL[str(dtype).split(".")[-1]]
+            fwd = max(rel_close(f"ssd_train_check/{name}/{dtype} {part}",
+                                o, r, SSD_TOL)
+                      for part, o, r in zip(("y", "states", "totals"), outs,
+                                            ref_outs))
+            grad = {part: rel_close(f"ssd_train_check/{name}/{dtype} "
+                                    f"d{part}", g, r, tol)
+                    for part, g, r in zip(("xs", "dt", "a", "B", "C"),
+                                          grads, ref_grads)}
+            worst_fwd = max(worst_fwd, fwd)
+            worst_grad = max(worst_grad, max(grad.values()))
+            cases.append({"shape": name, "x_dtype": str(dtype).split(".")[-1],
+                          "p": p, "b_local": b, "nc": nc, "L": L, "nh": nh,
+                          "hd": hd, "ds": ds, "launches": launches,
+                          "fwd_rel_err": fwd, "grad_rel_err": grad,
+                          "grad_tol": tol})
+            del sets, inputs, leaves, outs, grads, ref_leaves, ref_outs
+            del ref_grads
+    torch.cuda.empty_cache()
+    return {"phase": "ssd_train_check", "cases": cases,
+            "worst_fwd_rel_err": worst_fwd, "worst_grad_rel_err": worst_grad,
+            "fwd_tol": SSD_TOL, "grad_tol": SSD_GRAD_TOL,
+            "tol_reason": "relative to max|plain|; the backward is the "
+                          "plain version's on the saved inputs in both "
+                          "paths, so the gradients differ by the order of "
+                          "float32 sums over the folded batch; bf16 "
+                          "inputs' gradients are rounded to bf16"}
+
+
 def phase_ssm_agree(cfg, params_f32, dev):
     """mamba2-370m at full width and depth: two prompts (300 and 37
     tokens: a padded tail, and a prompt shorter than a chunk).
@@ -3934,6 +4758,27 @@ def main():
     del yeng
     torch.cuda.empty_cache()
 
+    ssd_train = run_phase(phase_ssd_train_check, dev)
+    run_phase(phase_ssm_lm_agree, scfg, dev)
+    torch.cuda.empty_cache()
+    ssm_lm = run_phase(phase_ssm_lm_train, scfg, dev)
+    torch.cuda.empty_cache()
+    ocfg = get_config(OLMOE_ARCH)
+    oparams = init_params(ocfg, seed=0, device=dev)        # float32
+    run_phase(phase_moe_agree, ocfg, oparams, dev)
+    obf16 = cast_params(oparams, torch.bfloat16)
+    del oparams             # the engine keeps what it is handed
+    torch.cuda.empty_cache()
+    oeng = ContinuousEngine(ocfg, obf16, n_slots=N_SLOTS, max_len=MAX_LEN,
+                            block_size=BLOCK, chunk=CHUNK, device=dev)
+    del obf16
+    olmoe_serve = run_phase(phase_olmoe_serve, ocfg, oeng)
+    del oeng
+    torch.cuda.empty_cache()
+    olmoe_train = run_phase(phase_olmoe_train, ocfg, dev)
+    torch.cuda.empty_cache()
+    jamba = run_phase(phase_jamba_serve, dev)
+
     t = timing["ring512"]
     w = wagg_timing["cnn6_round/none"]
     lm_leaf = wagg_timing["lm_mlp_leaf/none"]
@@ -3955,6 +4800,8 @@ def main():
             "library_ms")},
         "train_to_serve_launches": t2s["launches"]["paged_decode_attn"],
         "yi_serve_launches": yi_serve["launches"],
+        "olmoe_serve_launches": olmoe_serve["launches"],
+        "jamba_serve_launches": jamba["launches"]["paged_decode_attn"],
         "serve_profile_device_kernels": serve_prof[
             "paged_decode_device_kernels"],
         "kernel_launches_one_decode_step": {
@@ -3974,6 +4821,8 @@ def main():
         "lm_train_launches": lm["launches"]["wagg_fused"],
         "train_to_serve_launches": t2s["launches"]["wagg_fused"],
         "lm3b_train_int4_launches": lm3b["launches"]["wagg_fused"],
+        "ssm_lm_train_launches": ssm_lm["launches"]["wagg_fused"],
+        "olmoe_train_launches": olmoe_train["launches"]["wagg_fused"],
         "cnn6_int4_launches": int4["cnn6"]["launches"],
         "lm3b_mlp_leaf_int4": {k: lm3b_leaf[k] for k in (
             "leaves", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4011,7 +4860,11 @@ def main():
         "train_to_serve_launches": t2s["launches"]["rmsnorm"],
         "evaluate_lm_launches": t2s["eval_launches"]["rmsnorm"],
         "lm3b_train_launches": lm3b["launches"]["rmsnorm"],
-        "yi_serve_launches": yi_serve["rmsnorm_launches"]}, {
+        "yi_serve_launches": yi_serve["rmsnorm_launches"],
+        "ssm_lm_train_launches": ssm_lm["launches"]["rmsnorm"],
+        "olmoe_serve_launches": olmoe_serve["rmsnorm_launches"],
+        "olmoe_train_launches": olmoe_train["launches"]["rmsnorm"],
+        "jamba_serve_launches": jamba["launches"]["rmsnorm"]}, {
         "name": "fused_ce", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
@@ -4026,7 +4879,9 @@ def main():
                 "launches from lm_train",
         "train_to_serve_launches": t2s["launches"]["fused_ce"],
         "evaluate_lm_launches": t2s["eval_launches"]["fused_ce"],
-        "lm3b_train_launches": lm3b["launches"]["fused_ce"]}, {
+        "lm3b_train_launches": lm3b["launches"]["fused_ce"],
+        "ssm_lm_train_launches": ssm_lm["launches"]["fused_ce"],
+        "olmoe_train_launches": olmoe_train["launches"]["fused_ce"]}, {
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/decode_attn.py:78",
@@ -4062,6 +4917,12 @@ def main():
         "bytes_ms": ssd_timing["prefill_b1"]["bytes_ms"],
         "f32_ops_ms": ssd_timing["prefill_b1"]["f32_ops_ms"],
         "ssm_serve_profile": ssm_prof["port_kernels"].get("ssd_chunk_kernel"),
+        "ssm_lm_train_launches": ssm_lm["launches"]["ssd_chunk"],
+        "ssm_lm_train_profile": ssm_lm["profile"].get(
+            "port_kernels", {}).get("ssd_chunk_kernel"),
+        "ssd_train_check_launches_per_call": [
+            c["launches"] for c in ssd_train["cases"]],
+        "jamba_serve_launches": jamba["launches"]["ssd_chunk"],
         "prefill_b4": {k: ssd_timing["prefill_b4"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bytes_ms", "f32_ops_ms",
             "bound_by")}}]})

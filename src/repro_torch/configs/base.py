@@ -1,19 +1,32 @@
 """The port's configs, with the same names, fields and defaults as
-``repro/configs/base.py``: ``SSMConfig``, ``ModelConfig`` (the fields and
-predicates the serving and training paths read), ``WASGDConfig`` and
-``TrainConfig``.
+``repro/configs/base.py``: ``MoEConfig``, ``SSMConfig``, ``ModelConfig``
+(the fields and predicates the serving and training paths read),
+``WASGDConfig`` and ``TrainConfig``.
 
-The MoE, cross-attention and codebook fields are kept so that a config can
-say what it is; the port's model raises ``NotImplementedError`` on any of
-them (``models.transformer.check_supported``).
+The cross-attention and codebook fields are kept so that a config can say
+what it is; the port's model raises ``NotImplementedError`` on either
+(``models.transformer.check_supported``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration, field for field as
+    ``repro/configs/base.py:20``."""
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    dense_residual: bool = False      # arctic: dense FFN in parallel with MoE
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +83,14 @@ class ModelConfig:
     cross_attn_every: int = 0           # >0 (vlm): not served by the port
     n_codebooks: int = 0                # audio: not served by the port
 
-    # MoE sub-config (not served by the port) and the SSM one
-    moe: Optional[Any] = None
-    moe_every: int = 1
+    # MoE and SSM sub-configs
+    moe: Optional[MoEConfig] = None
+    moe_every: int = 1                  # MoE at idx % every == every-1
+    expert_sharding: str = "ep_data"    # "ep_data": the experts one copy;
+                                        # "worker": a copy per worker (JAX's
+                                        # dry run reads it; both Trainers
+                                        # take expert_copies off the
+                                        # TrainConfig)
     ssm: Optional[SSMConfig] = None
     attn_every: int = 0                 # hybrid: attention every n-th layer
                                         # (0 with ssm set: pure SSM)

@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the archs it can serve (and, for
-the dense ones, train) so far."""
+"""Architecture registry of the port: the archs it serves and trains so
+far (every arch of the JAX registry but the vision and audio ones)."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +13,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -9,8 +9,11 @@
 //   state = (exp(cum_L - cum) * dt * B)^T @ x                   (ds, hd)
 //   total = cum_L
 // Inputs: xs (b, nc, L, nh, hd), B and C (b, nc, L, ds) in float32 or
-// bfloat16; dt (b, nc, L, nh) and a (nh,) in float32. Outputs float32: y
-// (b, nc, L, nh, hd), states (b, nc, nh, ds, hd), totals (b, nc, nh).
+// bfloat16; dt (b, nc, L, nh) and a in float32, either (nh,), shared by
+// every batch row, or (b, nh), one row of decay rates a batch row (the
+// training round folds its workers into the batch, and each worker has
+// its own A_log). Outputs float32: y (b, nc, L, nh, hd), states
+// (b, nc, nh, ds, hd), totals (b, nc, nh).
 //
 // Bound. At mamba2-370m's shapes (L 64, nh 32, hd 64, ds 128, bf16 x, B
 // and C) one chunk reads 256 KiB of x, 32 KiB of B and C and 8 KiB of dt,
@@ -332,8 +335,8 @@ __global__ void __launch_bounds__(kThreads)
 ssd_chunk_kernel(const T* __restrict__ xs, const float* __restrict__ dt_g,
                  const float* __restrict__ a_g, const T* __restrict__ B_g,
                  const T* __restrict__ C_g, float* __restrict__ y_g,
-                 float* __restrict__ state_g, float* __restrict__ total_g, int nh,
-                 int ds, int hg, int gran_bc, int gran_x) {
+                 float* __restrict__ state_g, float* __restrict__ total_g, int nc,
+                 int nh, int ds, int a_ld, int hg, int gran_bc, int gran_x) {
   constexpr int NP = sizeof(T) == 2 ? 1 : 3;   // parts of an input operand
   constexpr int RT = L / 16;                   // 16-row tiles of the chunk
   constexpr int NT = L / 8;                    // 8-column tiles of C B^T
@@ -382,7 +385,7 @@ ssd_chunk_kernel(const T* __restrict__ xs, const float* __restrict__ dt_g,
   // -- cum and w = exp(cum_L - cum) dt: a warp scan a head --------------------
   for (int hh = warp; hh < hg; hh += kWarps) {
     constexpr int kPer = (L + 31) / 32;
-    const float a = a_g[h0 + hh];
+    const float a = a_g[(bc / nc) * a_ld + h0 + hh];
     const float* dt = sDt + hh * L;
     float* cum = sCum + hh * L;
     float seg[kPer];
@@ -533,7 +536,7 @@ int granule(const void* p, long long pitch) {
 template <typename T, int L, int HD>
 int launch(const void* xs, const float* dt, const float* a, const void* B, const void* C,
            float* y, float* states, float* totals, int b, int nc, int nh, int ds,
-           cudaStream_t stream) {
+           int a_ld, cudaStream_t stream) {
   constexpr int E = (int)sizeof(T);
   const int hg = group(L, HD, ds, E, b * nc, nh);
   const Layout lay(L, HD, ds, hg, E);
@@ -548,18 +551,19 @@ int launch(const void* xs, const float* dt, const float* a, const void* B, const
   const dim3 grid(nh / hg, b * nc);
   kern<<<grid, kThreads, lay.total, stream>>>(
       static_cast<const T*>(xs), dt, a, static_cast<const T*>(B), static_cast<const T*>(C),
-      y, states, totals, nh, ds, hg, gran_bc, gran_x);
+      y, states, totals, nc, nh, ds, a_ld, hg, gran_bc, gran_x);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int L>
 int dispatch_hd(int hd, const void* xs, const float* dt, const float* a,
                 const void* B, const void* C, float* y, float* states,
-                float* totals, int b, int nc, int nh, int ds, cudaStream_t s) {
+                float* totals, int b, int nc, int nh, int ds, int a_ld,
+               cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, L, 32>(xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, s);
-    case 64: return launch<T, L, 64>(xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, s);
-    case 128: return launch<T, L, 128>(xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, s);
+    case 32: return launch<T, L, 32>(xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, a_ld, s);
+    case 64: return launch<T, L, 64>(xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, a_ld, s);
+    case 128: return launch<T, L, 128>(xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, a_ld, s);
     default: return -1;
   }
 }
@@ -567,11 +571,12 @@ int dispatch_hd(int hd, const void* xs, const float* dt, const float* a,
 template <typename T>
 int dispatch_l(int L, int hd, const void* xs, const float* dt, const float* a,
                const void* B, const void* C, float* y, float* states,
-               float* totals, int b, int nc, int nh, int ds, cudaStream_t s) {
+               float* totals, int b, int nc, int nh, int ds, int a_ld,
+               cudaStream_t s) {
   switch (L) {
-    case 16: return dispatch_hd<T, 16>(hd, xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, s);
-    case 32: return dispatch_hd<T, 32>(hd, xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, s);
-    case 64: return dispatch_hd<T, 64>(hd, xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, s);
+    case 16: return dispatch_hd<T, 16>(hd, xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, a_ld, s);
+    case 32: return dispatch_hd<T, 32>(hd, xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, a_ld, s);
+    case 64: return dispatch_hd<T, 64>(hd, xs, dt, a, B, C, y, states, totals, b, nc, nh, ds, a_ld, s);
     default: return -1;
   }
 }
@@ -586,14 +591,16 @@ extern "C" long long ssd_chunk_smem_bytes(int L, int ds, int hd, int x_dtype) {
 }
 
 // dtype code of xs, B and C: 0 = float32, 1 = bfloat16; dt and a are
-// float32. L in {16, 32, 64}; hd in {32, 64, 128}; ds a multiple of 4.
-// Every tensor is contiguous; y and states 16-byte aligned. Returns 0, a
-// cudaError_t from the launch, or -1 for an unsupported configuration.
+// float32, a_ld is 0 for a (nh,) and nh for a (b, nh). L in {16, 32, 64};
+// hd in {32, 64, 128}; ds a multiple of 4. Every tensor is contiguous; y
+// and states 16-byte aligned. Returns 0, a cudaError_t from the launch, or
+// -1 for an unsupported configuration.
 extern "C" int ssd_chunk_launch(const void* xs, const void* dt, const void* a,
                                 const void* B, const void* C, void* y, void* states,
                                 void* totals, int x_dtype, int b, int nc, int L,
-                                int nh, int hd, int ds, void* stream) {
+                                int nh, int hd, int ds, int a_ld, void* stream) {
   if (ds <= 0 || ds % 4 != 0 || b <= 0 || nc <= 0 || nh <= 0) return -1;
+  if (a_ld != 0 && a_ld != nh) return -1;
   if (reinterpret_cast<uintptr_t>(y) % 16 || reinterpret_cast<uintptr_t>(states) % 16)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -603,8 +610,10 @@ extern "C" int ssd_chunk_launch(const void* xs, const void* dt, const void* a,
   float* sf = static_cast<float*>(states);
   float* tf = static_cast<float*>(totals);
   if (x_dtype == 0)
-    return dispatch_l<float>(L, hd, xs, dtf, af, B, C, yf, sf, tf, b, nc, nh, ds, s);
+    return dispatch_l<float>(L, hd, xs, dtf, af, B, C, yf, sf, tf, b, nc, nh, ds, a_ld,
+                              s);
   if (x_dtype == 1)
-    return dispatch_l<__nv_bfloat16>(L, hd, xs, dtf, af, B, C, yf, sf, tf, b, nc, nh, ds, s);
+    return dispatch_l<__nv_bfloat16>(L, hd, xs, dtf, af, B, C, yf, sf, tf, b, nc, nh,
+                                      ds, a_ld, s);
   return -1;
 }

@@ -2,9 +2,12 @@
 counterpart of ``repro/kernels/ssd_chunk/ops.py:20``
 (``ssd_chunked_kernel``): a drop-in for ``models.ssm.ssd_chunked``.
 
-The kernel computes the within-chunk blocks; the inter-chunk recurrence
-(one (nh, ds, hd) update per chunk) and the ``C S_prev`` term stay plain
-torch ops, as they stay plain JAX there.
+The kernel computes the within-chunk blocks through its
+``autograd.Function`` (``SSDChunkFunction``: the training forward launches
+it, and ``vmap`` over workers makes one launch); the inter-chunk
+recurrence (one (nh, ds, hd) update per chunk) and the ``C S_prev`` term
+stay plain torch ops, as they stay plain JAX there, and autograd takes
+them as they are.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk
+from repro_torch.kernels.ssd_chunk.ssd_chunk import SSDChunkFunction
 
 
 def ssd_chunked_kernel(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -32,8 +35,8 @@ def ssd_chunked_kernel(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     B_c = B.reshape(b, nc, chunk, ds).contiguous()
     C_c = C.reshape(b, nc, chunk, ds).contiguous()
 
-    y_diag, states, totals = ssd_chunk(xs_c, dt_c, a.float().contiguous(),
-                                       B_c, C_c)
+    y_diag, states, totals = SSDChunkFunction.apply(
+        xs_c, dt_c, a.float().contiguous(), B_c, C_c)
 
     prev = (torch.zeros((b, nh, ds, hd), dtype=torch.float32,
                         device=xs.device)

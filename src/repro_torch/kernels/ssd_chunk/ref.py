@@ -21,11 +21,14 @@ import torch
 def ssd_chunk_ref(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """xs (b, nc, L, nh, hd); dt (b, nc, L, nh); a (nh,); B, C
-    (b, nc, L, ds). Returns (y_diag (b, nc, L, nh, hd), states
-    (b, nc, nh, ds, hd), totals (b, nc, nh)), all float32."""
+    """xs (b, nc, L, nh, hd); dt (b, nc, L, nh); a (nh,), or (b, nh) with
+    one row of decay rates a batch row; B, C (b, nc, L, ds). Returns
+    (y_diag (b, nc, L, nh, hd), states (b, nc, nh, ds, hd), totals
+    (b, nc, nh)), all float32."""
     xs, dt, a, B, C = (t.float() for t in (xs, dt, a, B, C))
     L = xs.shape[2]
+    if a.dim() == 2:
+        a = a[:, None, None, :]
     cum = torch.cumsum(dt * a, dim=2)                 # (b, nc, L, nh)
     totals = cum[:, :, -1]                            # (b, nc, nh)
 

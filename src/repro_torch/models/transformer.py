@@ -1,13 +1,15 @@
 """Decoder assembly, the counterpart of ``repro/models/transformer.py``:
-the training forward (``forward`` :149 over the dense branch of
-``_apply_layer`` :94, and ``loss_fn`` :178) and the serving path
-(``init_params``, ``init_cache``, ``prefill`` :328, ``decode_step`` :254,
-``PagedKV``, ``cache_layout`` :462 and ``decode_step_paged`` :511).
+the training forward (``forward`` :149 over ``_apply_layer`` :94, and
+``loss_fn`` :178) and the serving path (``init_params``, ``init_cache``,
+``prefill`` :328, ``decode_step`` :254, ``PagedKV``, ``cache_layout``
+:462 and ``decode_step_paged`` :511).
 
-Dense attention layers and Mamba2 SSM layers are ported
-(``check_supported``); MoE, cross-attention and codebook configs raise
-``NotImplementedError``. The training forward takes dense layers only:
-SSM training needs a backward through ``ssd_chunk``, which is not ported.
+Dense attention layers, Mamba2 SSM layers, top-k MoE FFNs (with arctic's
+dense residual MLP) and the hybrid's interleave of all three are ported,
+for training and serving (``check_supported``); cross-attention and
+codebook configs raise ``NotImplementedError``. An MoE layer's auxiliary
+losses (load balance and router z-loss) are summed over the layers into
+``loss = ce + moe_loss``, as JAX's ``loss_fn``.
 
 Where JAX returns fresh arrays, the port writes caches and pools in place:
 a cache is as large as the model's K/V working set, and a copy per step
@@ -21,13 +23,14 @@ Every RMSNorm goes through ``kernels.rmsnorm``, and every one that follows
 a residual add (all but the first layer's first) adds that residual in the
 same launch (``layers.add_rmsnorm``): the layer loops carry the pending
 residual ``delta`` to the next norm. The loss's per-token NLL
-through ``kernels.fused_ce``, every SSM layer's prefill through
-``kernels.ssd_chunk`` and every attention layer of ``decode_step`` through
-``kernels.decode_attn``: the CUDA kernels on a CUDA tensor, their plain
-versions on the CPU. The functions take these as keyword arguments
-(``norm``, ``ce``, ``ssd``, ``attn``, ``attn_kernel``) that default to the
-kernels; only ``chip_smoke.py``'s agreement phases pass the plain
-versions.
+through ``kernels.fused_ce``, every SSM layer's prefill and training
+forward through ``kernels.ssd_chunk`` (in training through its
+``autograd.Function``: one launch for all workers, a plain backward) and
+every attention layer of ``decode_step`` through ``kernels.decode_attn``:
+the CUDA kernels on a CUDA tensor, their plain versions on the CPU. The
+functions take these as keyword arguments (``norm``, ``ce``, ``ssd``,
+``attn``, ``attn_kernel``) that default to the kernels; only
+``chip_smoke.py``'s agreement phases pass the plain versions.
 
 ``worker_losses`` is the training round's form of ``loss_fn``: the
 per-worker losses of worker-stacked parameters, ``torch.func.vmap`` of
@@ -38,7 +41,9 @@ backward pass recomputes the layer from its inputs, the pair (x, pending
 residual), instead of keeping its activations and weight casts. The
 checkpoint lies outside the ``vmap``, so it sees plain worker-stacked
 tensors. ``cfg.windowed_qblock`` takes ``flash_attention_windowed`` on
-sliding-window layers, in training and in ``prefill``, as JAX does.
+sliding-window layers, in training and in ``prefill``, as JAX does. Under
+that ``vmap`` an MoE layer's router is a worker leaf and its experts are
+not (``param_axes``): one copy of the experts serves every worker.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ from repro_torch.kernels.fused_ce import fused_ce
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.ssd_chunk import ssd_chunked_kernel
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import (KVCache, attention_init,
                                          flash_attention,
@@ -67,25 +73,17 @@ from repro_torch.models.param import ParamBuilder, build
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises unless every layer is dense self-attention (with its gated
-    MLP) or a Mamba2 SSM mixer: MoE, cross-attention and codebook configs
-    are not ported."""
+    """Raises on what the port does not cover: cross-attention (vision)
+    layers and codebook (audio) configs. Dense, MoE, SSM and hybrid
+    layers pass."""
     if cfg.n_codebooks:
         raise NotImplementedError(
             f"{cfg.name}: multi-codebook (audio) configs are not ported")
     for i in range(cfg.n_layers):
-        if cfg.layer_is_moe(i) or cfg.layer_is_cross_attn(i):
+        if cfg.layer_is_cross_attn(i):
             raise NotImplementedError(
-                f"{cfg.name}: layer {i} is MoE or cross-attention; the port "
-                f"serves dense attention and SSM layers only")
-
-
-def _check_trainable(cfg: ModelConfig) -> None:
-    check_supported(cfg)
-    if any(cfg.layer_is_ssm(i) for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: training SSM layers needs a backward through "
-            f"ssd_chunk, which is not ported; the port serves them only")
+                f"{cfg.name}: layer {i} is cross-attention, which is not "
+                f"ported")
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -97,9 +95,9 @@ def _has_attn(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 def _init_layer(b: ParamBuilder, cfg: ModelConfig, i: int):
-    """The leaves of ``repro/models/transformer.py:39`` for dense and SSM
-    layers: an MLP after attention, and after an SSM mixer only in a
-    hybrid model."""
+    """The leaves of ``repro/models/transformer.py:39``: an MoE FFN on MoE
+    layers (with arctic's ``dense_mlp`` beside it), else an MLP after
+    attention, and after an SSM mixer only in a hybrid model."""
     s = b.scope(f"L{i}")
     d = cfg.d_model
     if cfg.layer_is_attn(i):
@@ -109,7 +107,12 @@ def _init_layer(b: ParamBuilder, cfg: ModelConfig, i: int):
     if cfg.layer_is_ssm(i):
         L.rmsnorm_init(s, "ssm_norm", d)
         SSM.ssm_init(s, "ssm", d, cfg.ssm)
-    if cfg.d_ff > 0 and (cfg.layer_is_attn(i) or cfg.family == "hybrid"):
+    if cfg.layer_is_moe(i):
+        L.rmsnorm_init(s, "ffn_norm", d)
+        MOE.moe_init(s, "moe", d, cfg.moe)
+        if cfg.moe.dense_residual and cfg.d_ff > 0:
+            L.mlp_init(s, "dense_mlp", d, cfg.d_ff)
+    elif cfg.d_ff > 0 and (cfg.layer_is_attn(i) or cfg.family == "hybrid"):
         L.rmsnorm_init(s, "ffn_norm", d)
         L.mlp_init(s, "mlp", d, cfg.d_ff)
 
@@ -133,24 +136,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                  resolve_device(device))
 
 
-def param_axes(params: Dict) -> Dict:
-    """The axes tree the ``Trainer`` takes with ``params``: no named axis on
-    any leaf, so ``core.replicate_workers`` gives every leaf the worker
-    axis (a dense model has no expert leaves to keep single-copy)."""
+def param_axes(params: Dict, _path: Tuple[str, ...] = ()) -> Dict:
+    """The axes tree the ``Trainer`` takes with ``params``: the leaves
+    under an ``experts`` scope (an MoE layer's expert weights) name their
+    leading axis ``"experts"``, as JAX's ``ParamBuilder`` does, so
+    ``core.replicate_workers`` keeps them single-copy; every other leaf
+    names no axis and gets the worker axis."""
     if isinstance(params, dict):
-        return {k: param_axes(v) for k, v in params.items()}
+        return {k: param_axes(v, _path + (k,)) for k, v in params.items()}
+    if "experts" in _path:
+        return ("experts",) + (None,) * (params.dim() - 1)
     return (None,) * params.dim()
 
 
-def cast_params(params: Dict, dtype: torch.dtype, device=None) -> Dict:
+def cast_params(params: Dict, dtype: torch.dtype, device=None,
+                _name: str = "") -> Dict:
     """The tree on ``device`` (when given) with every matrix in ``dtype``:
     the leaves the model casts to ``compute_dtype`` at use. Vectors (the
-    RMSNorm scales, read in float32) keep their dtype. A leaf that needs no
-    change shares its storage."""
+    RMSNorm scales and the SSM's per-head leaves, read in float32) and an
+    MoE layer's ``router`` (its logits are float32, as JAX's) keep their
+    dtype. A leaf that needs no change shares its storage."""
     if isinstance(params, dict):
-        return {k: cast_params(v, dtype, device) for k, v in params.items()}
-    return params.to(device=device,
-                     dtype=dtype if params.dim() >= 2 else params.dtype)
+        return {k: cast_params(v, dtype, device, k)
+                for k, v in params.items()}
+    keep = params.dim() < 2 or _name == "router"
+    return params.to(device=device, dtype=params.dtype if keep else dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -177,14 +187,23 @@ def _qkv(ap: Dict, h: torch.Tensor, rope, dt: torch.dtype):
 
 def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
          delta: Optional[torch.Tensor], dt: torch.dtype, norm: L.NormFn
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The gated MLP behind its norm, whose launch adds the pending
-    residual ``delta`` into x first. Returns (x, the residual now pending:
-    the MLP's output)."""
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                    Optional[torch.Tensor]]:
+    """The layer's FFN behind its norm, whose launch adds the pending
+    residual ``delta`` into x first: the MoE FFN (plus arctic's dense
+    residual MLP on the same normed input) or the gated MLP. Returns (x,
+    the residual now pending: the FFN's output, the MoE layer's
+    ``load_balance_loss + router_z_loss`` or None)."""
+    if "moe" in lp:
+        x, h = L.add_rmsnorm(lp["ffn_norm"], x, delta, cfg.norm_eps, norm)
+        y, aux = MOE.moe_ffn(lp["moe"], h, cfg.moe, dt)
+        if cfg.moe.dense_residual and "dense_mlp" in lp:
+            y = y + L.mlp(lp["dense_mlp"], h, dt)
+        return x, y, aux.load_balance_loss + aux.router_z_loss
     if "mlp" not in lp:
-        return x, delta
+        return x, delta, None
     x, h = L.add_rmsnorm(lp["ffn_norm"], x, delta, cfg.norm_eps, norm)
-    return x, L.mlp(lp["mlp"], h, dt)
+    return x, L.mlp(lp["mlp"], h, dt), None
 
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -213,16 +232,24 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 
 def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
                  delta: Optional[torch.Tensor], rope, i: int,
-                 dt: torch.dtype, norm: L.NormFn
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The dense branch of JAX's ``_apply_layer``: causal self-attention
-    over the whole sequence (the layer's window, if any), then the gated
-    MLP, each behind its RMSNorm and residual. Each residual add runs in
-    the next norm's launch: takes and returns (x, the pending residual)."""
-    x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps, norm)
-    q, k, v = _qkv(lp["attn"], h, rope, dt)
-    att = _attend(cfg, q, k, v, cfg.window_for_layer(i))
-    return _ffn(cfg, lp, x, _out(att, lp["attn"]["wo"].to(dt)), dt, norm)
+                 dt: torch.dtype, norm: L.NormFn, ssd: SSM.SSDFn) -> Tuple:
+    """JAX's ``_apply_layer`` without a cache: causal self-attention over
+    the whole sequence (the layer's window, if any) and/or the Mamba2
+    mixer in its prefill form (through ``ssd``), then the layer's FFN
+    (``_ffn``), each behind its RMSNorm and residual. Each residual add
+    runs in the next norm's launch: takes (x, the pending residual) and
+    returns them, and an MoE layer's auxiliary loss after them."""
+    if cfg.layer_is_attn(i):
+        x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps, norm)
+        q, k, v = _qkv(lp["attn"], h, rope, dt)
+        att = _attend(cfg, q, k, v, cfg.window_for_layer(i))
+        delta = _out(att, lp["attn"]["wo"].to(dt))
+    if cfg.layer_is_ssm(i):
+        x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps, norm)
+        delta, _ = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
+                                 ssd=ssd)
+    x, delta, moe_loss = _ffn(cfg, lp, x, delta, dt, norm)
+    return (x, delta) if moe_loss is None else (x, delta, moe_loss)
 
 
 def _call_layer(layer: Callable, key: str, lp: Dict, x: torch.Tensor,
@@ -232,44 +259,53 @@ def _call_layer(layer: Callable, key: str, lp: Dict, x: torch.Tensor,
 
 
 def _layers(cfg: ModelConfig, layer_params: Dict, x: torch.Tensor,
-            dt: torch.dtype, norm: L.NormFn, call: Callable = _call_layer
-            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+            dt: torch.dtype, norm: L.NormFn, ssd: SSM.SSDFn,
+            call: Callable = _call_layer
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                       Optional[torch.Tensor]]:
     """The layer loop of the training forward over x (..., b, s, d): returns
-    (x, the pending residual). ``call(layer, key, lp, x, delta)`` runs
+    (x, the pending residual, the MoE layers' summed auxiliary loss or None
+    for a model without them). ``call(layer, key, lp, x, delta)`` runs
     layer ``key``, ``layer(lp, x, delta)`` on one model's tensors:
     ``forward`` calls it as it is, ``worker_losses`` under ``vmap`` (and
     ``checkpoint``)."""
     b, s = x.shape[-3:-1]
-    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
-                         cfg.head_dim, cfg.rope_theta)
-    delta = None
+    rope = _rope(cfg, torch.arange(s, device=x.device).expand(b, s))
+    delta = moe_loss = None
     for i in range(cfg.n_layers):
         def layer(lp, x, delta, i=i):
-            return _apply_layer(cfg, lp, x, delta, rope, i, dt, norm)
+            return _apply_layer(cfg, lp, x, delta, rope, i, dt, norm, ssd)
         key = f"L{i}"
-        x, delta = call(layer, key, layer_params[key], x, delta)
-    return x, delta
+        x, delta, *aux = call(layer, key, layer_params[key], x, delta)
+        if aux:
+            moe_loss = aux[0] if moe_loss is None else moe_loss + aux[0]
+    return x, delta, moe_loss
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
-            norm: L.NormFn = rmsnorm_kernel
+            norm: L.NormFn = rmsnorm_kernel,
+            ssd: SSM.SSDFn = ssd_chunked_kernel
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) -> (logits (b, s, V) in ``compute_dtype``, the MoE
-    auxiliary loss, zero for a dense model), as JAX's ``forward``. 2 norms
-    a layer and the final one: 2 * n_layers + 1 calls of ``norm``, all but
-    the first with the residual add before it fused in. Dense layers only
-    (``_check_trainable``)."""
-    _check_trainable(cfg)
+    auxiliary loss summed over the layers, zero for a model without MoE
+    layers), as JAX's ``forward``. Every norm a layer has and the final
+    one are calls of ``norm`` (2 * n_layers + 1 for a dense or MoE model,
+    n_layers + 1 for mamba2), all but the first with the residual add
+    before it fused in; every SSM layer runs ``ssd`` (default: the
+    ``ssd_chunk`` kernel)."""
+    check_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
-    x, delta = _layers(cfg, params["layers"], x, dt, norm)
-    moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, delta, moe_loss = _layers(cfg, params["layers"], x, dt, norm, ssd)
+    if moe_loss is None:
+        moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x, delta, dt, norm), moe_loss
 
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
             norm: L.NormFn = rmsnorm_kernel,
-            ce: Callable = fused_ce) -> Tuple[torch.Tensor, Dict]:
+            ce: Callable = fused_ce,
+            ssd: SSM.SSDFn = ssd_chunked_kernel) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy of ``batch`` (``tokens``, ``labels``, both
     (b, s)), as JAX's ``loss_fn``: (loss, {"ce", "moe_loss"}). The logits
     are widened to float32 and ``ce`` (default: the ``fused_ce`` kernel;
@@ -277,7 +313,8 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
     token's ``logsumexp - label logit``. JAX's two CE forms
     (``cfg.sharded_ce``: one-hot contraction, or ``log_softmax`` and a
     gather) are that same function, so both take ``ce`` here."""
-    logits, moe_loss = forward(cfg, params, batch["tokens"], norm=norm)
+    logits, moe_loss = forward(cfg, params, batch["tokens"], norm=norm,
+                               ssd=ssd)
     return _loss_of_logits(logits, moe_loss, batch["labels"], ce)
 
 
@@ -288,16 +325,21 @@ def _loss_of_logits(logits, moe_loss, labels, ce):
 
 def worker_losses(cfg: ModelConfig, params: Dict, in_dims: Dict,
                   batch: Dict, *, norm: L.NormFn = rmsnorm_kernel,
-                  ce: Callable = fused_ce) -> Tuple[torch.Tensor, Dict]:
+                  ce: Callable = fused_ce,
+                  ssd: SSM.SSDFn = ssd_chunked_kernel
+                  ) -> Tuple[torch.Tensor, Dict]:
     """``vmap(loss_fn)`` over the worker axis, piece by piece: params
     worker-stacked as ``in_dims`` says (0 or None a leaf), batch leaves
     (p, b, s). Returns (losses (p,), {"ce", "moe_loss"} each (p,)), the
     same numbers as ``vmap(lambda q, b: loss_fn(cfg, q, b))``. With
     ``cfg.remat`` each layer is recomputed in the backward pass
     (``torch.utils.checkpoint``, non-reentrant; no dropout, so no RNG
-    state to keep): its norms run twice a step, 4 * n_layers + 1 calls of
-    ``norm`` a forward and backward."""
-    _check_trainable(cfg)
+    state to keep): its norms and its ``ssd_chunk`` launch run twice a
+    step (4 * n_layers + 1 calls of ``norm`` a forward and backward for a
+    dense or MoE model). Expert leaves come unmapped (``in_dims`` None):
+    one copy serves every worker, and each worker's MoE layers add their
+    auxiliary loss to its loss."""
+    check_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = vmap(lambda e, t: L.embed(e, t, dt),
              in_dims=(in_dims["embed"], 0))(params["embed"], batch["tokens"])
@@ -310,18 +352,22 @@ def worker_losses(cfg: ModelConfig, params: Dict, in_dims: Dict,
                               preserve_rng_state=False)
         return run(lp, x, delta)
 
-    x, delta = _layers(cfg, params["layers"], x, dt, norm, call)
+    x, delta, moe_loss = _layers(cfg, params["layers"], x, dt, norm, ssd,
+                                 call)
     out_key = "embed" if cfg.tie_embeddings else "head"
     tail_params = {k: params[k] for k in ("final_norm", out_key)}
     tail_dims = {k: in_dims[k] for k in tail_params}
-
-    def tail(tp, x, delta, labels):
+    moe_dim = 0
+    if moe_loss is None:
         moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        moe_dim = None
+
+    def tail(tp, x, delta, labels, moe_loss):
         return _loss_of_logits(_logits(cfg, tp, x, delta, dt, norm),
                                moe_loss, labels, ce)
 
-    return vmap(tail, in_dims=(tail_dims, 0, 0, 0))(
-        tail_params, x, delta, batch["labels"])
+    return vmap(tail, in_dims=(tail_dims, 0, 0, 0, moe_dim))(
+        tail_params, x, delta, batch["labels"], moe_loss)
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +447,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                         dt, ssd)
             entry["ssm"].s.copy_(st.s)
             entry["ssm"].conv.copy_(st.conv)
-        x, delta = _ffn(cfg, lp, x, delta, dt, norm)
+        x, delta, _ = _ffn(cfg, lp, x, delta, dt, norm)
 
     # only the last position reaches the head, and nothing reads the full
     # final x: the last residual is added for that row alone
@@ -449,7 +495,7 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                       state=entry["ssm"])
             entry["ssm"].s.copy_(st.s)
             entry["ssm"].conv.copy_(st.conv)
-        x, delta = _ffn(cfg, lp, x, delta, dt, norm)
+        x, delta, _ = _ffn(cfg, lp, x, delta, dt, norm)
 
     return _logits(cfg, params, x, delta, dt, norm), cache
 
@@ -573,7 +619,7 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                     keep = active.reshape((-1,) + (1,) * (new_t.dim() - 1))
                     new_t = torch.where(keep, new_t, old_t)
                 old_t.copy_(new_t)
-        x, delta = _ffn(cfg, lp, x, delta, dt, norm)
+        x, delta, _ = _ffn(cfg, lp, x, delta, dt, norm)
 
     return _logits(cfg, params, x, delta, dt, norm), pools
 

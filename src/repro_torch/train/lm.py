@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ce import fused_ce
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.ssd_chunk import ssd_chunked_kernel
 from repro_torch.models.transformer import loss_fn as lm_loss
 from repro_torch.models.transformer import worker_losses
 
@@ -23,24 +24,27 @@ from repro_torch.models.transformer import worker_losses
 class LMLoss:
     """``loss(params, batch) -> (loss, {"ce", "moe_loss"})`` of one model
     and ``loss.stacked(params, in_dims, batch) -> (losses (p,), aux)`` of
-    worker-stacked params, both through ``norm`` and ``ce``."""
+    worker-stacked params, both through ``norm``, ``ce`` and ``ssd``."""
 
-    def __init__(self, cfg: ModelConfig, norm: Callable, ce: Callable):
-        self.cfg, self.norm, self.ce = cfg, norm, ce
+    def __init__(self, cfg: ModelConfig, norm: Callable, ce: Callable,
+                 ssd: Callable):
+        self.cfg, self.norm, self.ce, self.ssd = cfg, norm, ce, ssd
 
     def __call__(self, params: Dict, batch: Dict
                  ) -> Tuple[torch.Tensor, Dict]:
-        return lm_loss(self.cfg, params, batch, norm=self.norm, ce=self.ce)
+        return lm_loss(self.cfg, params, batch, norm=self.norm, ce=self.ce,
+                       ssd=self.ssd)
 
     def stacked(self, params: Dict, in_dims: Dict, batch: Dict
                 ) -> Tuple[torch.Tensor, Dict]:
         return worker_losses(self.cfg, params, in_dims, batch,
-                             norm=self.norm, ce=self.ce)
+                             norm=self.norm, ce=self.ce, ssd=self.ssd)
 
 
 def make_lm_loss(cfg: ModelConfig, *, norm: Callable = rmsnorm_kernel,
-                 ce: Callable = fused_ce) -> LMLoss:
+                 ce: Callable = fused_ce,
+                 ssd: Callable = ssd_chunked_kernel) -> LMLoss:
     """The loss of ``cfg`` through the kernels (``models.transformer.
-    loss_fn``'s defaults), or through ``norm`` and ``ce`` when given (the
-    kernels' plain versions, for an agreement check)."""
-    return LMLoss(cfg, norm, ce)
+    loss_fn``'s defaults), or through ``norm``, ``ce`` and ``ssd`` when
+    given (the kernels' plain versions, for an agreement check)."""
+    return LMLoss(cfg, norm, ce, ssd)

@@ -170,9 +170,13 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
                 losses.sum(), tree_leaves(tracked), allow_unused=True))
 
         def grad_of(x, d):
+            # a shared leaf's gradient is divided in place: the tuple of
+            # gradients stays alive until the last leaf, and a new tensor
+            # per shared leaf would hold a second copy of them all (24 GiB
+            # for olmoe-1b-7b's experts)
             g = next(flat)
             g = torch.zeros_like(x) if g is None else g
-            return g if d == 0 else g / n_workers
+            return g if d == 0 else g.div_(n_workers)
 
         return tree_map(grad_of, tracked, in_dims), losses.detach()
 

@@ -84,7 +84,10 @@ class Trainer:
                  pipeline: Optional[str] = None):
         """``params``: a single-copy tree, moved to ``device`` (``None``:
         cuda; raises without a card unless ``"cpu"``) and replicated to
-        ``n_workers`` worker copies. ``rule``: a key of ``RULES``;
+        ``n_workers`` worker copies; the leaves whose axes name
+        ``"experts"`` stay one copy unless ``tcfg`` carries
+        ``expert_copies=True`` (read with ``getattr``, as JAX's Trainer
+        does). ``rule``: a key of ``RULES``;
         ``easgd_alpha`` overrides the ``easgd`` rule's moving rate."""
         _refuse(pipeline=pipeline)
         self.device = resolve_device(device)
@@ -94,7 +97,8 @@ class Trainer:
         self._loss_fn = loss_fn
         self._easgd_alpha = easgd_alpha
         params, axes = replicate_workers(
-            tree_map(lambda x: x.to(self.device), params), axes, n_workers)
+            tree_map(lambda x: x.to(self.device), params), axes, n_workers,
+            expert_copies=getattr(tcfg, "expert_copies", False))
         self.axes = axes
         comm_state = init_comm_state(rule, params, axes, n_workers,
                                      wcfg=tcfg.wasgd)

@@ -55,9 +55,9 @@ def test_gemma3_config_matches_jax_field_for_field(which):
 @pytest.mark.parametrize("arch", JAX_ARCH_IDS)
 def test_layer_predicates_match_jax(arch):
     """Every arch's layer schedule reads the same through the port's
-    config; dense and SSM archs pass ``check_supported``, and MoE, hybrid
-    (jamba: MoE), vision (cross-attention) and audio (codebooks) archs
-    raise."""
+    config; dense, SSM, MoE and hybrid (jamba) archs pass
+    ``check_supported``, and vision (cross-attention) and audio
+    (codebooks) archs raise."""
     jcfg = jax_get_config(arch)
     cfg = _port_cfg(jcfg)
     assert cfg.padded_vocab == jcfg.padded_vocab
@@ -66,7 +66,7 @@ def test_layer_predicates_match_jax(arch):
                      "layer_is_global_attn", "layer_is_cross_attn",
                      "window_for_layer"):
             assert getattr(cfg, pred)(i) == getattr(jcfg, pred)(i), (pred, i)
-    if jcfg.family in ("dense", "ssm"):
+    if jcfg.family in ("dense", "ssm", "moe", "hybrid"):
         check_supported(cfg)
     else:
         with pytest.raises(NotImplementedError):

@@ -100,7 +100,10 @@ def test_init_params_tree_matches_jax():
     assert a_log.abs().max() <= 1 and a_log.std() > 0.2
 
 
-def test_ssm_archs_serve_but_do_not_train():
+def test_ssm_archs_serve_and_train():
+    """The paged cache keeps SSM state per slot and no K/V blocks; the
+    training forward runs (it refused SSM layers before their backward
+    through ``ssd_chunk`` was ported) and gives finite logits."""
     cfg = get_smoke_config("mamba2-370m")
     layout = cache_layout(cfg, MAX_LEN, BLOCK)
     assert layout["groups"] == {}
@@ -111,8 +114,11 @@ def test_ssm_archs_serve_but_do_not_train():
     assert st.s.shape == (3, 8, 16, 32) and st.conv.shape == (3, 3, 288)
     assert st.s.dtype == torch.float32
     tp = init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ssd_chunk"):
-        forward(cfg, tp, torch.zeros((1, 16), dtype=torch.int32))
+    logits, moe_loss = forward(cfg, tp, torch.zeros((1, 16),
+                                                    dtype=torch.int32))
+    assert logits.shape == (1, 16, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert float(moe_loss) == 0.0
 
 
 # -- the mixer ------------------------------------------------------------------
