@@ -17,8 +17,10 @@ full-width, full-depth stablelm-3b with the int4 payload and ``remat``,
 serves full-width yi-6b, trains full-width, full-depth mamba2-370m
 (ssd_chunk in the training forward) and olmoe-1b-7b (one copy of the
 experts), serves olmoe-1b-7b and one full-width period of jamba-v0.1-52b,
-and checks that the served and the trained paths went through their
-kernels.
+serves full-width llama-3.2-vision-11b (with media) and musicgen-large
+(codebooks) through the legacy ``ServeEngine``, trains musicgen-large and
+one full-width period of llama-3.2-vision-11b, and checks that the served
+and the trained paths went through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -43,7 +45,9 @@ Prints one JSON object per phase:
                 x + delta for the fused op) and bounds at the LM training
                 shape and at the decode shape
   ce_check      fused_ce (forward and backward) vs its plain version over
-                V x T, out-of-vocab labels and unaligned rows
+                V x T (llama-3.2-vision's V 128256 too), musicgen's
+                codebook logits (2, 640, 4, 2048), out-of-vocab labels and
+                unaligned rows
   ce_time       fused_ce, plain version, F.cross_entropy and bound at one
                 local step's gemma3-1b logits
   decode_attn_check  decode_attn vs its plain version over g x hd (with
@@ -52,7 +56,10 @@ Prints one JSON object per phase:
                 global layer's full 1024 positions, a device cache_len at 0
                 and S; one device kernel a call (profiler)
   decode_attn_time   decode_attn, plain version, SDPA, bound and device
-                kernels a call at the legacy serve run's two cache shapes
+                kernels a call at the legacy serve run's two cache shapes,
+                a llama-3.2-vision cross layer (b 4, 1600 media positions,
+                kv 8, g 4, hd 128: bound by its 26.2 MB of K/V) and
+                musicgen-large's layers (kv 32, g 1, hd 64, S 1024)
   ssd_check     ssd_chunk vs its plain version (dtypes, mamba2 and jamba
                 widths, ds 20, padded tails, steep decay, unaligned inputs)
                 and ssd_chunked_kernel vs ssd_chunked
@@ -195,6 +202,30 @@ Prints one JSON object per phase:
                 the serve
                 requests: tokens/s, peak, launches of ssd_chunk,
                 paged_decode_attn and rmsnorm
+  vlm_agree     llama-3.2-vision-11b at full width and depth (10.1B params,
+                init in bf16, every cross gate U(0.5, 1.0) from the seed):
+                a prefill with media (2, 1600, 4096) and 4 decode_steps
+                through the kernels, each rmsnorm and decode_attn call
+                (self and cross layers) held to its plain version on its
+                own inputs; logits against the plain path's beside the
+                model's sensitivity to a one-ulp change; all finite
+  vlm_serve     ServeEngine on it at the legacy serve run's settings with
+                media (4, 1600, 4096) float32: tokens/s, peak memory,
+                decode_attn launches == 48 x decode steps (40 self, 8
+                cross), rmsnorm == 89 x (decode steps + prefills); under
+                the profiler the same tokens, device kernels == launches
+  audio_agree, audio_serve  the same on musicgen-large (3.26B params):
+                prompts (4, 480, 4) codebook tokens, output (4, 96, 4);
+                48 decode_attn and 97 rmsnorm launches a step
+  audio_train   Trainer.run, WASGD+, musicgen-large at full width and
+                depth, lm_train's settings at p 2 (remat on), 5 rounds
+                after 2: s/round, tokens/s, peak, launches (wagg_fused 435
+                a round), one profiled round
+  vlm_train     the same on llama-3.2-vision-11b with n_layers cut from 40
+                to 5 (one period: 4 self layers, 1 cross layer; 2.18B
+                params) and a media leaf (n, 1600, 4096) float32 in the
+                dataset, riding the vmapped, rematerialised round
+                (wagg_fused 54 a round)
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -287,6 +318,22 @@ OLMOE_TRAIN = {**LM, "rounds": 5}
 # 13.3B params initialised in bf16
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_LAYERS = 8
+# llama-3.2-vision-11b at full width and depth (10.1B params, initialised
+# in bf16) and musicgen-large (3.26B) served through the legacy
+# ServeEngine at LEGACY's settings: media (4, 1600, 4096) float32 from the
+# seed, and (4, 480, 4) codebook prompts. Both trained with lm_train's
+# settings at p 2 (musicgen's f32 params and gradients are 48.5 GiB at
+# p 2, 72.8 at p 3), 2 + 5 rounds; llama-3.2-vision as one period at full
+# width, n_layers cut from 40 to 5 (layers 0-3 self-attention, 4 cross:
+# 2.18B params; all 40 layers' f32 params and gradients are 81 GB at p 1)
+VLM_ARCH = "llama-3.2-vision-11b"
+AUDIO_ARCH = "musicgen-large"
+MEDIA_TRAIN = {**LM, "p": 2, "rounds": 5}
+VLM_TRAIN_LAYERS = 5
+# decode_attn's new shapes, (b, kv, g, hd, S): a vision cross layer over
+# its 1600 media positions, and musicgen-large's self-attention
+CROSS_SHAPE = (LEGACY["b"], 8, 4, 128, 1600)
+MUSICGEN_SHAPE = (LEGACY["b"], 32, 1, 64, 1024)
 
 
 def emit(obj):
@@ -2343,14 +2390,20 @@ def phase_rmsnorm_time(dev):
 
 CE_CHECK = {"V": [262144, 100352, 1000, 1001], "T": [1, 7, 2560],
             # stablelm-3b's padded vocabulary at one worker's tokens and at
-            # the round's three workers' (the vmap rule's one launch)
-            "V_T": [[50432, 640], [50432, 1920]]}
+            # the round's three workers' (the vmap rule's one launch), and
+            # llama-3.2-vision's at one worker's
+            "V_T": [[50432, 640], [50432, 1920], [128256, 640]],
+            # musicgen-large's codebook logits at the round's two workers:
+            # (p, seq, n_q, V), a row a (worker, position, codebook)
+            "codebook": [2, 640, 4, 2048]}
 
 
 def phase_ce_check(dev):
     """fused_ce against its plain version over V = 262,144 (gemma3-1b),
     100,352 (stablelm-1.6b), 1000 and 1001 (the one-element path) x T = 1,
-    7, 2560, and at V = 50,432 (stablelm-3b) with T = 640 and 1920: nll
+    7, 2560, at V = 50,432 (stablelm-3b) with T = 640 and 1920, at V =
+    128,256 (llama-3.2-vision) with T = 640, and musicgen's codebook
+    logits (2, 640, 4, 2048) as they come, one row a codebook: nll
     and lse, and the backward through the Function (kernel forward,
     PyTorch backward) against autograd of the plain version. At T = 7 two
     labels lie outside [0, V) (nll = lse). One case starts one element
@@ -2397,6 +2450,12 @@ def phase_ce_check(dev):
         case(logits, labels, f"V{v}/T{t}")
         del logits, labels
         torch.cuda.empty_cache()
+    shape = CE_CHECK["codebook"]
+    logits = 4.0 * torch.randn(*shape, generator=gen, device=dev)
+    labels = torch.randint(0, shape[-1], shape[:-1], generator=gen,
+                           device=dev)
+    case(logits, labels, "codebook/" + "x".join(map(str, shape)))
+    del logits, labels
     buf = 4.0 * torch.randn(7 * 1000 + 1, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (7,), generator=gen, device=dev)
     case(buf[1:].view(7, 1000), labels, "V1000/T7/unaligned")
@@ -2654,33 +2713,55 @@ def phase_lm_remat(cfg, dev):
 
 
 def lm_dataset(cfg, st=LM):
-    from repro_torch.data import OrderedDataset, make_tokens
-    toks = make_tokens(0, st["n_seq"], st["seq_len"], cfg.vocab_size)
-    return OrderedDataset({"tokens": toks[:, :-1], "labels": toks[:, 1:]},
-                          st["p"], st["tau"], st["b_local"],
+    """``lm_batch``'s data for ``cfg`` (seed 0): make_tokens' bigram
+    language, or codebook streams, and media for a model with cross
+    layers."""
+    from repro_torch.data import OrderedDataset, lm_batch
+    data = lm_batch(0, st["n_seq"], st["seq_len"], cfg.vocab_size,
+                    n_codebooks=cfg.n_codebooks,
+                    media_tokens=cfg.n_media_tokens, d_model=cfg.d_model)
+    return OrderedDataset(data, st["p"], st["tau"], st["b_local"],
                           n_segments=st["n_segments"], seed=st["order_seed"])
 
 
+def open_gates(params, seed):
+    """Sets every ``cross_gate`` (zeros at init, which makes the cross
+    branch's output exactly zero and hides any fault in it) to U(0.5, 1.0)
+    drawn from ``seed``, in place; a model without cross layers is
+    unchanged. Returns the params."""
+    import torch
+    gates = [lp["cross_gate"] for lp in params["layers"].values()
+             if "cross_gate" in lp]
+    if gates:
+        gen = torch.Generator(device=gates[0].device)
+        gen.manual_seed(seed)
+        for g in gates:
+            g.uniform_(0.5, 1.0, generator=gen)
+    return params
+
+
 def new_lm_trainer(cfg, dev, st=LM):
-    """A WASGD+ trainer of ``cfg`` (random weights, seed 0) at the
-    settings ``st``."""
+    """A WASGD+ trainer of ``cfg`` (random weights, seed 0, cross gates
+    opened) at the settings ``st``."""
     from repro_torch.configs import TrainConfig, WASGDConfig
     from repro_torch.models import init_params, param_axes
     from repro_torch.train import Trainer, make_lm_loss
     tcfg = TrainConfig(learning_rate=st["lr"], optimizer="sgd",
                        wasgd=WASGDConfig(tau=st["tau"], beta=st["beta"],
                                          backend=st["backend"]))
-    params = init_params(cfg, seed=0, device=dev)
+    params = open_gates(init_params(cfg, seed=0, device=dev), 0)
     return Trainer(make_lm_loss(cfg), params, param_axes(params), tcfg,
                    st["p"], rule="wasgd+", device=dev)
 
 
 def layer_norms(cfg, i):
-    """RMSNorms of layer ``i``: one before attention, one before the SSM
-    mixer, one before the FFN (an MLP or the MoE FFN)."""
+    """RMSNorms of layer ``i``: one before attention, one before the
+    cross-attention (with media), one before the SSM mixer, one before the
+    FFN (an MLP or the MoE FFN)."""
     ffn = cfg.layer_is_moe(i) or (cfg.d_ff > 0 and (
         cfg.layer_is_attn(i) or cfg.family == "hybrid"))
-    return int(cfg.layer_is_attn(i)) + int(cfg.layer_is_ssm(i)) + int(ffn)
+    return (int(cfg.layer_is_attn(i)) + int(cfg.layer_is_cross_attn(i))
+            + int(cfg.layer_is_ssm(i)) + int(ffn))
 
 
 def norms_per_step(cfg):
@@ -3761,6 +3842,253 @@ def phase_jamba_serve(dev):
             "peak_mem_gib": peak}
 
 
+def media_prompts(cfg, b, n, seed):
+    """(b, n) prompt tokens, or (b, n, n_q) codebook tokens, and media
+    (b, n_media_tokens, d) float32 for a model with cross layers (else
+    None), numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    shape = (b, n, cfg.n_codebooks) if cfg.n_codebooks else (b, n)
+    prompts = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    media = (rng.normal(size=(b, cfg.n_media_tokens, cfg.d_model))
+             .astype(np.float32) if cfg.n_media_tokens else None)
+    return prompts, media
+
+
+def decode_attn_calls(cfg):
+    """decode_attn launches of one decode_step: a self-attention layer's
+    and a cross layer's each."""
+    return sum(int(cfg.layer_is_attn(i)) + int(cfg.layer_is_cross_attn(i))
+               for i in range(cfg.n_layers))
+
+
+def legacy_agree_media(cfg, params, dev, phase):
+    """bf16 prefill of two prompts of LEGACY's 480 tokens (with media for a
+    vision model) and 4 decode_steps along three paths, each into its own
+    monolithic cache: through the kernels (rmsnorm; decode_attn in every
+    self and cross layer), each call also held to its plain version on
+    that call's own inputs (within 2e-2 of max|plain|: one bf16 ulp);
+    through the plain versions (rmsnorm_ref, decode_attn_ref); and
+    through the plain versions with every norm's input moved by up to one
+    float32 ulp (``nudged_norm``: the model's own sensitivity). The
+    prefill's and each step's logits, all finite, are reported against
+    the plain path's beside that sensitivity, as ``jamba_serve`` reports
+    its own."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.tree import tree_leaves
+    steps, b, limit = 4, 2, TOL["bfloat16"]
+    prompts, media = media_prompts(cfg, b, LEGACY["prompt"], 4)
+    prompt = torch.from_numpy(prompts).to(dev)
+    media = None if media is None else torch.from_numpy(media).to(dev)
+    feed = media_prompts(dataclasses.replace(cfg, n_media_tokens=0), b,
+                         steps, 5)[0]
+    errs = {"decode_attn": []}
+    held_norm, _, _ = held_kernels(errs)
+
+    def held_attn(*args, **kw):
+        out = decode_attn(*args, **kw)
+        errs["decode_attn"].append(max_rel(out, decode_attn_ref(*args,
+                                                                **kw)))
+        return out
+
+    paths = ((held_attn, held_norm), (decode_attn_ref, rmsnorm_ref),
+             (decode_attn_ref, nudged_norm))
+    caches = [init_cache(cfg, b, LEGACY["max_len"], torch.bfloat16, dev)
+              for _ in paths]
+    lg = [prefill(cfg, params, prompt, cache, media, norm=norm)[0].float()
+          for cache, (_, norm) in zip(caches, paths)]
+    worst = {"prefill": max_rel(lg[0], lg[1]), "decode": 0.0}
+    floor = {"prefill": max_rel(lg[2], lg[1]), "decode": 0.0}
+    finite = all(bool(torch.isfinite(x).all()) for x in lg)
+    decode_attn.launches = 0
+    s = prompts.shape[1]
+    for t in range(steps):
+        tok = torch.from_numpy(feed[:, t:t + 1]).to(dev)
+        lg = [decode_step(cfg, params, tok, cache, s + t, attn=attn,
+                          norm=norm)[0].float()
+              for cache, (attn, norm) in zip(caches, paths)]
+        finite &= all(bool(torch.isfinite(x).all()) for x in lg)
+        worst["decode"] = max(worst["decode"], max_rel(lg[0], lg[1]))
+        floor["decode"] = max(floor["decode"], max_rel(lg[2], lg[1]))
+    want_shape = (b, 1) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()) \
+        + (cfg.padded_vocab,)
+    if not finite or tuple(lg[0].shape) != want_shape:
+        raise AssertionError(f"{phase}: logits {tuple(lg[0].shape)} (want "
+                             f"{want_shape}) or not finite")
+    n_norms = sum(layer_norms(cfg, i) for i in range(cfg.n_layers)) + 1
+    calls = {k: len(v) for k, v in errs.items() if v}
+    want = {"decode_attn": decode_attn_calls(cfg) * steps,
+            "rmsnorm": n_norms * (steps + 1)}
+    if calls != want or decode_attn.launches != want["decode_attn"]:
+        raise AssertionError(f"{phase}: held calls {calls}, want {want}")
+    held = {k: max(v) for k, v in errs.items() if v}
+    if not all(e <= limit for e in held.values()):
+        raise AssertionError(f"{phase}: held calls {held}, limit {limit}")
+    del caches
+    torch.cuda.empty_cache()
+    return {"phase": phase, "arch": cfg.name, "dtype": "bfloat16",
+            "params": sum(x.numel() for x in tree_leaves(params)),
+            "batch": b, "prompt": s, "media": None if media is None
+            else list(media.shape), "decode_steps": steps, "finite": True,
+            "held_calls": calls, "held_max_rel_err": held,
+            "held_limit": limit, "logits_rel_err": worst,
+            "sensitivity_one_f32_ulp": floor,
+            "limit_reason": "each kernel call against its plain version on "
+                            "its own inputs, relative to max|plain| (bf16: "
+                            "one ulp); the logits reported beside the "
+                            "model's own sensitivity"}
+
+
+def legacy_serve_media(cfg, params, dev, phase):
+    """ServeEngine.generate at LEGACY's settings (b 4, 480-token prompts,
+    96 new, max_len 1024), greedy, with media (4, 1600, d) float32 for a
+    vision model, codebook prompts (4, 480, 4) for an audio one: tokens/s,
+    peak memory; decode_attn launches == (self + cross layers) x decode
+    steps and rmsnorm launches == norms x (decode steps + prefills); the
+    run's first quarter again, unprofiled for its wall and then under the
+    profiler (the profiler's post-processing of a whole run takes half a
+    minute): the same tokens, one decode_attn device kernel a launch, the
+    idle share."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.serve import ServeEngine
+    b, n_new = LEGACY["b"], LEGACY["n_new"]
+    prompts, media = media_prompts(cfg, b, LEGACY["prompt"], 6)
+    n_norms = sum(layer_norms(cfg, i) for i in range(cfg.n_layers)) + 1
+    per_step = decode_attn_calls(cfg)
+    eng = ServeEngine(cfg, params, max_len=LEGACY["max_len"], device=dev)
+    eng.generate(prompts[:, :16], 4, media=media)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_attn.launches = rmsnorm_fwd.launches = 0
+    add_rmsnorm_fwd.launches = 0
+    eng.decode_steps = eng.prefills = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, n_new, media=media)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps, prefills = eng.decode_steps, eng.prefills
+    launches = {"decode_attn": decode_attn.launches,
+                "rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches}
+    want = {"decode_attn": per_step * steps,
+            "rmsnorm": n_norms * (steps + prefills),
+            "rmsnorm_fused": (n_norms - 1) * (steps + prefills)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != want or steps != n_new - 1:
+        raise AssertionError(f"{phase}: launches {launches}, want {want} "
+                             f"({steps} decode steps)")
+    shape = (b, n_new) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    if toks.shape != shape or toks.min() < 0 \
+            or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"{phase}: bad output {toks.shape}")
+    n_prof = n_new // 4
+    t0 = time.perf_counter()            # the unprofiled wall of that run
+    eng.generate(prompts, n_prof, media=media)
+    torch.cuda.synchronize()
+    wall_prof = time.perf_counter() - t0
+    decode_attn.launches = 0
+    with device_profile() as prof:
+        toks_prof = eng.generate(prompts, n_prof, media=media)
+        torch.cuda.synchronize()
+    if not np.array_equal(toks_prof, toks[:, :n_prof]):
+        raise AssertionError(f"{phase}: the profiled run's tokens differ "
+                             f"from the timed run's")
+    summary = device_summary(prof, wall_prof, 8)
+    seen = summary["port_kernels"].get("decode_attn_kernel",
+                                       {"count": 0, "device_ms": 0.0})
+    if seen["count"] != decode_attn.launches:
+        raise AssertionError(f"{phase}: {seen['count']} decode_attn device "
+                             f"kernels for {decode_attn.launches} launches")
+    del eng
+    torch.cuda.empty_cache()
+    n_tokens = b * n_new
+    return {"phase": phase, "arch": cfg.name, "dtype": cfg.compute_dtype,
+            "batch": b, "prompt": LEGACY["prompt"], "n_new": n_new,
+            "max_len": LEGACY["max_len"], "out_shape": list(toks.shape),
+            "media": None if media is None else list(media.shape),
+            "decode_steps": steps, "prefills": prefills,
+            "decode_attn_per_step": per_step, "norms_per_step": n_norms,
+            "launches": launches, "tokens": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall,
+            "codebook_tokens_per_s": toks.size / wall,
+            "peak_mem_gib": peak,
+            "decode_attn_device": {"kernels": seen["count"],
+                                   "launches": decode_attn.launches,
+                                   "device_ms": seen["device_ms"]},
+            "profile": {"n_new": n_prof, "wall_s": wall_prof, **summary},
+            "row0_first8": toks[0, :8].tolist()}
+
+
+def media_model(arch, dev):
+    """``arch`` at full width and depth, initialised in bf16 from seed 0,
+    every cross gate opened: (cfg, params)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch)
+    return cfg, open_gates(init_params(cfg, seed=0, device=dev,
+                                       param_dtype=torch.bfloat16), 0)
+
+
+def phase_vlm_agree(cfg, params, dev):
+    """``legacy_agree_media`` on llama-3.2-vision-11b at full width and
+    depth (40 layers, 8 of them cross layers over 1600 media positions),
+    bf16, cross gates U(0.5, 1.0)."""
+    return legacy_agree_media(cfg, params, dev, "vlm_agree")
+
+
+def phase_vlm_serve(cfg, params, dev):
+    """``legacy_serve_media`` on llama-3.2-vision-11b: 48 decode_attn
+    launches a step (40 self, 8 cross), 89 rmsnorm launches a step and a
+    prefill."""
+    return legacy_serve_media(cfg, params, dev, "vlm_serve")
+
+
+def phase_audio_agree(cfg, params, dev):
+    """``legacy_agree_media`` on musicgen-large at full width and depth
+    (48 layers, kv 32, g 1, hd 64; four codebook streams), bf16."""
+    return legacy_agree_media(cfg, params, dev, "audio_agree")
+
+
+def phase_audio_serve(cfg, params, dev):
+    """``legacy_serve_media`` on musicgen-large: output (4, 96, 4); 48
+    decode_attn and 97 rmsnorm launches a step."""
+    return legacy_serve_media(cfg, params, dev, "audio_serve")
+
+
+def phase_audio_train(dev):
+    """WASGD+ on musicgen-large at full width and depth (3.26B params,
+    f32 params, bf16 compute, remat on), ``MEDIA_TRAIN``'s settings (p 2):
+    codebook tokens and labels (n, 640, 4), the CE over (p, b, 640, 4,
+    2048) logits in one fused_ce launch a step; wagg_fused once per leaf
+    (435 a round)."""
+    from repro_torch.configs import get_config
+    rec = lm_train_run(get_config(AUDIO_ARCH), MEDIA_TRAIN, "audio_train",
+                       dev)
+    rec["cut"] = {"p": [LM["p"], MEDIA_TRAIN["p"]]}
+    return rec
+
+
+def phase_vlm_train(dev):
+    """WASGD+ on one period of llama-3.2-vision-11b at full width
+    (n_layers cut from 40 to 5: 4 self-attention layers, then a cross
+    layer; 2.18B params), ``MEDIA_TRAIN``'s settings with a ``media``
+    leaf (n, 1600, 4096) float32 in the dataset: the media ride through
+    the vmapped, rematerialised round; cross gates opened; wagg_fused
+    once per leaf (54 a round)."""
+    from repro_torch.configs import get_config
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
+    rec = lm_train_run(cfg, MEDIA_TRAIN, "vlm_train", dev)
+    rec["cut"] = {"n_layers": [full.n_layers, VLM_TRAIN_LAYERS],
+                  "p": [LM["p"], MEDIA_TRAIN["p"]]}
+    return rec
+
+
 def decode_inputs(b, S, kv, g, hd, q_dtype, kv_dtype, gen, dev):
     import torch
     q = torch.randn(b, kv, g, hd, generator=gen, device=dev).to(q_dtype)
@@ -3794,7 +4122,9 @@ def phase_decode_attn_check(dev):
     (the largest split, whole in flight), a device cache_len at S and at 0
     (no valid position: the Pallas kernel's floored denominator gives 0,
     where the plain version's softmax over an all-masked row is uniform),
-    and, under the profiler, one device kernel a call."""
+    a llama-3.2-vision cross layer (b 4, 1600 media positions, kv 8, g 4,
+    hd 128) and musicgen-large's self-attention (kv 32, g 1, hd 64, 1024
+    positions), and, under the profiler, one device kernel a call."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
     from repro_torch.kernels.decode_attn.decode_attn import split_plan
@@ -3837,7 +4167,12 @@ def phase_decode_attn_check(dev):
              ("bfloat16", "bfloat16"),
              [(1024, None, False), (1024, None, True), (0, None, True)]),
             ("global1024_full_f32", LEGACY["b"], 1, 4, 256, 1024,
-             ("float32", "float32"), [(1024, None, False)])):
+             ("float32", "float32"), [(1024, None, False)]),
+            # a llama-3.2-vision cross layer over its 1600 media positions
+            ("cross1600", *CROSS_SHAPE, ("bfloat16", "bfloat16"),
+             [(1600, None, False), (1600, None, True)]),
+            ("musicgen1024", *MUSICGEN_SHAPE, ("bfloat16", "bfloat16"),
+             [(528, None, False), (1024, None, True)])):
         q, k, v = decode_inputs(bb, S, kvv, g, hd, getattr(torch, qn),
                                 getattr(torch, kn), gen, dev)
         for cache_len, window, on_dev in lens:
@@ -3888,28 +4223,36 @@ def decode_work(b, kv, g, hd, cache_len, elem):
 
 
 def phase_decode_attn_time(dev):
-    """decode_attn at the legacy serve run's two shapes (gemma3-1b, b = 4,
-    bf16): a local layer's 512-position ring, full after the wrap, and a
-    global layer's 1024-position cache at a mid-run cache_len of 528; the
-    plain version and SDPA on the same caches with the same boolean mask
-    (K/V expanded to the query heads)."""
+    """decode_attn at the legacy serve runs' shapes (b = 4, bf16): on
+    gemma3-1b (kv 1, g 4, hd 256) a local layer's 512-position ring, full
+    after the wrap, and a global layer's 1024-position cache at a mid-run
+    cache_len of 528; a llama-3.2-vision cross layer over all 1600 media
+    positions (kv 8, g 4, hd 128: 26.2 MB of K/V, the first shape bound by
+    its bytes rather than by latency); musicgen-large's self-attention
+    (kv 32, g 1, hd 64) at cache_len 528 of 1024. The plain version and
+    SDPA on the same caches with the same boolean mask (K/V expanded to
+    the query heads)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
-    b, kv, g, hd = LEGACY["b"], 1, 4, 256
     n_sets = 32
     res = {}
-    for layer, S, cache_len in (("ring512", 512, 512),
-                                ("global1024", 1024, 528)):
+    gemma = (LEGACY["b"], 1, 4, 256)
+    for layer, (b, kv, g, hd), S, cache_len in (
+            ("ring512", gemma, 512, 512),
+            ("global1024", gemma, 1024, 528),
+            ("cross1600", CROSS_SHAPE[:4], 1600, 1600),
+            ("musicgen1024", MUSICGEN_SHAPE[:4], 1024, 528)):
         sets = [decode_inputs(b, S, kv, g, hd, torch.bfloat16,
                               torch.bfloat16, gen, dev)
                 for _ in range(n_sets)]
         mask = (torch.arange(S, device=dev) < cache_len)[None, None, None]
+        # each query head's K/V: KV head h serves query heads h*g..h*g+g-1
         lib_sets = [(q.reshape(b, kv * g, 1, hd),
-                     k.transpose(1, 2).expand(b, kv * g, S, hd).contiguous(),
-                     v.transpose(1, 2).expand(b, kv * g, S, hd).contiguous())
+                     k.transpose(1, 2).repeat_interleave(g, dim=1),
+                     v.transpose(1, 2).repeat_interleave(g, dim=1))
                     for q, k, v in sets]
 
         def kern(s):
@@ -4778,6 +5121,22 @@ def main():
     olmoe_train = run_phase(phase_olmoe_train, ocfg, dev)
     torch.cuda.empty_cache()
     jamba = run_phase(phase_jamba_serve, dev)
+    torch.cuda.empty_cache()
+
+    vcfg, vparams = media_model(VLM_ARCH, dev)           # 20 GB in bf16
+    run_phase(phase_vlm_agree, vcfg, vparams, dev)
+    vlm_serve = run_phase(phase_vlm_serve, vcfg, vparams, dev)
+    del vparams
+    torch.cuda.empty_cache()
+    acfg, aparams = media_model(AUDIO_ARCH, dev)
+    run_phase(phase_audio_agree, acfg, aparams, dev)
+    audio_serve = run_phase(phase_audio_serve, acfg, aparams, dev)
+    del aparams
+    torch.cuda.empty_cache()
+    audio_train = run_phase(phase_audio_train, dev)
+    torch.cuda.empty_cache()
+    vlm_train = run_phase(phase_vlm_train, dev)
+    media_train = {"audio_train": audio_train, "vlm_train": vlm_train}
 
     t = timing["ring512"]
     w = wagg_timing["cnn6_round/none"]
@@ -4823,6 +5182,8 @@ def main():
         "lm3b_train_int4_launches": lm3b["launches"]["wagg_fused"],
         "ssm_lm_train_launches": ssm_lm["launches"]["wagg_fused"],
         "olmoe_train_launches": olmoe_train["launches"]["wagg_fused"],
+        **{f"{k}_launches": v["launches"]["wagg_fused"]
+           for k, v in media_train.items()},
         "cnn6_int4_launches": int4["cnn6"]["launches"],
         "lm3b_mlp_leaf_int4": {k: lm3b_leaf[k] for k in (
             "leaves", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4864,7 +5225,11 @@ def main():
         "ssm_lm_train_launches": ssm_lm["launches"]["rmsnorm"],
         "olmoe_serve_launches": olmoe_serve["rmsnorm_launches"],
         "olmoe_train_launches": olmoe_train["launches"]["rmsnorm"],
-        "jamba_serve_launches": jamba["launches"]["rmsnorm"]}, {
+        "jamba_serve_launches": jamba["launches"]["rmsnorm"],
+        "vlm_serve_launches": vlm_serve["launches"]["rmsnorm"],
+        "audio_serve_launches": audio_serve["launches"]["rmsnorm"],
+        **{f"{k}_launches": v["launches"]["rmsnorm"]
+           for k, v in media_train.items()}}, {
         "name": "fused_ce", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
@@ -4881,7 +5246,9 @@ def main():
         "evaluate_lm_launches": t2s["eval_launches"]["fused_ce"],
         "lm3b_train_launches": lm3b["launches"]["fused_ce"],
         "ssm_lm_train_launches": ssm_lm["launches"]["fused_ce"],
-        "olmoe_train_launches": olmoe_train["launches"]["fused_ce"]}, {
+        "olmoe_train_launches": olmoe_train["launches"]["fused_ce"],
+        **{f"{k}_launches": v["launches"]["fused_ce"]
+           for k, v in media_train.items()}}, {
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/decode_attn.py:78",
@@ -4898,9 +5265,14 @@ def main():
                 "cache, cache_len 528, bf16); launches from legacy_serve",
         "kernels_per_call": da_timing["global1024"]["kernels_per_call"],
         "legacy_serve_profile": legacy["decode_attn_device"],
-        "ring512": {k: da_timing["ring512"][k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "kernels_per_call")}}, {
+        "vlm_serve_launches": vlm_serve["launches"]["decode_attn"],
+        "audio_serve_launches": audio_serve["launches"]["decode_attn"],
+        "vlm_serve_profile": vlm_serve["decode_attn_device"],
+        "audio_serve_profile": audio_serve["decode_attn_device"],
+        **{layer: {k: da_timing[layer][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "kernels_per_call")}
+           for layer in ("ring512", "cross1600", "musicgen1024")}}, {
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_chunk/ssd_chunk.py:61",

@@ -3,9 +3,8 @@
 (the fields and predicates the serving and training paths read),
 ``WASGDConfig`` and ``TrainConfig``.
 
-The cross-attention and codebook fields are kept so that a config can say
-what it is; the port's model raises ``NotImplementedError`` on either
-(``models.transformer.check_supported``).
+The cross-attention fields (``cross_attn_every``, ``n_media_tokens``)
+and ``n_codebooks`` drive the vision and audio archs, as in JAX.
 """
 from __future__ import annotations
 
@@ -80,8 +79,11 @@ class ModelConfig:
     # Attention pattern
     attn_window: Optional[int] = None   # sliding-window size; None = full
     global_attn_every: int = 0          # >0: layer idx % every == every-1 is global
-    cross_attn_every: int = 0           # >0 (vlm): not served by the port
-    n_codebooks: int = 0                # audio: not served by the port
+    cross_attn_every: int = 0           # >0 (vlm): cross-attention at
+                                        # idx % every == every-1
+    n_media_tokens: int = 0             # vlm: patch tokens an example
+                                        # (the vision encoder is a stub)
+    n_codebooks: int = 0                # audio: parallel EnCodec streams
 
     # MoE and SSM sub-configs
     moe: Optional[MoEConfig] = None

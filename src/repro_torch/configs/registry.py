@@ -1,5 +1,4 @@
-"""Architecture registry of the port: the archs it serves and trains so
-far (every arch of the JAX registry but the vision and audio ones)."""
+"""Architecture registry of the port: every arch of the JAX registry."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +15,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama32_vision_11b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

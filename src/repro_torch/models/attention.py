@@ -2,7 +2,8 @@
 with causal and sliding-window masking, and its q-blocked form for
 sliding windows that skips the key blocks outside the window, the
 counterparts of ``flash_attention``, ``flash_attention_windowed`` and
-``_block_mask`` in ``repro/models/attention.py``.
+``_block_mask`` in ``repro/models/attention.py``; and the VLM's gated
+layers' cross-attention over media embeddings (``cross_attention`` :239).
 
 Plain torch ops, chunked over keys like the JAX version so that peak
 memory stays O(seq * block); the JAX version is no Pallas kernel, so
@@ -31,6 +32,18 @@ def attention_init(b: ParamBuilder, name: str, d_model: int, n_heads: int,
 class KVCache(NamedTuple):
     k: torch.Tensor              # (b, S, kv, hd)
     v: torch.Tensor
+
+
+def proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def merge_heads(att: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", att, wo)`` as one matrix product."""
+    h, k, d = wo.shape
+    return att.reshape(*att.shape[:-2], h * k) @ wo.reshape(h * k, d)
 
 
 def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -134,3 +147,34 @@ def flash_attention_windowed(q: torch.Tensor, k: torch.Tensor,
         o = torch.einsum("bkgqt,btkd->bkgqd", pr, vspan)
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, blk, h, hd))
     return torch.cat(outs, dim=1)[:, :s].to(q.dtype)
+
+
+# -- cross-attention (VLM) ----------------------------------------------------
+
+def cross_attention_init(b: ParamBuilder, name: str, d_model: int,
+                         n_heads: int, n_kv_heads: int, head_dim: int):
+    attention_init(b, name, d_model, n_heads, n_kv_heads, head_dim)
+
+
+def cross_kv(params, media: torch.Tensor, compute_dtype: torch.dtype):
+    """The media's keys and values (b, M, kv, hd). JAX computes them as
+    ``einsum(media, w.astype(compute_dtype))``, whose type is the
+    promotion of the two: float32 media (what ``lm_batch`` makes) give
+    float32 K/V beside bf16 queries. ``torch.matmul`` takes one dtype, so
+    the weights are cast to the compute dtype and then to that promotion
+    explicitly."""
+    dt = torch.promote_types(media.dtype, compute_dtype)
+    media = media.to(dt)
+    return tuple(proj_heads(media, params[n].to(compute_dtype).to(dt))
+                 for n in ("wk", "wv"))
+
+
+def cross_attention(params, x: torch.Tensor, media: torch.Tensor, *,
+                    compute_dtype: torch.dtype) -> torch.Tensor:
+    """x (b, s, d) attends over media embeddings (b, M, d): no mask, no
+    rope; (b, s, d) in x's dtype. JAX computes it in plain jnp outside any
+    Pallas kernel, as here."""
+    k, v = cross_kv(params, media, compute_dtype)
+    q = proj_heads(x, params["wq"].to(compute_dtype))
+    out = flash_attention(q, k, v, causal=False)
+    return merge_heads(out, params["wo"].to(compute_dtype))

@@ -99,18 +99,35 @@ def mlp(params, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
 
 # -- Embedding / LM head ------------------------------------------------------------
 
-def embed_init(b: ParamBuilder, name: str, vocab: int, d_model: int):
-    b.scope(name).param("tok", (vocab, d_model), scale=d_model ** -0.5)
+def embed_init(b: ParamBuilder, name: str, vocab: int, d_model: int,
+               n_codebooks: int = 0):
+    """``tok`` is (V, d), or (n_q, V, d) with ``n_codebooks`` (audio)."""
+    shape = ((n_codebooks, vocab, d_model) if n_codebooks > 0
+             else (vocab, d_model))
+    b.scope(name).param("tok", shape, scale=d_model ** -0.5)
 
 
 def embed(params, tokens: torch.Tensor,
           compute_dtype: torch.dtype) -> torch.Tensor:
-    # gather, then cast: the same values as casting the table first
-    return params["tok"][tokens.long()].to(compute_dtype)
+    """tokens (b, s) -> (b, s, d), or (b, s, n_q) -> the sum of the n_q
+    codebooks' rows. JAX sums them as a one-hot einsum in the compute
+    dtype; here each row is gathered and cast to it, the n_q rows are
+    summed in float32 and rounded once (the same values as casting the
+    table first)."""
+    tok = params["tok"]
+    if tok.dim() == 3:           # audio: (n_q, V, d), tokens (..., n_q)
+        codebook = torch.arange(tok.shape[0], device=tok.device)
+        rows = tok[codebook, tokens.long()].to(compute_dtype)
+        return rows.float().sum(dim=-2).to(compute_dtype)
+    return tok[tokens.long()].to(compute_dtype)
 
 
-def head_init(b: ParamBuilder, name: str, d_model: int, vocab: int):
-    b.scope(name).param("w", (d_model, vocab))
+def head_init(b: ParamBuilder, name: str, d_model: int, vocab: int,
+              n_codebooks: int = 0):
+    """``w`` is (d, V), or (n_q, d, V) with ``n_codebooks`` (audio)."""
+    shape = ((n_codebooks, d_model, vocab) if n_codebooks > 0
+             else (d_model, vocab))
+    b.scope(name).param("w", shape)
 
 
 def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -121,7 +138,12 @@ def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
 
 def head(params, x: torch.Tensor, compute_dtype: torch.dtype,
          softcap: float = 0.0) -> torch.Tensor:
-    return _softcap(x @ params["w"].to(compute_dtype), softcap)
+    """x (..., d) -> logits (..., V), or (..., n_q, V) for a codebook head
+    (audio)."""
+    w = params["w"].to(compute_dtype)
+    if w.dim() == 3:
+        return _softcap(torch.einsum("...d,qdv->...qv", x, w), softcap)
+    return _softcap(x @ w, softcap)
 
 
 def tied_head(embed_params, x: torch.Tensor, compute_dtype: torch.dtype,

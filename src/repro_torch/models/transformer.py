@@ -4,12 +4,21 @@ the training forward (``forward`` :149 over ``_apply_layer`` :94, and
 ``prefill`` :328, ``decode_step`` :254, ``PagedKV``, ``cache_layout``
 :462 and ``decode_step_paged`` :511).
 
-Dense attention layers, Mamba2 SSM layers, top-k MoE FFNs (with arctic's
-dense residual MLP) and the hybrid's interleave of all three are ported,
-for training and serving (``check_supported``); cross-attention and
-codebook configs raise ``NotImplementedError``. An MoE layer's auxiliary
+Every layer kind of the JAX model is ported, for training and serving:
+dense attention, Mamba2 SSM layers, top-k MoE FFNs (with arctic's dense
+residual MLP), the hybrid's interleave of all three, the VLM's gated
+cross-attention over media embeddings (``x + tanh(cross_gate) * y`` after
+self-attention, on layers ``cross_attn_every - 1`` mod ``cross_attn_every``)
+and the audio models' parallel codebooks (tokens (b, s, n_q), the n_q
+embeddings summed, logits (b, s, n_q, V)). An MoE layer's auxiliary
 losses (load balance and router z-loss) are summed over the layers into
-``loss = ce + moe_loss``, as JAX's ``loss_fn``.
+``loss = ce + moe_loss``, as JAX's ``loss_fn``. Media (b, M, d) ride
+beside the tokens: in the batch's ``media`` leaf for training, as
+``prefill``'s argument for serving; ``prefill`` keeps each cross layer's
+media K/V in the cache and ``decode_step`` attends over them with the
+``decode_attn`` kernel (``cache_len`` M), as JAX's ``decode_step`` does
+with its jnp twin. A cross layer given no media skips its cross branch,
+as in JAX.
 
 Where JAX returns fresh arrays, the port writes caches and pools in place:
 a cache is as large as the model's K/V working set, and a copy per step
@@ -67,23 +76,31 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import (KVCache, attention_init,
+                                         cross_attention,
+                                         cross_attention_init, cross_kv,
                                          flash_attention,
-                                         flash_attention_windowed)
+                                         flash_attention_windowed,
+                                         merge_heads, proj_heads)
 from repro_torch.models.param import ParamBuilder, build
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises on what the port does not cover: cross-attention (vision)
-    layers and codebook (audio) configs. Dense, MoE, SSM and hybrid
-    layers pass."""
-    if cfg.n_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-codebook (audio) configs are not ported")
-    for i in range(cfg.n_layers):
-        if cfg.layer_is_cross_attn(i):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} is cross-attention, which is not "
-                f"ported")
+    """Raises ``ValueError`` on a config whose media and codebook fields
+    contradict its layers: a cross-attention layer that is no attention
+    layer (JAX's cross branch sits in the attention branch, so it would
+    never run), cross layers without ``n_media_tokens`` (the decode
+    cache's length), or codebooks with a tied head (the tied head has no
+    codebook form). Every arch of the registry passes."""
+    cross = [i for i in range(cfg.n_layers) if cfg.layer_is_cross_attn(i)]
+    for i in cross:
+        if not cfg.layer_is_attn(i):
+            raise ValueError(f"{cfg.name}: cross-attention layer {i} is no "
+                             f"attention layer")
+    if cross and cfg.n_media_tokens < 1:
+        raise ValueError(f"{cfg.name}: cross-attention layers need "
+                         f"n_media_tokens >= 1")
+    if cfg.n_codebooks and cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: codebooks need an untied head")
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -95,7 +112,9 @@ def _has_attn(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 def _init_layer(b: ParamBuilder, cfg: ModelConfig, i: int):
-    """The leaves of ``repro/models/transformer.py:39``: an MoE FFN on MoE
+    """The leaves of ``repro/models/transformer.py:39``: a cross-attention
+    layer's ``cross_norm``, ``cross`` and ``cross_gate`` (zeros, so the
+    branch starts closed) after its self-attention; an MoE FFN on MoE
     layers (with arctic's ``dense_mlp`` beside it), else an MLP after
     attention, and after an SSM mixer only in a hybrid model."""
     s = b.scope(f"L{i}")
@@ -104,6 +123,11 @@ def _init_layer(b: ParamBuilder, cfg: ModelConfig, i: int):
         L.rmsnorm_init(s, "attn_norm", d)
         attention_init(s, "attn", d, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim)
+        if cfg.layer_is_cross_attn(i):
+            L.rmsnorm_init(s, "cross_norm", d)
+            cross_attention_init(s, "cross", d, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim)
+            s.param("cross_gate", (1,), init="zeros")
     if cfg.layer_is_ssm(i):
         L.rmsnorm_init(s, "ssm_norm", d)
         SSM.ssm_init(s, "ssm", d, cfg.ssm)
@@ -118,13 +142,14 @@ def _init_layer(b: ParamBuilder, cfg: ModelConfig, i: int):
 
 
 def _init_model(b: ParamBuilder, cfg: ModelConfig):
-    L.embed_init(b, "embed", cfg.padded_vocab, cfg.d_model)
+    L.embed_init(b, "embed", cfg.padded_vocab, cfg.d_model, cfg.n_codebooks)
     lb = b.scope("layers")
     for i in range(cfg.n_layers):
         _init_layer(lb, cfg, i)
     L.rmsnorm_init(b, "final_norm", cfg.d_model)
     if not cfg.tie_embeddings:
-        L.head_init(b, "head", cfg.d_model, cfg.padded_vocab)
+        L.head_init(b, "head", cfg.d_model, cfg.padded_vocab,
+                    cfg.n_codebooks)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
@@ -167,22 +192,10 @@ def cast_params(params: Dict, dtype: torch.dtype, device=None,
 # Shared pieces of one layer
 # ---------------------------------------------------------------------------
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
-    d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
-
-
-def _out(att: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd", att, wo)`` as one matrix product."""
-    h, k, d = wo.shape
-    return att.reshape(*att.shape[:-2], h * k) @ wo.reshape(h * k, d)
-
-
 def _qkv(ap: Dict, h: torch.Tensor, rope, dt: torch.dtype):
-    q = L.apply_rope_tables(_proj(h, ap["wq"].to(dt)), *rope)
-    k = L.apply_rope_tables(_proj(h, ap["wk"].to(dt)), *rope)
-    return q, k, _proj(h, ap["wv"].to(dt))
+    q = L.apply_rope_tables(proj_heads(h, ap["wq"].to(dt)), *rope)
+    k = L.apply_rope_tables(proj_heads(h, ap["wk"].to(dt)), *rope)
+    return q, k, proj_heads(h, ap["wv"].to(dt))
 
 
 def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
@@ -215,6 +228,12 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return flash_attention(q, k, v, causal=True, window=window)
 
 
+def _gated(lp: Dict, y: torch.Tensor) -> torch.Tensor:
+    """``tanh(cross_gate) * y``, the gate in y's dtype as JAX casts it to
+    the residual's."""
+    return torch.tanh(lp["cross_gate"].to(y.dtype)) * y
+
+
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
             delta: Optional[torch.Tensor], dt: torch.dtype,
             norm: L.NormFn) -> torch.Tensor:
@@ -231,19 +250,26 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
-                 delta: Optional[torch.Tensor], rope, i: int,
-                 dt: torch.dtype, norm: L.NormFn, ssd: SSM.SSDFn) -> Tuple:
+                 delta: Optional[torch.Tensor], media: Optional[torch.Tensor],
+                 rope, i: int, dt: torch.dtype, norm: L.NormFn,
+                 ssd: SSM.SSDFn) -> Tuple:
     """JAX's ``_apply_layer`` without a cache: causal self-attention over
-    the whole sequence (the layer's window, if any) and/or the Mamba2
-    mixer in its prefill form (through ``ssd``), then the layer's FFN
-    (``_ffn``), each behind its RMSNorm and residual. Each residual add
-    runs in the next norm's launch: takes (x, the pending residual) and
-    returns them, and an MoE layer's auxiliary loss after them."""
+    the whole sequence (the layer's window, if any), on a cross layer
+    given ``media`` the gated cross-attention over them, and/or the
+    Mamba2 mixer in its prefill form (through ``ssd``), then the layer's
+    FFN (``_ffn``), each behind its RMSNorm and residual. Each residual
+    add runs in the next norm's launch: takes (x, the pending residual)
+    and returns them, and an MoE layer's auxiliary loss after them."""
     if cfg.layer_is_attn(i):
         x, h = L.add_rmsnorm(lp["attn_norm"], x, delta, cfg.norm_eps, norm)
         q, k, v = _qkv(lp["attn"], h, rope, dt)
         att = _attend(cfg, q, k, v, cfg.window_for_layer(i))
-        delta = _out(att, lp["attn"]["wo"].to(dt))
+        delta = merge_heads(att, lp["attn"]["wo"].to(dt))
+        if cfg.layer_is_cross_attn(i) and media is not None:
+            x, h = L.add_rmsnorm(lp["cross_norm"], x, delta, cfg.norm_eps,
+                                 norm)
+            delta = _gated(lp, cross_attention(lp["cross"], h, media,
+                                               compute_dtype=dt))
     if cfg.layer_is_ssm(i):
         x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps, norm)
         delta, _ = SSM.ssm_layer(lp["ssm"], h, cfg.ssm, cfg.d_model, dt,
@@ -253,50 +279,55 @@ def _apply_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
 
 
 def _call_layer(layer: Callable, key: str, lp: Dict, x: torch.Tensor,
-                delta: Optional[torch.Tensor]):
+                delta: Optional[torch.Tensor], media: Optional[torch.Tensor]):
     """Runs ``layer`` as it is: the per-layer call of ``forward``."""
-    return layer(lp, x, delta)
+    return layer(lp, x, delta, media)
 
 
 def _layers(cfg: ModelConfig, layer_params: Dict, x: torch.Tensor,
-            dt: torch.dtype, norm: L.NormFn, ssd: SSM.SSDFn,
-            call: Callable = _call_layer
+            media: Optional[torch.Tensor], dt: torch.dtype, norm: L.NormFn,
+            ssd: SSM.SSDFn, call: Callable = _call_layer
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                        Optional[torch.Tensor]]:
-    """The layer loop of the training forward over x (..., b, s, d): returns
-    (x, the pending residual, the MoE layers' summed auxiliary loss or None
-    for a model without them). ``call(layer, key, lp, x, delta)`` runs
-    layer ``key``, ``layer(lp, x, delta)`` on one model's tensors:
-    ``forward`` calls it as it is, ``worker_losses`` under ``vmap`` (and
+    """The layer loop of the training forward over x (..., b, s, d) and the
+    media (..., b, M, d) or None: returns (x, the pending residual, the
+    MoE layers' summed auxiliary loss or None for a model without them).
+    ``call(layer, key, lp, x, delta, media)`` runs layer ``key``,
+    ``layer(lp, x, delta, media)`` on one model's tensors: ``forward``
+    calls it as it is, ``worker_losses`` under ``vmap`` (and
     ``checkpoint``)."""
     b, s = x.shape[-3:-1]
     rope = _rope(cfg, torch.arange(s, device=x.device).expand(b, s))
     delta = moe_loss = None
     for i in range(cfg.n_layers):
-        def layer(lp, x, delta, i=i):
-            return _apply_layer(cfg, lp, x, delta, rope, i, dt, norm, ssd)
+        def layer(lp, x, delta, media, i=i):
+            return _apply_layer(cfg, lp, x, delta, media, rope, i, dt, norm,
+                                ssd)
         key = f"L{i}"
-        x, delta, *aux = call(layer, key, layer_params[key], x, delta)
+        x, delta, *aux = call(layer, key, layer_params[key], x, delta, media)
         if aux:
             moe_loss = aux[0] if moe_loss is None else moe_loss + aux[0]
     return x, delta, moe_loss
 
 
-def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            media: Optional[torch.Tensor] = None, *,
             norm: L.NormFn = rmsnorm_kernel,
             ssd: SSM.SSDFn = ssd_chunked_kernel
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (b, s) -> (logits (b, s, V) in ``compute_dtype``, the MoE
-    auxiliary loss summed over the layers, zero for a model without MoE
-    layers), as JAX's ``forward``. Every norm a layer has and the final
-    one are calls of ``norm`` (2 * n_layers + 1 for a dense or MoE model,
-    n_layers + 1 for mamba2), all but the first with the residual add
-    before it fused in; every SSM layer runs ``ssd`` (default: the
-    ``ssd_chunk`` kernel)."""
+    """tokens (b, s), or (b, s, n_q) for codebooks, and media (b, M, d) or
+    None -> (logits (b, s, V) or (b, s, n_q, V) in ``compute_dtype``, the
+    MoE auxiliary loss summed over the layers, zero for a model without
+    MoE layers), as JAX's ``forward``. Every norm a layer has and the
+    final one are calls of ``norm`` (2 * n_layers + 1 for a dense or MoE
+    model, one more a cross layer given media, n_layers + 1 for mamba2),
+    all but the first with the residual add before it fused in; every SSM
+    layer runs ``ssd`` (default: the ``ssd_chunk`` kernel)."""
     check_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
-    x, delta, moe_loss = _layers(cfg, params["layers"], x, dt, norm, ssd)
+    x, delta, moe_loss = _layers(cfg, params["layers"], x, media, dt, norm,
+                                 ssd)
     if moe_loss is None:
         moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x, delta, dt, norm), moe_loss
@@ -307,14 +338,16 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
             ce: Callable = fused_ce,
             ssd: SSM.SSDFn = ssd_chunked_kernel) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy of ``batch`` (``tokens``, ``labels``, both
-    (b, s)), as JAX's ``loss_fn``: (loss, {"ce", "moe_loss"}). The logits
-    are widened to float32 and ``ce`` (default: the ``fused_ce`` kernel;
-    ``kernels.fused_ce.fused_ce_ref`` is its plain version) gives each
-    token's ``logsumexp - label logit``. JAX's two CE forms
-    (``cfg.sharded_ce``: one-hot contraction, or ``log_softmax`` and a
-    gather) are that same function, so both take ``ce`` here."""
-    logits, moe_loss = forward(cfg, params, batch["tokens"], norm=norm,
-                               ssd=ssd)
+    (b, s) or (b, s, n_q), and ``media`` (b, M, d) where the model has
+    cross layers), as JAX's ``loss_fn``: (loss, {"ce", "moe_loss"}). The
+    logits are widened to float32 and ``ce`` (default: the ``fused_ce``
+    kernel; ``kernels.fused_ce.fused_ce_ref`` is its plain version) gives
+    each token's (each codebook's) ``logsumexp - label logit``, and the
+    mean runs over them all. JAX's two CE forms (``cfg.sharded_ce``:
+    one-hot contraction, or ``log_softmax`` and a gather) are that same
+    function, so both take ``ce`` here."""
+    logits, moe_loss = forward(cfg, params, batch["tokens"],
+                               batch.get("media"), norm=norm, ssd=ssd)
     return _loss_of_logits(logits, moe_loss, batch["labels"], ce)
 
 
@@ -330,9 +363,11 @@ def worker_losses(cfg: ModelConfig, params: Dict, in_dims: Dict,
                   ) -> Tuple[torch.Tensor, Dict]:
     """``vmap(loss_fn)`` over the worker axis, piece by piece: params
     worker-stacked as ``in_dims`` says (0 or None a leaf), batch leaves
-    (p, b, s). Returns (losses (p,), {"ce", "moe_loss"} each (p,)), the
-    same numbers as ``vmap(lambda q, b: loss_fn(cfg, q, b))``. With
-    ``cfg.remat`` each layer is recomputed in the backward pass
+    (p, b, s) (``tokens``/``labels``, (p, b, s, n_q) with codebooks, and
+    ``media`` (p, b, M, d), mapped like x into every layer). Returns
+    (losses (p,), {"ce", "moe_loss"} each (p,)), the same numbers as
+    ``vmap(lambda q, b: loss_fn(cfg, q, b))``. With ``cfg.remat`` each
+    layer is recomputed in the backward pass
     (``torch.utils.checkpoint``, non-reentrant; no dropout, so no RNG
     state to keep): its norms and its ``ssd_chunk`` launch run twice a
     step (4 * n_layers + 1 calls of ``norm`` a forward and backward for a
@@ -344,16 +379,17 @@ def worker_losses(cfg: ModelConfig, params: Dict, in_dims: Dict,
     x = vmap(lambda e, t: L.embed(e, t, dt),
              in_dims=(in_dims["embed"], 0))(params["embed"], batch["tokens"])
 
-    def call(layer, key, lp, x, delta):
+    def call(layer, key, lp, x, delta, media):
         run = vmap(layer, in_dims=(in_dims["layers"][key], 0,
-                                   None if delta is None else 0))
+                                   None if delta is None else 0,
+                                   None if media is None else 0))
         if cfg.remat:
-            return checkpoint(run, lp, x, delta, use_reentrant=False,
+            return checkpoint(run, lp, x, delta, media, use_reentrant=False,
                               preserve_rng_state=False)
-        return run(lp, x, delta)
+        return run(lp, x, delta, media)
 
-    x, delta, moe_loss = _layers(cfg, params["layers"], x, dt, norm, ssd,
-                                 call)
+    x, delta, moe_loss = _layers(cfg, params["layers"], x,
+                                 batch.get("media"), dt, norm, ssd, call)
     out_key = "embed" if cfg.tie_embeddings else "head"
     tail_params = {k: params[k] for k in ("final_norm", out_key)}
     tail_dims = {k: in_dims[k] for k in tail_params}
@@ -378,8 +414,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict:
     """Per-layer caches: attention layers a ``KVCache`` of ``(batch, size,
     kv, hd)`` in ``dtype``, where ``size`` is the window for sliding-window
-    layers (ring layout, slot ``p % size``) and ``max_len`` otherwise; SSM
-    layers an ``SSMState`` in float32."""
+    layers (ring layout, slot ``p % size``) and ``max_len`` otherwise, and
+    cross layers a second one, ``cross``, of ``(batch, n_media_tokens, kv,
+    hd)`` for the media's K/V; SSM layers an ``SSMState`` in float32."""
     check_supported(cfg)
     dev = resolve_device(device)
     cache: Dict[str, Dict] = {}
@@ -392,6 +429,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             entry["kv"] = KVCache(
                 k=torch.zeros(shape, dtype=dtype_of(dtype), device=dev),
                 v=torch.zeros(shape, dtype=dtype_of(dtype), device=dev))
+            if cfg.layer_is_cross_attn(i):
+                shape = (batch, cfg.n_media_tokens, cfg.n_kv_heads,
+                         cfg.head_dim)
+                entry["cross"] = KVCache(
+                    k=torch.zeros(shape, dtype=dtype_of(dtype), device=dev),
+                    v=torch.zeros(shape, dtype=dtype_of(dtype), device=dev))
         if cfg.layer_is_ssm(i):
             entry["ssm"] = SSM.init_ssm_state(batch, cfg.d_model, cfg.ssm,
                                               torch.float32, dev)
@@ -408,16 +451,21 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            cache: Dict, *, norm: L.NormFn = rmsnorm_kernel,
+            cache: Dict, media: Optional[torch.Tensor] = None, *,
+            norm: L.NormFn = rmsnorm_kernel,
             ssd: SSM.SSDFn = ssd_chunked_kernel
             ) -> Tuple[torch.Tensor, Dict]:
-    """Fills ``cache`` (in place) from whole prompts ``tokens`` (b, s);
-    returns (last-position logits (b, 1, V), cache). SSM layers run
-    ``ssd`` (default: the ``ssd_chunk`` kernel's forward) and keep their
-    final state and the last ``conv_width - 1`` pre-convolution inputs."""
+    """Fills ``cache`` (in place) from whole prompts ``tokens`` (b, s), or
+    (b, s, n_q) for codebooks; returns (last-position logits (b, 1, V) or
+    (b, 1, n_q, V), cache). Cross layers given ``media`` (b, M, d) attend
+    over them and keep their K/V in the ``cross`` cache (without media
+    they skip the branch and that cache stays as it was, as in JAX). SSM
+    layers run ``ssd`` (default: the ``ssd_chunk`` kernel's forward) and
+    keep their final state and the last ``conv_width - 1``
+    pre-convolution inputs."""
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     rope = _rope(cfg, torch.arange(s, device=x.device).expand(b, s))
     delta = None                # the residual the next norm adds in
 
@@ -432,7 +480,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                  norm)
             q, k, v = _qkv(lp["attn"], h, rope, dt)
             att = _attend(cfg, q, k, v, w)
-            delta = _out(att, lp["attn"]["wo"].to(dt))
+            delta = merge_heads(att, lp["attn"]["wo"].to(dt))
             if w is not None and s >= size:
                 # ring layout: the slot of token p is p % size
                 kv.k.copy_(torch.roll(k[:, -size:], s % size, dims=1))
@@ -440,6 +488,14 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             else:
                 kv.k[:, :s] = k.to(kv.k.dtype)
                 kv.v[:, :s] = v.to(kv.v.dtype)
+            if cfg.layer_is_cross_attn(i) and media is not None:
+                x, h = L.add_rmsnorm(lp["cross_norm"], x, delta,
+                                     cfg.norm_eps, norm)
+                delta = _gated(lp, cross_attention(lp["cross"], h, media,
+                                                   compute_dtype=dt))
+                ck, cv = cross_kv(lp["cross"], media, dt)
+                entry["cross"].k.copy_(ck)
+                entry["cross"].v.copy_(cv)
         if cfg.layer_is_ssm(i):
             x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps,
                                  norm)
@@ -460,13 +516,16 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 norm: L.NormFn = rmsnorm_kernel
                 ) -> Tuple[torch.Tensor, Dict]:
     """One new token per sequence against the monolithic cache, as JAX's
-    ``decode_step``: tokens (b, 1); ``index`` is the number of tokens
-    already in the cache, the same for every row (the host's loop counter,
-    so no step reads the device). Attention layers write the new K/V at
-    slot ``index`` (``index % size`` on ring layers) and attend over
-    ``min(index + 1, size)`` positions with ``attn`` (default: the
-    ``decode_attn`` kernel), without a window; SSM layers step their state.
-    The cache is written in place. Returns (logits (b, 1, V), cache)."""
+    ``decode_step``: tokens (b, 1), or (b, 1, n_q) for codebooks;
+    ``index`` is the number of tokens already in the cache, the same for
+    every row (the host's loop counter, so no step reads the device).
+    Attention layers write the new K/V at slot ``index`` (``index % size``
+    on ring layers) and attend over ``min(index + 1, size)`` positions
+    with ``attn`` (default: the ``decode_attn`` kernel), without a
+    window; cross layers then attend over all ``n_media_tokens`` media
+    positions of their ``cross`` cache with ``attn`` too; SSM layers step
+    their state. The cache is written in place. Returns (logits (b, 1, V)
+    or (b, 1, n_q, V), cache)."""
     check_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
@@ -487,7 +546,16 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             kv.v[:, slot] = v[:, 0].to(kv.v.dtype)
             att = decode_attention(q, kv.k, kv.v, min(index + 1, size),
                                    window=None, kernel=attn)
-            delta = _out(att, lp["attn"]["wo"].to(dt))
+            delta = merge_heads(att, lp["attn"]["wo"].to(dt))
+            if cfg.layer_is_cross_attn(i):
+                ck = entry["cross"]
+                x, h = L.add_rmsnorm(lp["cross_norm"], x, delta,
+                                     cfg.norm_eps, norm)
+                cq = proj_heads(h, lp["cross"]["wq"].to(dt))
+                catt = decode_attention(cq, ck.k, ck.v, ck.k.shape[1],
+                                        window=None, kernel=attn)
+                delta = _gated(lp, merge_heads(
+                    catt, lp["cross"]["wo"].to(dt)))
         if cfg.layer_is_ssm(i):
             x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps,
                                  norm)
@@ -524,12 +592,18 @@ def cache_layout(cfg: ModelConfig, max_len: int, block_size: int = 16
     ``"ring{R}"`` groups sliding-window layers whose window is padded to a
     block multiple ``R`` (slot ``p % R``, static tables). SSM layers are
     marked ``"ssm": True`` and hold per-slot state instead of blocks; a
-    model without attention layers has no groups."""
+    model without attention layers has no groups. Cross-attention (media)
+    layers have no paged form and raise, as in JAX: those archs serve
+    through the legacy ``ServeEngine``."""
     check_supported(cfg)
     layers: Dict[str, Dict] = {}
     groups: Dict[str, Dict] = {}
     for i in range(cfg.n_layers):
         ent: Dict = {}
+        if cfg.layer_is_cross_attn(i):
+            raise NotImplementedError(
+                "paged cache does not cover cross-attention (media) layers; "
+                "use the legacy ServeEngine for media archs")
         if cfg.layer_is_attn(i):
             w = cfg.window_for_layer(i)
             size = min(w, max_len) if w is not None else max_len
@@ -607,7 +681,7 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             att = paged_decode_attention(q, kv.k, kv.v, table, index,
                                          ring=ring, window=al["window"],
                                          kernel=attn_kernel)
-            delta = _out(att, lp["attn"]["wo"].to(dt))
+            delta = merge_heads(att, lp["attn"]["wo"].to(dt))
         if "ssm" in lay:
             old = pools[f"L{i}"]["ssm"]
             x, h = L.add_rmsnorm(lp["ssm_norm"], x, delta, cfg.norm_eps,

@@ -3,7 +3,8 @@
 cache, the legacy ``ServeEngine`` (:50-114), a monolithic cache and a
 host token loop, and ``HotSwapBridge`` (:437-483), which swaps a trainer's
 consensus into a running ``ContinuousEngine``. Both engines serve
-dense-attention and SSM archs.
+dense-attention, SSM, MoE and hybrid archs; the vision (cross-attention)
+and audio (codebook) archs serve through ``ServeEngine`` only, as in JAX.
 
 Requests are admitted into and evicted from the running batch at token
 boundaries (``serve/scheduler.py``). Admission prefills a request into a
@@ -34,10 +35,13 @@ engine's; greedy tokens are held to it.
 ``ServeEngine`` prefills a batch of equal-length prompts into a
 monolithic cache and decodes one token a step for every row
 (``models.transformer.decode_step``, whose attention layers run the
-``decode_attn`` kernel). Its host loop knows the position, so it passes
-``cache_len`` to the kernel as an argument; the tokens stay on the device
-until the end, unless ``eos_id`` is set, when each step's tokens are read
-to decide whether every row has stopped (as in JAX).
+``decode_attn`` kernel, the cross layers' attention over the media too).
+An audio arch decodes a token per codebook a step: each (row, codebook)
+is a stream, with its own sampling key and its own stop token. The host
+loop knows the position, so it passes ``cache_len`` to the kernel as an
+argument; the tokens stay on the device until the end, unless ``eos_id``
+is set, when each step's tokens are read to decide whether every stream
+has stopped (as in JAX).
 """
 from __future__ import annotations
 
@@ -80,6 +84,15 @@ def _request_key(engine_seed: int, request_seed: int) -> int:
     return _hash32(_hash32(engine_seed & _M32) ^ (request_seed & _M32))
 
 
+def _stream_keys(seed: int, rows: int, n_codebooks: int) -> List[int]:
+    """The sampling key of each stream, row-major: a row's request key, or
+    for codebooks that key hashed with the codebook."""
+    keys = [_request_key(seed, row) for row in range(rows)]
+    if not n_codebooks:
+        return keys
+    return [_hash32(k ^ c) for k in keys for c in range(n_codebooks)]
+
+
 def sample_rows(logits: torch.Tensor, temps: torch.Tensor,
                 keys: torch.Tensor, pos: torch.Tensor,
                 any_sampled: bool) -> torch.Tensor:
@@ -101,8 +114,9 @@ def sample_rows(logits: torch.Tensor, temps: torch.Tensor,
 
 class ServeEngine:
     """Legacy engine: a monolithic ``(b, max_len, ...)`` cache and a
-    Python token loop, as ``repro/serve/engine.py:50``. Media
-    (cross-attention) inputs are not ported. ``device=None`` means cuda.
+    Python token loop, as ``repro/serve/engine.py:50``. It covers every
+    arch, media (cross-attention) and codebook (audio) ones included.
+    ``device=None`` means cuda.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict, max_len: int = 2048,
@@ -122,14 +136,17 @@ class ServeEngine:
                  media: Optional[np.ndarray] = None,
                  temperature: float = 0.0, seed: int = 0,
                  eos_id: Optional[int] = None) -> np.ndarray:
-        """prompt: (b, s) int32. Greedy (an argmax in float32) if
+        """prompt: (b, s) int32, or (b, s, n_q) for a codebook arch.
+        ``media`` (b, M, d), numpy or a tensor: the patch embeddings a
+        cross-attention arch's prefill attends over (the decode steps read
+        their K/V from the cache); a text arch ignores them, as JAX's
+        engine does. Greedy (an argmax in float32, per codebook) if
         ``temperature`` <= 0, else Gumbel-max sampling keyed by (``seed``,
-        row, absolute position). Returns (b, n) int32 tokens, n = n_new
-        unless ``eos_id`` stopped every row earlier; with ``eos_id`` a
-        row's tokens after its first stop token are the stop token."""
-        if media is not None:
-            raise NotImplementedError(
-                "media (cross-attention) inputs are not ported")
+        row, codebook, absolute position). Returns (b, n) int32 tokens, or
+        (b, n, n_q), n = n_new unless ``eos_id`` stopped every stream
+        earlier; with ``eos_id`` a stream's (a row's, or a row's
+        codebook's) tokens after its first stop token are the stop token,
+        as in JAX."""
         prompt = np.asarray(prompt, np.int32)
         b, s = prompt.shape[:2]
         if s + n_new > self.max_len:
@@ -137,19 +154,24 @@ class ServeEngine:
                 f"prompt ({s}) + n_new ({n_new}) = {s + n_new} tokens "
                 f"exceeds the cache budget max_len={self.max_len}")
         cfg, dev = self.cfg, self.device
+        if media is not None:
+            media = torch.as_tensor(media).to(dev)
         cache = init_cache(cfg, b, self.max_len, self.cache_dtype, dev)
         logits, cache = prefill(cfg, self.params,
-                                torch.from_numpy(prompt).to(dev), cache)
+                                torch.from_numpy(prompt).to(dev), cache,
+                                media)
         self.prefills += 1
-        keys = torch.tensor([_request_key(seed, row) for row in range(b)],
+        keys = torch.tensor(_stream_keys(seed, b, cfg.n_codebooks),
                             dtype=torch.int64, device=dev)
-        temps = torch.full((b,), float(temperature), device=dev)
+        n = len(keys)                   # streams: rows x codebooks
+        temps = torch.full((n,), float(temperature), device=dev)
         sampled = temperature > 0
 
         def sample(lg, pos):
-            return sample_rows(lg[:, -1].float(), temps, keys,
-                               torch.full((b,), pos, device=dev),
-                               sampled)[:, None]
+            rows = lg[:, -1].float().reshape(n, lg.shape[-1])
+            tok = sample_rows(rows, temps, keys,
+                              torch.full((n,), pos, device=dev), sampled)
+            return tok.reshape(b, 1, *lg.shape[2:-1])
 
         out = [sample(logits, s)]
         done = (out[-1][:, 0] == eos_id).cpu().numpy() \
@@ -189,6 +211,15 @@ class ContinuousEngine:
                  cache_dtype=torch.bfloat16, chunk: int = 32,
                  full_blocks: Optional[int] = None, seed: int = 0,
                  eos_id: Optional[int] = None, device=None):
+        for i in range(cfg.n_layers):
+            if cfg.layer_is_cross_attn(i):
+                raise NotImplementedError(
+                    "ContinuousEngine does not serve cross-attention "
+                    "(media) archs — use the legacy ServeEngine")
+        if cfg.n_codebooks:
+            raise NotImplementedError(
+                "ContinuousEngine does not serve multi-codebook (audio) "
+                "archs — use the legacy ServeEngine")
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -40,14 +40,16 @@ def evaluate_lm(cfg: ModelConfig, params: Dict, batches, n_batches: int = 8
                 ) -> Dict[str, float]:
     """Mean NLL, perplexity ``exp(min(nll, 30))`` and next-token accuracy
     over ``n_batches`` held-out batches (numpy dicts of ``tokens`` and
-    ``labels``) on the params' device. One forward a batch: its logits
-    give the ``fused_ce`` loss, as ``models.transformer.loss_fn``
-    computes its ``ce``, and the argmax."""
+    ``labels``, and ``media`` for a model with cross layers) on the
+    params' device. One forward a batch: its logits give the ``fused_ce``
+    loss, as ``models.transformer.loss_fn`` computes its ``ce``, and the
+    argmax (per codebook for an audio model, the accuracy their mean)."""
     dev = tree_leaves(params)[0].device
     nlls, accs = [], []
     for _ in range(n_batches):
         batch = {k: torch.as_tensor(v).to(dev) for k, v in next(batches).items()}
-        logits, _ = forward(cfg, params, batch["tokens"])
+        logits, _ = forward(cfg, params, batch["tokens"],
+                            batch.get("media"))
         nlls.append(float(fused_ce(logits.float(), batch["labels"]).mean()))
         accs.append(float((torch.argmax(logits, dim=-1) == batch["labels"])
                           .float().mean()))

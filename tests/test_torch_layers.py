@@ -55,9 +55,8 @@ def test_gemma3_config_matches_jax_field_for_field(which):
 @pytest.mark.parametrize("arch", JAX_ARCH_IDS)
 def test_layer_predicates_match_jax(arch):
     """Every arch's layer schedule reads the same through the port's
-    config; dense, SSM, MoE and hybrid (jamba) archs pass
-    ``check_supported``, and vision (cross-attention) and audio
-    (codebooks) archs raise."""
+    config, and every arch passes ``check_supported``: dense, SSM, MoE,
+    hybrid (jamba), vision (cross-attention) and audio (codebooks)."""
     jcfg = jax_get_config(arch)
     cfg = _port_cfg(jcfg)
     assert cfg.padded_vocab == jcfg.padded_vocab
@@ -66,11 +65,9 @@ def test_layer_predicates_match_jax(arch):
                      "layer_is_global_attn", "layer_is_cross_attn",
                      "window_for_layer"):
             assert getattr(cfg, pred)(i) == getattr(jcfg, pred)(i), (pred, i)
-    if jcfg.family in ("dense", "ssm", "moe", "hybrid"):
-        check_supported(cfg)
-    else:
-        with pytest.raises(NotImplementedError):
-            check_supported(cfg)
+    assert cfg.n_media_tokens == jcfg.n_media_tokens
+    assert cfg.n_codebooks == jcfg.n_codebooks
+    check_supported(cfg)
 
 
 # -- layers -------------------------------------------------------------------
