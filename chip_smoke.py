@@ -331,8 +331,10 @@ AUDIO_ARCH = "musicgen-large"
 MEDIA_TRAIN = {**LM, "p": 2, "rounds": 5}
 VLM_TRAIN_LAYERS = 5
 # decode_attn's new shapes, (b, kv, g, hd, S): a vision cross layer over
-# its 1600 media positions, and musicgen-large's self-attention
+# its 1600 media positions, a vision self-attention layer over vlm_serve's
+# cache, and musicgen-large's self-attention
 CROSS_SHAPE = (LEGACY["b"], 8, 4, 128, 1600)
+VLM_SELF_SHAPE = (LEGACY["b"], 8, 4, 128, LEGACY["max_len"])
 MUSICGEN_SHAPE = (LEGACY["b"], 32, 1, 64, 1024)
 
 
@@ -2391,8 +2393,10 @@ def phase_rmsnorm_time(dev):
 CE_CHECK = {"V": [262144, 100352, 1000, 1001], "T": [1, 7, 2560],
             # stablelm-3b's padded vocabulary at one worker's tokens and at
             # the round's three workers' (the vmap rule's one launch), and
-            # llama-3.2-vision's at one worker's
-            "V_T": [[50432, 640], [50432, 1920], [128256, 640]],
+            # llama-3.2-vision's at one worker's and at vlm_train's two
+            # workers' (one launch)
+            "V_T": [[50432, 640], [50432, 1920], [128256, 640],
+                    [128256, 1280]],
             # musicgen-large's codebook logits at the round's two workers:
             # (p, seq, n_q, V), a row a (worker, position, codebook)
             "codebook": [2, 640, 4, 2048]}
@@ -2402,7 +2406,7 @@ def phase_ce_check(dev):
     """fused_ce against its plain version over V = 262,144 (gemma3-1b),
     100,352 (stablelm-1.6b), 1000 and 1001 (the one-element path) x T = 1,
     7, 2560, at V = 50,432 (stablelm-3b) with T = 640 and 1920, at V =
-    128,256 (llama-3.2-vision) with T = 640, and musicgen's codebook
+    128,256 (llama-3.2-vision) with T = 640 and 1280, and musicgen's codebook
     logits (2, 640, 4, 2048) as they come, one row a codebook: nll
     and lse, and the backward through the Function (kernel forward,
     PyTorch backward) against autograd of the plain version. At T = 7 two
@@ -4123,8 +4127,10 @@ def phase_decode_attn_check(dev):
     (no valid position: the Pallas kernel's floored denominator gives 0,
     where the plain version's softmax over an all-masked row is uniform),
     a llama-3.2-vision cross layer (b 4, 1600 media positions, kv 8, g 4,
-    hd 128) and musicgen-large's self-attention (kv 32, g 1, hd 64, 1024
-    positions), and, under the profiler, one device kernel a call."""
+    hd 128), its self-attention layers as vlm_serve runs them (b 4, kv 8,
+    g 4, hd 128, S 1024, cache_len 480 to 575 and full) and musicgen-large's
+    self-attention (kv 32, g 1, hd 64, 1024 positions), and, under the
+    profiler, one device kernel a call."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
     from repro_torch.kernels.decode_attn.decode_attn import split_plan
@@ -4171,6 +4177,10 @@ def phase_decode_attn_check(dev):
             # a llama-3.2-vision cross layer over its 1600 media positions
             ("cross1600", *CROSS_SHAPE, ("bfloat16", "bfloat16"),
              [(1600, None, False), (1600, None, True)]),
+            # its self-attention layers at vlm_serve's batch and cache
+            ("vlm_self1024", *VLM_SELF_SHAPE, ("bfloat16", "bfloat16"),
+             [(480, None, False), (528, None, False), (575, None, True),
+              (1024, None, True)]),
             ("musicgen1024", *MUSICGEN_SHAPE, ("bfloat16", "bfloat16"),
              [(528, None, False), (1024, None, True)])):
         q, k, v = decode_inputs(bb, S, kvv, g, hd, getattr(torch, qn),

@@ -84,25 +84,6 @@ from repro_torch.models.attention import (KVCache, attention_init,
 from repro_torch.models.param import ParamBuilder, build
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raises ``ValueError`` on a config whose media and codebook fields
-    contradict its layers: a cross-attention layer that is no attention
-    layer (JAX's cross branch sits in the attention branch, so it would
-    never run), cross layers without ``n_media_tokens`` (the decode
-    cache's length), or codebooks with a tied head (the tied head has no
-    codebook form). Every arch of the registry passes."""
-    cross = [i for i in range(cfg.n_layers) if cfg.layer_is_cross_attn(i)]
-    for i in cross:
-        if not cfg.layer_is_attn(i):
-            raise ValueError(f"{cfg.name}: cross-attention layer {i} is no "
-                             f"attention layer")
-    if cross and cfg.n_media_tokens < 1:
-        raise ValueError(f"{cfg.name}: cross-attention layers need "
-                         f"n_media_tokens >= 1")
-    if cfg.n_codebooks and cfg.tie_embeddings:
-        raise ValueError(f"{cfg.name}: codebooks need an untied head")
-
-
 def _has_attn(cfg: ModelConfig) -> bool:
     return any(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
 
@@ -155,7 +136,6 @@ def _init_model(b: ParamBuilder, cfg: ModelConfig):
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 param_dtype=None) -> Dict:
     """Random parameters from ``seed`` on ``device`` (``None``: cuda)."""
-    check_supported(cfg)
     dtype = dtype_of(param_dtype or cfg.param_dtype)
     return build(functools.partial(_init_model, cfg=cfg), seed, dtype,
                  resolve_device(device))
@@ -323,7 +303,6 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     model, one more a cross layer given media, n_layers + 1 for mamba2),
     all but the first with the residual add before it fused in; every SSM
     layer runs ``ssd`` (default: the ``ssd_chunk`` kernel)."""
-    check_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
     x, delta, moe_loss = _layers(cfg, params["layers"], x, media, dt, norm,
@@ -374,7 +353,6 @@ def worker_losses(cfg: ModelConfig, params: Dict, in_dims: Dict,
     dense or MoE model). Expert leaves come unmapped (``in_dims`` None):
     one copy serves every worker, and each worker's MoE layers add their
     auxiliary loss to its loss."""
-    check_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = vmap(lambda e, t: L.embed(e, t, dt),
              in_dims=(in_dims["embed"], 0))(params["embed"], batch["tokens"])
@@ -417,7 +395,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     layers (ring layout, slot ``p % size``) and ``max_len`` otherwise, and
     cross layers a second one, ``cross``, of ``(batch, n_media_tokens, kv,
     hd)`` for the media's K/V; SSM layers an ``SSMState`` in float32."""
-    check_supported(cfg)
     dev = resolve_device(device)
     cache: Dict[str, Dict] = {}
     for i in range(cfg.n_layers):
@@ -491,9 +468,12 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             if cfg.layer_is_cross_attn(i) and media is not None:
                 x, h = L.add_rmsnorm(lp["cross_norm"], x, delta,
                                      cfg.norm_eps, norm)
-                delta = _gated(lp, cross_attention(lp["cross"], h, media,
-                                                   compute_dtype=dt))
+                # the media K/V once: attended here, then kept in the cache
                 ck, cv = cross_kv(lp["cross"], media, dt)
+                cq = proj_heads(h, lp["cross"]["wq"].to(dt))
+                delta = _gated(lp, merge_heads(
+                    flash_attention(cq, ck, cv, causal=False),
+                    lp["cross"]["wo"].to(dt)))
                 entry["cross"].k.copy_(ck)
                 entry["cross"].v.copy_(cv)
         if cfg.layer_is_ssm(i):
@@ -526,7 +506,6 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     positions of their ``cross`` cache with ``attn`` too; SSM layers step
     their state. The cache is written in place. Returns (logits (b, 1, V)
     or (b, 1, n_q, V), cache)."""
-    check_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
     rope = _rope(cfg, torch.full((x.shape[0], 1), index, device=x.device))
@@ -595,7 +574,6 @@ def cache_layout(cfg: ModelConfig, max_len: int, block_size: int = 16
     model without attention layers has no groups. Cross-attention (media)
     layers have no paged form and raise, as in JAX: those archs serve
     through the legacy ``ServeEngine``."""
-    check_supported(cfg)
     layers: Dict[str, Dict] = {}
     groups: Dict[str, Dict] = {}
     for i in range(cfg.n_layers):
@@ -699,6 +677,6 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 
 __all__ = ["KVCache", "PagedKV", "cache_layout", "cast_params",
-           "check_supported", "decode_step", "decode_step_paged", "forward",
-           "init_cache", "init_params", "loss_fn", "param_axes", "prefill",
+           "decode_step", "decode_step_paged", "forward", "init_cache",
+           "init_params", "loss_fn", "param_axes", "prefill",
            "worker_losses"]

@@ -52,9 +52,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import (cast_params, check_supported,
-                                            decode_step, decode_step_paged,
-                                            init_cache, prefill)
+from repro_torch.models.transformer import (cast_params, decode_step,
+                                            decode_step_paged, init_cache,
+                                            prefill)
 from repro_torch.serve.paged_cache import PagedCache
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.train.evaluate import consensus_params
@@ -121,7 +121,6 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params: Dict, max_len: int = 2048,
                  cache_dtype=torch.bfloat16, device=None):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         # one compute-dtype copy of the weights, as ContinuousEngine keeps
@@ -220,7 +219,6 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "ContinuousEngine does not serve multi-codebook (audio) "
                 "archs — use the legacy ServeEngine")
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = dtype_of(cfg.compute_dtype)

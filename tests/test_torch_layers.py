@@ -19,8 +19,7 @@ from repro.models import attention as JA
 from repro.models import init_params as jax_init_params
 from repro.models import layers as JL
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
-from repro_torch.models import (check_supported, init_cache, init_params,
-                                params_from_numpy)
+from repro_torch.models import init_cache, init_params, params_from_numpy
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.device import resolve_device
@@ -55,8 +54,8 @@ def test_gemma3_config_matches_jax_field_for_field(which):
 @pytest.mark.parametrize("arch", JAX_ARCH_IDS)
 def test_layer_predicates_match_jax(arch):
     """Every arch's layer schedule reads the same through the port's
-    config, and every arch passes ``check_supported``: dense, SSM, MoE,
-    hybrid (jamba), vision (cross-attention) and audio (codebooks)."""
+    config, and the port builds every arch's smoke model: dense, SSM,
+    MoE, hybrid (jamba), vision (cross-attention) and audio (codebooks)."""
     jcfg = jax_get_config(arch)
     cfg = _port_cfg(jcfg)
     assert cfg.padded_vocab == jcfg.padded_vocab
@@ -67,7 +66,7 @@ def test_layer_predicates_match_jax(arch):
             assert getattr(cfg, pred)(i) == getattr(jcfg, pred)(i), (pred, i)
     assert cfg.n_media_tokens == jcfg.n_media_tokens
     assert cfg.n_codebooks == jcfg.n_codebooks
-    check_supported(cfg)
+    assert init_params(get_smoke_config(arch), seed=0, device="cpu")
 
 
 # -- layers -------------------------------------------------------------------

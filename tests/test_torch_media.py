@@ -49,12 +49,11 @@ from repro.train import Trainer as JTrainer  # noqa: E402
 from repro.train.evaluate import evaluate_lm as j_evaluate_lm  # noqa: E402
 from repro.train.lm import make_lm_loss as j_make_lm_loss  # noqa: E402
 from repro_torch.configs import (ARCH_IDS, ModelConfig,  # noqa: E402
-                                 SSMConfig, TrainConfig, WASGDConfig,
-                                 get_config, get_smoke_config)
+                                 TrainConfig, WASGDConfig, get_config,
+                                 get_smoke_config)
 from repro_torch.data import OrderedDataset, lm_batch  # noqa: E402
-from repro_torch.models import (cache_layout,  # noqa: E402
-                                check_supported, decode_step, forward,
-                                init_cache, init_params, loss_fn,
+from repro_torch.models import (cache_layout, decode_step,  # noqa: E402
+                                forward, init_cache, init_params, loss_fn,
                                 param_axes, params_from_numpy, prefill)
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -181,21 +180,6 @@ def test_init_params_tree_matches_jax_and_carries_across(arch):
         V = cfg.padded_vocab
         assert ours["/embed/tok"].shape == (4, V, cfg.d_model)
         assert ours["/head/w"].shape == (4, cfg.d_model, V)
-
-
-@pytest.mark.parametrize("change,match", [
-    (dict(family="hybrid", ssm=SSMConfig(), attn_every=4,
-          cross_attn_every=2), "no attention layer"),
-    (dict(n_media_tokens=0), "n_media_tokens"),
-    (dict(n_codebooks=4, tie_embeddings=True), "untied head")])
-def test_check_supported_refuses_contradictory_media_fields(change, match):
-    """A cross layer that is no attention layer (its branch would never
-    run), cross layers without media positions, and codebooks with a tied
-    head raise; the registry's configs pass
-    (``tests/test_torch_layers.py``)."""
-    cfg = dataclasses.replace(get_smoke_config(VLM), **change)
-    with pytest.raises(ValueError, match=match):
-        check_supported(cfg)
 
 
 # -- layers ----------------------------------------------------------------------------
@@ -357,6 +341,37 @@ def test_prefill_then_decode_matches_jax_and_the_forward(arch):
         np.testing.assert_allclose(
             _np(cache["L1"]["cross"].k),
             np.asarray(jcache["L1"]["cross"].k), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("compute_dtype,media_dtype,cache_dtype", [
+    ("float32", "bfloat16", "float32"), ("bfloat16", "float32", "bfloat16"),
+    ("bfloat16", "bfloat16", "bfloat16")])
+def test_vlm_prefill_matches_jax_across_dtypes(compute_dtype, media_dtype,
+                                               cache_dtype):
+    """The vision prefill with media and cache in other dtypes than the
+    compute dtype: its logits and the cross layers' cached media K/V (one
+    ``cross_kv`` product, attended and then stored) against JAX's prefill,
+    and its logits against the port's own forward at the last position;
+    the cross gates are nonzero (``_params``)."""
+    jcfg, cfg = _cfgs(VLM, compute_dtype)
+    jp, _, tp = _params(VLM, seed=4)
+    b, s = 2, 16
+    jb, tb = _batch(cfg, 4, b=b, s=s, media_dtype=media_dtype)
+    jcache = j_init_cache(jcfg, b, 32, dtype=jnp.dtype(cache_dtype))
+    jpre, jcache = j_prefill(jcfg, jp, jb["tokens"], jcache, jb["media"])
+    cache = init_cache(cfg, b, 32, getattr(torch, cache_dtype), "cpu")
+    pre, cache = prefill(cfg, tp, tb["tokens"], cache, tb["media"])
+    full, _ = forward(cfg, tp, tb["tokens"], tb["media"])
+    rtol = 1e-5 if compute_dtype == "float32" else 2e-2
+    _close_rel(_np(pre), jpre, rtol, "prefill")
+    _close_rel(_np(pre[:, 0]), _np(full[:, -1]), rtol, "vs forward")
+    for i in range(cfg.n_layers):
+        if cfg.layer_is_cross_attn(i):
+            for n in ("k", "v"):
+                got = getattr(cache[f"L{i}"]["cross"], n)
+                assert got.dtype == getattr(torch, cache_dtype)
+                _close_rel(_np(got), getattr(jcache[f"L{i}"]["cross"], n),
+                           rtol, f"L{i} cross {n}")
 
 
 def _prompts(cfg, seed, b=2, s=10):
