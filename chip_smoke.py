@@ -19,8 +19,10 @@ serves full-width yi-6b, trains full-width, full-depth mamba2-370m
 experts), serves olmoe-1b-7b and one full-width period of jamba-v0.1-52b,
 serves full-width llama-3.2-vision-11b (with media) and musicgen-large
 (codebooks) through the legacy ``ServeEngine``, trains musicgen-large and
-one full-width period of llama-3.2-vision-11b, and checks that the served
-and the trained paths went through their kernels.
+one full-width period of llama-3.2-vision-11b, runs CNN6 and gemma3-1b
+through the pipelined round (bitwise the unpipelined one), records
+telemetry from every producer, and checks that the served and the
+trained paths went through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -30,7 +32,9 @@ Prints one JSON object per phase:
                 (q, cache) dtype pairs, g 1/4/7/8 and hd 64/80/128/256;
                 one launch a call
   kernel_time   paged_decode_attn, plain version, library call and bound at
-                the serve run's shapes
+                the serve run's shapes, and at the GQA shapes of yi-6b (kv 4,
+                g 8), jamba (kv 8, g 4) and olmoe (kv 16, g 1): b 4, hd 128,
+                528 of 1024 positions, bf16
   wagg_check    wagg_fused vs its plain version over x dtype x payload
                 (none, bf16, int8, int4 in int8) x mask x p x N
   wagg_time     wagg_fused, plain version, two-call library reference and
@@ -107,13 +111,26 @@ Prints one JSON object per phase:
                 f32 and bf16 compute
   lm_remat      gemma3-1b, p=4: one local step with remat off and on
                 (losses and gradients within 2e-2, peak over the backward),
-                the update tree-wise and leaf-wise (peaks), and 2 timed
-                rounds each way (s/round, peak)
+                the update tree-wise and leaf-wise (peaks), and a timed
+                round each way (s/round, peak)
   lm_train      Trainer.run, WASGD+, gemma3-1b at full width and depth,
-                remat on, p=4, tau=4, 10 rounds after 2: s/round, tokens/s,
+                remat on, p=4, tau=4, 8 rounds after 2: s/round, tokens/s,
                 losses, peak memory, launches of rmsnorm (4 L + 1 a step),
                 fused_ce and wagg_fused
-  lm_train_profile device busy time, idle share and top kernels of 2 rounds
+  lm_train_profile device busy time, idle share and top kernels of a round
+  lm_pipeline   gemma3-1b, lm_train's settings, Trainer(pipeline="parity")
+                from the same seed and data for 2 + 8 rounds: bitwise
+                lm_train's rounds and params, the same launches a round,
+                s/round and peak beside lm_train's; 2 profiled rounds:
+                idle share, the staging copies on a side stream
+  telemetry     one JsonlSink: ContinuousEngine on gemma3-1b with a sink
+                (a ServeSample a step, greedy tokens as without, device
+                operations of the default sink, NullSink() and a sink),
+                a HotSwap through a bridge that takes the engine's sink;
+                2 NullSink and 2 phase-fenced gemma3-1b rounds on
+                lm_train's trainer (the phase breakdown); a CNN6 elastic
+                run with checkpoints (MembershipChange, CheckpointSave);
+                the file read back with read_events
   baselines     the CNN6 training smoke's settings with each of spsgd,
                 easgd (alpha 0.9/16), omwu, mmwu and seq: s/round beside
                 train's wasgd+, first and last loss, peak memory; each
@@ -148,6 +165,16 @@ Prints one JSON object per phase:
                 aggregate (1e-6); s/round by p, resize ms; a p = 8
                 checkpoint resumed at p = 6 and 10 bitwise equal to
                 resize_train_state of the saved state
+  pipeline_agree  CNN6 at train's settings, 14 rounds over an
+                OrderedDataset with boundary_delay = the prefetcher's
+                run-ahead (an OrderGen decision at round 12): two
+                unpipelined runs with cuDNN's default and with
+                deterministic algorithms; Trainer(pipeline="parity")
+                bitwise the unpipelined run (per-round h, theta, losses,
+                scores, final params, order seeds, wagg_fused launches),
+                also under Alg. 4 (p 6 + b 2, stragglers: the masked
+                kernel); "speculative": spec_dev <= 2 spec_bound + 1e-6,
+                exactly 0 at beta 0
   train_to_serve  lm_train's gemma3-1b trainer serves what it trains: a
                 ContinuousEngine from consensus_params takes the serve
                 requests, 3 rounds with serve_hook (a decode chunk, then
@@ -180,7 +207,7 @@ Prints one JSON object per phase:
                 kernels vs the plain versions; bf16 each SSM layer on its
                 own inputs (output and gradients)
   ssm_lm_train  Trainer.run, WASGD+, mamba2-370m at full width and depth,
-                lm_train's settings, 10 rounds after 2: s/round,
+                lm_train's settings, 8 rounds after 2: s/round,
                 tokens/s, peak, launches (ssd_chunk 2 x 48 x tau a round
                 with remat), one profiled round
   moe_agree     olmoe-1b-7b at full width (64 experts, top 8): decode
@@ -218,7 +245,7 @@ Prints one JSON object per phase:
                 prompts (4, 480, 4) codebook tokens, output (4, 96, 4);
                 48 decode_attn and 97 rmsnorm launches a step
   audio_train   Trainer.run, WASGD+, musicgen-large at full width and
-                depth, lm_train's settings at p 2 (remat on), 5 rounds
+                depth, lm_train's settings at p 2 (remat on), 3 rounds
                 after 2: s/round, tokens/s, peak, launches (wagg_fused 435
                 a round), one profiled round
   vlm_train     the same on llama-3.2-vision-11b with n_layers cut from 40
@@ -270,10 +297,12 @@ LM_LEAF = (4, 1152 * 6912)      # p=4 workers x one gemma3-1b MLP matrix
 # WASGD+ training of gemma3-1b at full width and depth (the quickstart's
 # settings: SGD lr 0.03, beta 0.9, Boltzmann): seq_len 640 exceeds the
 # local layers' 512-token window. The data is make_tokens' bigram language,
-# 32 sequences that the workers revisit every few rounds.
+# 32 sequences that the workers revisit every few rounds. 8 timed rounds,
+# not more: the whole script has to fit its time limit.
 LM = {"p": 4, "tau": 4, "b_local": 1, "seq_len": 640, "lr": 0.03,
-      "warmup_rounds": 2, "rounds": 10, "n_seq": 32, "n_segments": 2,
+      "warmup_rounds": 2, "rounds": 8, "n_seq": 32, "n_segments": 2,
       "order_seed": 7, "backend": "pallas_wagg:f32", "beta": 0.9}
+LM_PROFILE_ROUNDS = 1           # lm_train_profile: 1 round each way
 LM_AGREE_P = 2                  # workers in lm_agree (two gradient trees)
 # WASGD+ training of stablelm-3b at full width and depth: lm_train's
 # settings at p=3 with the int4 payload; remat on (the config's), the
@@ -305,7 +334,7 @@ SSD_TOL = 1e-5
 
 # SSM training: mamba2-370m at full width and depth with lm_train's
 # settings (p 4, tau 4, b_local 1, seq 640, lr 0.03, pallas_wagg:f32,
-# remat as configured: on), 2 + 10 rounds
+# remat as configured: on), 2 + 8 rounds
 SSM_LM = dict(LM)
 # olmoe-1b-7b at full width and depth: served in bf16 with the serve
 # smoke's settings, and trained with lm_train's settings at p 4, remat on,
@@ -323,12 +352,12 @@ JAMBA_LAYERS = 8
 # ServeEngine at LEGACY's settings: media (4, 1600, 4096) float32 from the
 # seed, and (4, 480, 4) codebook prompts. Both trained with lm_train's
 # settings at p 2 (musicgen's f32 params and gradients are 48.5 GiB at
-# p 2, 72.8 at p 3), 2 + 5 rounds; llama-3.2-vision as one period at full
+# p 2, 72.8 at p 3), 2 + 3 rounds; llama-3.2-vision as one period at full
 # width, n_layers cut from 40 to 5 (layers 0-3 self-attention, 4 cross:
 # 2.18B params; all 40 layers' f32 params and gradients are 81 GB at p 1)
 VLM_ARCH = "llama-3.2-vision-11b"
 AUDIO_ARCH = "musicgen-large"
-MEDIA_TRAIN = {**LM, "p": 2, "rounds": 5}
+MEDIA_TRAIN = {**LM, "p": 2, "rounds": 3}
 VLM_TRAIN_LAYERS = 5
 # decode_attn's new shapes, (b, kv, g, hd, S): a vision cross layer over
 # its 1600 media positions, a vision self-attention layer over vlm_serve's
@@ -517,73 +546,99 @@ def graph_ms(fns, reps_per_graph, replays=10):
     return start.elapsed_time(end) / (replays * reps_per_graph)
 
 
-def phase_kernel_time(dev):
+# paged_decode_attn's GQA shapes on the main path (kv, g, hd), each timed
+# at b 4 over a linear 1024-position cache with 528 valid positions a row
+PAGED_GQA = {"yi-6b": (4, 8, 128), "jamba-v0.1-52b": (8, 4, 128),
+             "olmoe-1b-7b": (16, 1, 128)}
+PAGED_GQA_INDEX = [527] * N_SLOTS
+
+
+def paged_time_case(b, kv, g, hd, n_blk, ring, index, gen, dev, n_sets=32):
+    """paged_decode_attn, its plain version and SDPA (K/V gathered and
+    expanded to the query heads, the valid positions as a mask) at one
+    shape, bf16, over ``n_sets`` working sets; the bound from the bytes
+    the call must move (q, out, the valid K/V rows, table, index) and
+    its f32 operations."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import (paged_decode_attn,
                                                  paged_decode_attn_ref)
     from repro_torch.kernels.decode_attn.ref import slot_valid
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    S = n_blk * BLOCK
+    sets = [paged_inputs(b, kv, g, hd, n_blk, torch.bfloat16,
+                         torch.bfloat16, gen, dev) for _ in range(n_sets)]
+    valid = slot_valid(torch.arange(S, device=dev)[None, :],
+                       idx.long()[:, None], ring, ring)
+    gathered = []
+    for q, kp, vp, tab in sets:
+        k = kp[tab.long()].reshape(b, S, kv, hd).transpose(1, 2)
+        v = vp[tab.long()].reshape(b, S, kv, hd).transpose(1, 2)
+        gathered.append((q.reshape(b, kv * g, 1, hd),
+                         k[:, :, None].expand(b, kv, g, S, hd)
+                         .reshape(b, kv * g, S, hd).contiguous(),
+                         v[:, :, None].expand(b, kv, g, S, hd)
+                         .reshape(b, kv * g, S, hd).contiguous()))
+    mask = valid[:, None, None, :]
+
+    def kern(st):
+        return lambda: paged_decode_attn(*st, idx, ring=ring, window=ring)
+
+    def plain(st):
+        return lambda: paged_decode_attn_ref(*st, idx, ring=ring,
+                                             window=ring)
+
+    def library(st):
+        return lambda: F.scaled_dot_product_attention(
+            st[0], st[1], st[2], attn_mask=mask)
+
+    ms = graph_ms([kern(st) for st in sets], n_sets)
+    plain_ms = graph_ms([plain(st) for st in sets], n_sets)
+    library_ms = graph_ms([library(st) for st in gathered], n_sets)
+    q, kp, vp, tab = sets[0]
+    out = paged_decode_attn(q, kp, vp, tab, idx, ring=ring, window=ring)
+    ref = paged_decode_attn_ref(q, kp, vp, tab, idx, ring=ring, window=ring)
+    lib = F.scaled_dot_product_attention(*gathered[0], attn_mask=mask)
+    name = f"time/b{b}_kv{kv}_g{g}_hd{hd}_S{S}"
+    err = assert_close(name, out, ref, TOL["bfloat16"])
+    lib_err = (lib.reshape(out.shape).float() - ref.float()).abs().max()
+    n_valid = int(valid.sum().item())
+    elem = 2                                        # bf16
+    bytes_moved = (2 * q.numel() * elem             # q in, out out
+                   + 2 * n_valid * kv * hd * elem   # valid K and V rows
+                   + tab.numel() * 4 + idx.numel() * 4)
+    flops = 4 * n_valid * kv * g * hd               # q.k and p.v
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return {
+        "shape": {"b": b, "kv": kv, "g": g, "hd": hd, "bs": BLOCK,
+                  "n_blk": n_blk, "ring": ring, "index": index,
+                  "dtypes": "bfloat16/bfloat16"},
+        "valid_tokens": n_valid, "bytes": bytes_moved, "flops": flops,
+        "max_abs_err": err, "library_max_abs_err": float(lib_err),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "working_sets": n_sets}
+
+
+def phase_kernel_time(dev):
+    """paged_decode_attn at the serve run's shapes (gemma3-1b: kv 1, g 4,
+    hd 256; its 512 ring and a linear 1024 cache) and at the GQA shapes
+    of yi-6b, jamba-v0.1-52b and olmoe-1b-7b (``PAGED_GQA``: b 4, linear
+    1024, 528 valid positions a row), each beside its plain version, SDPA
+    and its bound."""
+    import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    b, kv, g, hd = N_SLOTS, 1, 4, 256
-    index = [100, 480, 575, 1000]
-    idx = torch.tensor(index, dtype=torch.int32, device=dev)
-    n_sets = 32
-    res = {}
-    for layout, n_blk, ring in (("ring512", 32, 512), ("linear", 64, None)):
-        S = n_blk * BLOCK
-        sets = [paged_inputs(b, kv, g, hd, n_blk, torch.bfloat16,
-                             torch.bfloat16, gen, dev) for _ in range(n_sets)]
-        valid = slot_valid(torch.arange(S, device=dev)[None, :],
-                           idx.long()[:, None], ring, ring)
-        gathered = []
-        for q, kp, vp, tab in sets:
-            k = kp[tab.long()].reshape(b, S, kv, hd).transpose(1, 2)
-            v = vp[tab.long()].reshape(b, S, kv, hd).transpose(1, 2)
-            gathered.append((q.reshape(b, kv * g, 1, hd),
-                             k.expand(b, kv * g, S, hd).contiguous(),
-                             v.expand(b, kv * g, S, hd).contiguous()))
-        mask = valid[:, None, None, :]
-
-        def kern(s):
-            return lambda: paged_decode_attn(*s, idx, ring=ring, window=ring)
-
-        def plain(s):
-            return lambda: paged_decode_attn_ref(*s, idx, ring=ring,
-                                                 window=ring)
-
-        def library(s):
-            return lambda: F.scaled_dot_product_attention(
-                s[0], s[1], s[2], attn_mask=mask)
-
-        ms = graph_ms([kern(s) for s in sets], n_sets)
-        plain_ms = graph_ms([plain(s) for s in sets], n_sets)
-        library_ms = graph_ms([library(s) for s in gathered], n_sets)
-        q, kp, vp, tab = sets[0]
-        out = paged_decode_attn(q, kp, vp, tab, idx, ring=ring, window=ring)
-        ref = paged_decode_attn_ref(q, kp, vp, tab, idx, ring=ring,
-                                    window=ring)
-        lib = F.scaled_dot_product_attention(*gathered[0], attn_mask=mask)
-        err = assert_close(f"time/{layout}", out, ref, TOL["bfloat16"])
-        lib_err = (lib.reshape(out.shape).float() - ref.float()).abs().max()
-        n_valid = int(valid.sum().item())
-        elem = 2                                        # bf16
-        bytes_moved = (2 * q.numel() * elem             # q in, out out
-                       + 2 * n_valid * kv * hd * elem   # valid K and V rows
-                       + tab.numel() * 4 + idx.numel() * 4)
-        flops = 4 * n_valid * kv * g * hd               # q.k and p.v
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOP_PER_S * 1e3
-        res[layout] = {
-            "shape": {"b": b, "kv": kv, "g": g, "hd": hd, "bs": BLOCK,
-                      "n_blk": n_blk, "ring": ring, "index": index,
-                      "dtypes": "bfloat16/bfloat16"},
-            "valid_tokens": n_valid, "bytes": bytes_moved, "flops": flops,
-            "max_abs_err": err, "library_max_abs_err": float(lib_err),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "working_sets": n_sets}
+    res = {layout: paged_time_case(N_SLOTS, 1, 4, 256, n_blk, ring,
+                                   [100, 480, 575, 1000], gen, dev)
+           for layout, n_blk, ring in (("ring512", 32, 512),
+                                       ("linear", 64, None))}
+    for arch, (kv, g, hd) in PAGED_GQA.items():
+        res[arch] = paged_time_case(N_SLOTS, kv, g, hd, 64, None,
+                                    PAGED_GQA_INDEX, gen, dev)
+        torch.cuda.empty_cache()
     return {"phase": "kernel_time",
             "method": "CUDA graph of 32 calls on 32 distinct working sets "
                       "(> 50 MB L2), 10 replays, CUDA events", **res}
@@ -1151,19 +1206,20 @@ def cnn6_setup():
         return classification_loss(cnn6_apply(params, batch["x"]),
                                    batch["y"]), {}
 
-    def tcfg(backend, async_mode="host_sim"):
+    def tcfg(backend, async_mode="host_sim", beta=0.9):
         return TrainConfig(learning_rate=TRAIN["lr"], optimizer="sgd",
-                           wasgd=WASGDConfig(tau=TRAIN["tau"], beta=0.9,
+                           wasgd=WASGDConfig(tau=TRAIN["tau"], beta=beta,
                                              backend=backend,
                                              async_mode=async_mode))
 
     X, y = make_images(0, TRAIN["n_images"])
 
-    def dataset(p=TRAIN["p"]):
+    def dataset(p=TRAIN["p"], boundary_delay=0):
         return OrderedDataset({"x": X, "y": y}, p, TRAIN["tau"],
                               TRAIN["b_local"],
                               n_segments=TRAIN["n_segments"],
-                              seed=TRAIN["order_seed"])
+                              seed=TRAIN["order_seed"],
+                              boundary_delay=boundary_delay)
     return loss_fn, tcfg, dataset
 
 
@@ -1376,9 +1432,10 @@ def run_trainer(tr, dataset, rounds, **kw):
     return time.perf_counter() - t0, ds
 
 
-def new_trainer(dev, p=TRAIN["p"], async_mode="host_sim"):
-    """A CNN6 WASGD+ trainer at ``TRAIN``'s settings with ``p`` workers,
-    and the dataset for it."""
+def new_trainer(dev, p=TRAIN["p"], async_mode="host_sim", pipeline=None,
+                beta=0.9):
+    """A CNN6 WASGD+ trainer at ``TRAIN``'s settings with ``p`` workers
+    (pipelined as ``pipeline`` says), and the dataset for it."""
     import functools
     from repro_torch.core import shared_axes
     from repro_torch.models import init_cnn6
@@ -1386,8 +1443,8 @@ def new_trainer(dev, p=TRAIN["p"], async_mode="host_sim"):
     loss_fn, tcfg, dataset = cnn6_setup()
     params = init_cnn6(0, device=dev)
     tr = Trainer(loss_fn, params, shared_axes(params),
-                 tcfg(TRAIN["backend"], async_mode), p, rule="wasgd+",
-                 device=dev)
+                 tcfg(TRAIN["backend"], async_mode, beta), p, rule="wasgd+",
+                 device=dev, pipeline=pipeline)
     return tr, functools.partial(dataset, p)
 
 
@@ -2610,7 +2667,7 @@ def phase_lm_agree(cfg, dev, phase="lm_agree"):
                             f"carried through {n} layers and the backward"}
 
 
-REMAT = {"warmup_rounds": 1, "rounds": 2}
+REMAT = {"warmup_rounds": 1, "rounds": 1}
 
 
 def phase_lm_remat(cfg, dev):
@@ -2622,7 +2679,7 @@ def phase_lm_remat(cfg, dev):
     were alive before it); (b) the update of those gradients, tree-wise
     (``update``: new params beside the old and the gradients) and
     leaf-wise (``apply``, the round's), with max_memory_allocated over
-    each; (c) a fresh trainer each way, 1 warm-up and 2 timed rounds:
+    each; (c) a fresh trainer each way, 1 warm-up and 1 timed round:
     s/round and peak, then 1 unprofiled and 1 profiled round (device busy
     time, idle share, kernel launches and the top kernels: where remat's
     recompute spends its time)."""
@@ -2716,7 +2773,7 @@ def phase_lm_remat(cfg, dev):
             "rounds": rounds, "round_settings": {**LM, **REMAT}}
 
 
-def lm_dataset(cfg, st=LM):
+def lm_dataset(cfg, st=LM, boundary_delay=0):
     """``lm_batch``'s data for ``cfg`` (seed 0): make_tokens' bigram
     language, or codebook streams, and media for a model with cross
     layers."""
@@ -2725,7 +2782,8 @@ def lm_dataset(cfg, st=LM):
                     n_codebooks=cfg.n_codebooks,
                     media_tokens=cfg.n_media_tokens, d_model=cfg.d_model)
     return OrderedDataset(data, st["p"], st["tau"], st["b_local"],
-                          n_segments=st["n_segments"], seed=st["order_seed"])
+                          n_segments=st["n_segments"], seed=st["order_seed"],
+                          boundary_delay=boundary_delay)
 
 
 def open_gates(params, seed):
@@ -2744,9 +2802,9 @@ def open_gates(params, seed):
     return params
 
 
-def new_lm_trainer(cfg, dev, st=LM):
+def new_lm_trainer(cfg, dev, st=LM, pipeline=None):
     """A WASGD+ trainer of ``cfg`` (random weights, seed 0, cross gates
-    opened) at the settings ``st``."""
+    opened) at the settings ``st``, pipelined as ``pipeline`` says."""
     from repro_torch.configs import TrainConfig, WASGDConfig
     from repro_torch.models import init_params, param_axes
     from repro_torch.train import Trainer, make_lm_loss
@@ -2755,7 +2813,7 @@ def new_lm_trainer(cfg, dev, st=LM):
                                          backend=st["backend"]))
     params = open_gates(init_params(cfg, seed=0, device=dev), 0)
     return Trainer(make_lm_loss(cfg), params, param_axes(params), tcfg,
-                   st["p"], rule="wasgd+", device=dev)
+                   st["p"], rule="wasgd+", device=dev, pipeline=pipeline)
 
 
 def layer_norms(cfg, i):
@@ -2843,9 +2901,10 @@ def phase_lm_train(cfg, tr, ds, batches):
 
 
 def phase_lm_train_profile(cfg, tr, ds, batches):
-    """2 more rounds unprofiled (wall), then 2 under torch.profiler on
-    device activity: busy time against that wall, and the top kernels."""
-    rounds = 2
+    """``LM_PROFILE_ROUNDS`` more rounds unprofiled (wall), then as many
+    under torch.profiler on device activity: busy time against that
+    wall, and the top kernels."""
+    rounds = LM_PROFILE_ROUNDS
     done = LM["warmup_rounds"] + LM["rounds"]
     wall = run_lm_rounds(tr, ds, batches, rounds, done)
     with device_profile() as prof:
@@ -4993,16 +5052,474 @@ def phase_ssm_serve_profile(cfg, eng):
             **summary}
 
 
+# -- pipelined rounds and telemetry -------------------------------------------
+
+# CNN6 at TRAIN's settings through the pipelined round: 14 rounds, so that
+# segment 0's OrderGen decision, deferred by boundary_delay =
+# RoundPrefetcher.run_ahead() = 4, fires at round 12 inside the run; the
+# Alg. 4 runs take w = p 6 + b 2 and ASYNC's stragglers schedule
+PIPE = {"rounds": 14, "regime": "stragglers"}
+# speculative rounds: |spec - true| <= SPEC_SLACK[0] * bound + SPEC_SLACK[1]
+# (the endpoint-gradient surrogate's 2x, as tests/test_pipeline.py states)
+SPEC_SLACK = (2.0, 1e-6)
+LM_PIPE_PROFILE_ROUNDS = 1
+
+
+def history_bitwise(a, b, keys=("h", "theta", "loss", "loss_last",
+                                 "scores")):
+    return len(a) == len(b) and all(np.array_equal(x[k], y[k])
+                                    for x, y in zip(a, b) for k in keys)
+
+
+def params_bitwise(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def pipe_run(dev, pipeline, p=TRAIN["p"], async_mode="host_sim", beta=0.9,
+             **kw):
+    """A fresh CNN6 trainer (init seed 0), ``PIPE["rounds"]`` rounds over
+    an OrderedDataset with boundary_delay = the prefetcher's run-ahead;
+    returns the trainer and the run's record (wall, wagg_fused launches,
+    the OrderGen decisions and the order seeds after them)."""
+    import torch
+    from repro_torch.data import RoundPrefetcher
+    from repro_torch.kernels.wagg import wagg_fused
+    tr, dataset = new_trainer(dev, p, async_mode, pipeline=pipeline,
+                              beta=beta)
+    ds = dataset(boundary_delay=RoundPrefetcher.run_ahead())
+    decisions, end = [], ds.order.end_segment
+
+    def counted_end(segment):
+        decisions.append(segment)
+        return end(segment)
+
+    ds.order.end_segment = counted_end
+    wagg_fused.launches = wagg_fused.masked_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(ds, PIPE["rounds"], **kw)
+    torch.cuda.synchronize()
+    return tr, {"wall_s": time.perf_counter() - t0,
+                "launches": wagg_fused.launches,
+                "masked_launches": wagg_fused.masked_launches,
+                "decisions": decisions, "seeds": ds.order.seeds.copy()}
+
+
+def pipe_pair(ref, other):
+    """Bitwise agreement of two CNN6 runs: per-round metrics, final
+    params, the order seeds, the wagg_fused launches."""
+    (ta, ra), (tb, rb) = ref, other
+    return {"history_bitwise": history_bitwise(ta.history, tb.history),
+            "params_bitwise": params_bitwise(ta.state.params,
+                                             tb.state.params),
+            "orders_equal": ra["decisions"] == rb["decisions"]
+            and bool(np.array_equal(ra["seeds"], rb["seeds"])),
+            "launches_equal": (ra["launches"], ra["masked_launches"])
+            == (rb["launches"], rb["masked_launches"])}
+
+
+def phase_pipeline_agree(dev):
+    """CNN6 at ``train``'s settings (p 8, tau 8, b_local 64,
+    pallas_wagg:f32), every run from init seed 0 and an OrderedDataset
+    with boundary_delay = RoundPrefetcher.run_ahead(), 14 rounds (the
+    deferred OrderGen decision fires at round 12). Two unpipelined runs
+    with cuDNN's default algorithms, then with deterministic ones
+    (bitwise expected there); the ``"parity"`` run against the
+    unpipelined one: per-round h, theta, losses, Judge scores, the final
+    params, the order seeds, wagg_fused launches. The same under Alg. 4
+    (w = p 6 + b 2, the stragglers schedule: the masked wagg_fused).
+    ``"speculative"``: spec_dev <= 2 spec_bound + 1e-6 every round, round
+    0's deviation 0; at beta 0 the deviation exactly 0 and the params
+    bitwise the parity run's."""
+    import torch
+    from repro_torch.core.async_sim import StepTimeModel, make_schedule
+    default = [pipe_run(dev, None) for _ in range(2)]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        sync = [pipe_run(dev, None), pipe_run(dev, None),
+                pipe_run(dev, "parity")]
+        w = ASYNC["p"] + ASYNC["b"]
+        sched = make_schedule(StepTimeModel(w, seed=ASYNC["seed"],
+                                            **REGIMES[PIPE["regime"]]),
+                              rounds=PIPE["rounds"], tau=TRAIN["tau"],
+                              n_workers=ASYNC["p"], backups=ASYNC["b"])
+        alg4 = [pipe_run(dev, mode, w, "on_device", straggler_schedule=sched)
+                for mode in (None, "parity")]
+        spec = pipe_run(dev, "speculative")
+        beta0 = [pipe_run(dev, mode, beta=0.0)
+                 for mode in ("parity", "speculative")]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    checks = {"unpipelined_twice": pipe_pair(sync[0], sync[1]),
+              "parity_vs_unpipelined": pipe_pair(sync[0], sync[2]),
+              "alg4_parity_vs_unpipelined": pipe_pair(alg4[0], alg4[1])}
+    hist = spec[0].history
+    devs = np.stack([h["spec_dev"] for h in hist])
+    bounds = np.stack([h["spec_bound"] for h in hist])
+    slack, atol = SPEC_SLACK
+    b0 = beta0[1][0].history
+    spec_checks = {
+        "round0_dev_zero": float(devs[0].max()) == 0.0,
+        "stale_after_round0": bool((devs[1:] > 0).any()),
+        "within_bound": bool((devs <= slack * bounds + atol).all()),
+        "beta0_dev_exactly_zero": all(float(np.abs(h["spec_dev"]).max())
+                                      == 0.0 for h in b0),
+        "beta0_params_bitwise_parity": params_bitwise(
+            beta0[0][0].state.params, beta0[1][0].state.params)}
+    masked = alg4[1][1]["masked_launches"]
+    ok = (all(all(v.values()) for v in checks.values())
+          and all(spec_checks.values())
+          and masked == PIPE["rounds"] * CNN6_LEAVES
+          and sync[2][1]["launches"] == PIPE["rounds"] * CNN6_LEAVES
+          and len(sync[2][1]["decisions"]) >= 1)
+    rec = {"phase": "pipeline_agree", "model": "cnn6", **TRAIN,
+           "rounds": PIPE["rounds"],
+           "boundary_delay": "RoundPrefetcher.run_ahead() = 4",
+           "cudnn_default_unpipelined_twice": pipe_pair(*default),
+           "cudnn": "deterministic for the compared runs", **checks,
+           "speculative": {**spec_checks, "slack": list(SPEC_SLACK),
+                           "max_dev": float(devs.max()),
+                           "max_dev_over_bound": float(np.max(
+                               devs / np.maximum(bounds, 1e-30))),
+                           "rounds_over_1x_bound": int(
+                               (devs > bounds).any(axis=1).sum())},
+           "wagg_launches": {"unpipelined": sync[0][1]["launches"],
+                             "parity": sync[2][1]["launches"],
+                             "alg4_parity_masked": masked},
+           "s_per_round": {"unpipelined": sync[0][1]["wall_s"]
+                           / PIPE["rounds"],
+                           "parity": sync[2][1]["wall_s"] / PIPE["rounds"],
+                           "speculative": spec[1]["wall_s"]
+                           / PIPE["rounds"]},
+           "order_decisions": sync[2][1]["decisions"]}
+    if not ok:
+        raise AssertionError(f"pipeline_agree: {rec}")
+    return rec
+
+
+def lm_snapshot(tr):
+    """The LM trainer's history and a host copy of its params (16 GB for
+    gemma3-1b at p 4; on the card it would count in the later phases'
+    peaks): the unpipelined reference of ``lm_pipeline``."""
+    from repro_torch.tree import tree_leaves
+    return {"history": [dict(h) for h in tr.history],
+            "params": [x.cpu() for x in tree_leaves(tr.state.params)]}
+
+
+def stream_check(prof_trace):
+    """From a chrome trace of device activity: the streams of the port's
+    kernels and of the host-to-device copies, and the copies on a stream
+    that runs no port kernel (the prefetcher's side stream)."""
+    with open(prof_trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    kern, copies = set(), []
+    for e in events:
+        args = e.get("args") or {}
+        if "stream" not in args:
+            continue
+        cat, name = str(e.get("cat", "")).lower(), str(e.get("name", ""))
+        if cat == "kernel" and any(k in name for k in PORT_KERNELS):
+            kern.add(args["stream"])
+        elif "memcpy" in cat and "HtoD" in name:
+            copies.append((args["stream"], int(args.get("bytes", 0))))
+    side = [c for c in copies if c[0] not in kern]
+    return {"port_kernel_streams": sorted(kern),
+            "htod_copies_by_stream": {
+                str(st): sum(1 for c in copies if c[0] == st)
+                for st in sorted({c[0] for c in copies})},
+            "side_stream_copies": len(side),
+            "side_stream_bytes": sum(b for _, b in side)}
+
+
+def phase_lm_pipeline(cfg, dev, ref, lm):
+    """gemma3-1b at full width and depth, ``lm_train``'s settings, through
+    ``Trainer(pipeline="parity")``: a fresh trainer from the same seed
+    over the same OrderedDataset (boundary_delay = run-ahead) for 2 + 8
+    rounds in one ``run``. Its per-round h, theta, losses and scores and
+    its final params bitwise ``lm_train``'s run (the same start, data and
+    rounds); launches of wagg_fused, rmsnorm and fused_ce equal
+    ``lm_train``'s a round; s/round (rounds 3-12, by the round hook)
+    beside ``lm_train``'s; peak memory beside its. Then a round under the
+    profiler: the idle share (busy time against the timed rounds'
+    s/round), and the staging copies on a stream that runs none of the
+    port's kernels."""
+    import tempfile
+    import torch
+    from repro_torch.data import RoundPrefetcher
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.tree import tree_leaves
+    warm, rounds = LM["warmup_rounds"], LM["rounds"]
+    total = warm + rounds
+    tr = new_lm_trainer(cfg, dev, pipeline="parity")
+    ds = lm_dataset(cfg, boundary_delay=RoundPrefetcher.run_ahead())
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_fwd.launches = fused_ce_fwd.launches = wagg_fused.launches = 0
+    add_rmsnorm_fwd.launches = 0
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(ds, total,
+           serve_hook=lambda r, p, a: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                "fused_ce": fused_ce_fwd.launches,
+                "wagg_fused": wagg_fused.launches}
+    want = {k: v * total // rounds for k, v in lm["launches"].items()}
+    hist_eq = [history_bitwise([a], [b]) for a, b in
+               zip(ref["history"][:total], tr.history)]
+    leaves = tree_leaves(tr.state.params)
+    params_eq = len(leaves) == len(ref["params"]) and all(
+        torch.equal(x.cpu(), y) for x, y in zip(leaves, ref["params"]))
+    ref["params"].clear()
+    s_round = (stamps[-1] - stamps[warm - 1]) / rounds
+    gen = ds.batches(start_round=total)
+    prof_rounds = LM_PIPE_PROFILE_ROUNDS
+    prof_wall = prof_rounds * s_round             # the unprofiled rounds'
+    with tempfile.TemporaryDirectory() as d:
+        trace = os.path.join(d, "trace.json")
+        with device_profile() as prof:
+            tr.run(gen, prof_rounds)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        streams = stream_check(trace)
+    summary = device_summary(prof, prof_wall, 10)
+    losses = tr.losses()
+    del tr
+    torch.cuda.empty_cache()
+    checks = {"history_bitwise_lm_train": all(hist_eq),
+              "params_bitwise_lm_train": params_eq,
+              "launches_equal_lm_train": launches == want,
+              "staging_on_side_stream": streams["side_stream_copies"] > 0,
+              "finite": bool(np.isfinite(losses).all())}
+    rec = {"phase": "lm_pipeline", "arch": cfg.name, **LM,
+           "pipeline": "parity", "boundary_delay": 4, "checks": checks,
+           "history_bitwise_by_round": hist_eq, "launches": launches,
+           "launches_want": want, "seconds_per_round": s_round,
+           "lm_train_seconds_per_round": lm["seconds_per_round"],
+           "wall_s": wall, "peak_mem_gib": peak,
+           "lm_train_peak_mem_gib": lm["peak_mem_gib"],
+           "profile_rounds": prof_rounds, "streams": streams,
+           **summary, "losses": [float(x) for x in losses]}
+    if not all(checks.values()):
+        raise AssertionError(f"lm_pipeline: {rec}")
+    return rec
+
+
+class TeeSink:
+    """A telemetry sink that keeps the events (``RingSink``) and also
+    writes them to a ``JsonlSink``."""
+    enabled = True
+
+    def __init__(self, jsonl):
+        from repro_torch.obs import RingSink
+        self.ring, self.jsonl = RingSink(maxlen=1 << 16), jsonl
+
+    def emit(self, event):
+        self.ring.emit(event)
+        self.jsonl.emit(event)
+
+    def close(self):
+        pass
+
+
+def dispatched_ops(fn):
+    """PyTorch operations that ``fn()`` dispatches (every ATen call, on the
+    card or not), counted by a dispatch mode: the same program gives the
+    same count. The port's own kernels, launched through ctypes, are
+    counted by their wrappers instead."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def telemetry_serve(cfg, eng, sink):
+    """The gemma3-1b ``ContinuousEngine`` of ``serve`` with a sink: one
+    ServeSample a ``step()``, its tokens and time to first token, greedy
+    tokens equal to a run without a sink; the PyTorch operations that a
+    run dispatches with the default sink and with a fresh ``NullSink()``
+    (equal; the profiler's count of a run's device operations varies by
+    a few of 128k records from run to run, 127,765 to 127,782 on an H100
+    whatever the sink, so it is not the count compared), counted
+    after the sink's run, which warms what a first run allocates and is
+    itself not counted (the count slows a run);
+    a ``HotSwap`` through a bridge
+    that takes the engine's sink (the engine's own weights, one worker:
+    its drift is that of the bf16 copy from the f32 weights it was
+    given)."""
+    from repro_torch.kernels.decode_attn import paged_decode_attn
+    from repro_torch.obs import NULL, NullSink, to_record
+    from repro_torch.serve import HotSwapBridge
+    from repro_torch.tree import tree_map
+    reqs = serve_requests(cfg, 0)
+    tee = TeeSink(sink)
+    dispatched = {}
+
+    def counted_run(name):
+        out = []
+        dispatched[name] = dispatched_ops(
+            lambda: out.append(run_engine(eng, reqs)))
+        return out[0]
+
+    steps, real_step = [], eng.step
+
+    def counted():
+        steps.append(1)
+        return real_step()
+
+    eng.step, eng.telemetry = counted, tee
+    paged_decode_attn.launches = eng.decode_steps = 0
+    try:
+        outs, wall = run_engine(eng, reqs)       # timed: not counted
+    finally:
+        del eng.step
+        eng.telemetry = NULL
+    launches, decode_steps = paged_decode_attn.launches, eng.decode_steps
+    samples = tee.ring.by_kind("serve_sample")
+    ref, _ = counted_run("default")      # after the sink's run: both warm
+    eng.telemetry = NullSink()
+    counted_run("null_sink")
+    eng.telemetry = tee
+    bridge = HotSwapBridge(eng)
+    eng.telemetry = NULL
+    stacked = tree_map(lambda x: x.unsqueeze(0), eng.params)
+    axes = tree_map(lambda x: ("worker",) + (None,) * (x.dim() - 1), stacked)
+    bridge(0, stacked, axes)
+    swaps = tee.ring.by_kind("hot_swap")
+    tokens = sum(len(t) for t in outs)
+    checks = {
+        "one_sample_a_step": len(samples) == len(steps) > 0,
+        "tokens": sum(x.tokens for x in samples) == tokens,
+        "ttft_each_request": len([t for x in samples for t in x.ttft_s])
+        == len(reqs),
+        "e2e_each_request": len([t for x in samples for t in x.e2e_s])
+        == len(reqs),
+        "greedy_tokens_equal_no_sink": all(np.array_equal(a, b)
+                                           for a, b in zip(ref, outs)),
+        "null_sink_dispatched_ops_equal_default":
+        dispatched["null_sink"] == dispatched["default"],
+        "hot_swap": len(swaps) == 1 and bridge.telemetry is tee,
+        "paged_launches": launches == decode_steps * sum(
+            cfg.layer_is_attn(i) for i in range(cfg.n_layers)) > 0}
+    itl = [x.itl_s for x in samples if x.steps]
+    return {"checks": checks, "samples": len(samples), "steps": len(steps),
+            "paged_decode_attn_launches": launches, "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_s": sorted(t for x in samples for t in x.ttft_s),
+            "itl_ms_median": float(np.median(itl)) * 1e3 if itl else None,
+            "dispatched_ops": dispatched,
+            "hot_swap": to_record(swaps[0]) if swaps else None}
+
+
+def telemetry_lm(cfg, tr, ds, batches, done, sink):
+    """``lm_train``'s trainer (gemma3-1b), 2 rounds with ``NullSink`` (the
+    fused rounds) and 2 with a sink (the phase-fenced rounds): a phased
+    RoundTrace a round, its phases named in PHASE_NAMES, and a
+    WorkerAssessment; s/round each way, each round's phases."""
+    from repro_torch.obs import NULL, PHASE_NAMES
+    rounds = 2
+    null_s = run_lm_rounds(tr, ds, batches, rounds, done, telemetry=NULL)
+    tee = TeeSink(sink)
+    sink_s = run_lm_rounds(tr, ds, batches, rounds, done + rounds,
+                           telemetry=tee)
+    traces = tee.ring.by_kind("round_trace")
+    names = {"local_steps", "judge", "reduce", "finalize"}
+    checks = {
+        "phased_trace_a_round": len(traces) == rounds
+        and all(t.detail == "phased" and set(t.phases) == names
+                and set(t.phases) <= set(PHASE_NAMES) for t in traces),
+        "assessment_a_round": len(tee.ring.by_kind("worker_assessment"))
+        == rounds}
+    phases = {k: float(np.mean([t.phases[k] for t in traces]))
+              for k in sorted(names)} if traces else {}
+    return {"checks": checks, "rounds": rounds,
+            "null_sink_s_per_round": null_s / rounds,
+            "phased_s_per_round": sink_s / rounds,
+            "phases_mean_s": phases,
+            "phases_by_round": [t.phases for t in traces],
+            "total_s": [t.total_s for t in traces],
+            "host_staging_s": [t.host_staging_s for t in traces]}
+
+
+def phase_telemetry(dev, path, sink, serve_part, lm_part):
+    """Telemetry through one ``JsonlSink``: the serving and gemma3-1b
+    parts (``telemetry_serve``, ``telemetry_lm``, run while their engine
+    and trainer lived), then a CNN6 elastic run with checkpoints (p 8 ->
+    6 at round 3 -> 10 at round 5, a save every 4 rounds, 8 rounds):
+    MembershipChange and CheckpointSave. The file is read back with
+    ``repro_torch.obs.read_events``: every record there."""
+    import tempfile
+    from repro_torch.core.membership import MembershipSchedule
+    from repro_torch.obs import read_events
+    tee = TeeSink(sink)
+    tr, dataset = new_trainer(dev)
+    events = {3: 6, 5: 10}
+    with tempfile.TemporaryDirectory() as d:
+        tr.run(dataset(), 8, telemetry=tee,
+               membership_schedule=MembershipSchedule(TRAIN["p"], events),
+               checkpoint_every=4, checkpoint_path=d)
+    mc = [(e.round, e.old_p, e.new_p) for e in
+          tee.ring.by_kind("membership_change")]
+    cs = tee.ring.by_kind("checkpoint_save")
+    sink.close()
+    kinds = {}
+    for e in read_events(path):
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    checks = {
+        "membership_changes": mc == [(3, 8, 6), (5, 6, 10)],
+        "checkpoint_saves": sorted(e.round for e in cs) == [4, 8]
+        and all(e.nbytes > 0 and e.duration_s > 0 for e in cs),
+        "read_back": kinds.get("serve_sample") == serve_part["samples"]
+        and kinds.get("hot_swap") == 1
+        and kinds.get("membership_change") == 2
+        and kinds.get("checkpoint_save") == 2
+        and kinds.get("round_trace") == lm_part["rounds"] + 8
+        and kinds.get("worker_assessment") == lm_part["rounds"] + 8,
+        **{f"serve/{k}": v for k, v in serve_part["checks"].items()},
+        **{f"lm/{k}": v for k, v in lm_part["checks"].items()}}
+    rec = {"phase": "telemetry", "records_by_kind": kinds,
+           "checks": checks, "serve": serve_part, "lm": lm_part,
+           "cnn6_elastic": {"membership_changes": mc,
+                            "checkpoint_saves": [
+                                {"round": e.round, "nbytes": e.nbytes,
+                                 "duration_s": e.duration_s}
+                                for e in cs]}}
+    if not all(checks.values()):
+        raise AssertionError(f"telemetry: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this "
                  "script measures the port on an NVIDIA card only")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    import tempfile
     from repro_torch.configs import get_config
+    from repro_torch.data import RoundPrefetcher
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attn import paged_decode_attn
     from repro_torch.models import cast_params, init_params
+    from repro_torch.obs import JsonlSink
     from repro_torch.serve import ContinuousEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5037,6 +5554,9 @@ def main():
     run_phase(phase_ssd_check, dev)
     ssd_timing = run_phase(phase_ssd_time, dev)
     torch.cuda.empty_cache()
+    tele_dir = tempfile.TemporaryDirectory()
+    tele_path = os.path.join(tele_dir.name, "telemetry.jsonl")
+    tele_sink = JsonlSink(tele_path)
 
     cfg = get_config(ARCH)
     params = init_params(cfg, seed=0, device=dev)          # float32
@@ -5049,6 +5569,7 @@ def main():
     serve = run_phase(phase_serve, cfg, eng)
     serve_prof = run_phase(phase_serve_profile, cfg, eng)
     legacy = run_phase(phase_legacy_serve, cfg, eng.params, eng, dev)
+    tele_serve = telemetry_serve(cfg, eng, tele_sink)
     params = eng.params
     del eng
     torch.cuda.empty_cache()
@@ -5077,19 +5598,32 @@ def main():
     async_train = run_phase(phase_async_train, dev)
     measured = run_phase(phase_async_measured, dev)
     run_phase(phase_elastic, dev, train["loss_last"])
+    pipe = run_phase(phase_pipeline_agree, dev)
     torch.cuda.empty_cache()
 
     run_phase(phase_lm_agree, cfg, dev)
     torch.cuda.empty_cache()
     run_phase(phase_lm_remat, cfg, dev)
-    tr, ds = new_lm_trainer(cfg, dev), lm_dataset(cfg)
+    # the OrderGen decisions deferred past the prefetcher's run-ahead, so
+    # that lm_pipeline's pipelined run can be held to this one bitwise
+    tr = new_lm_trainer(cfg, dev)
+    ds = lm_dataset(cfg, boundary_delay=RoundPrefetcher.run_ahead())
     batches = ds.batches()
     lm = run_phase(phase_lm_train, cfg, tr, ds, batches)
+    lm_ref = lm_snapshot(tr)
     lm_prof = run_phase(phase_lm_train_profile, cfg, tr, ds, batches)
-    t2s = run_phase(phase_train_to_serve, cfg, tr, ds, batches,
-                    LM["warmup_rounds"] + LM["rounds"] + 4, dev)
+    done = LM["warmup_rounds"] + LM["rounds"] + 2 * LM_PROFILE_ROUNDS
+    t2s = run_phase(phase_train_to_serve, cfg, tr, ds, batches, done, dev)
+    tele_lm = telemetry_lm(cfg, tr, ds, batches,
+                           done + TRAIN_TO_SERVE_ROUNDS, tele_sink)
     del tr, batches
     torch.cuda.empty_cache()
+    lm_pipe = run_phase(phase_lm_pipeline, cfg, dev, lm_ref, lm)
+    del lm_ref
+    torch.cuda.empty_cache()
+    run_phase(phase_telemetry, dev, tele_path, tele_sink, tele_serve,
+              tele_lm)
+    tele_dir.cleanup()
     lm_async = run_phase(phase_lm_async, cfg, dev)
     torch.cuda.empty_cache()
     run_phase(phase_lm_windowed, dev)
@@ -5168,9 +5702,13 @@ def main():
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "train_to_serve_launches": t2s["launches"]["paged_decode_attn"],
+        "telemetry_serve_launches": tele_serve["paged_decode_attn_launches"],
         "yi_serve_launches": yi_serve["launches"],
         "olmoe_serve_launches": olmoe_serve["launches"],
         "jamba_serve_launches": jamba["launches"]["paged_decode_attn"],
+        **{f"{arch}_linear1024": {k: timing[arch][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")} for arch in PAGED_GQA},
         "serve_profile_device_kernels": serve_prof[
             "paged_decode_device_kernels"],
         "kernel_launches_one_decode_step": {
@@ -5188,6 +5726,8 @@ def main():
         "lm_mlp_leaf": {k: lm_leaf[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         "lm_train_launches": lm["launches"]["wagg_fused"],
+        "lm_pipeline_launches": lm_pipe["launches"]["wagg_fused"],
+        "pipeline_agree_launches": pipe["wagg_launches"],
         "train_to_serve_launches": t2s["launches"]["wagg_fused"],
         "lm3b_train_int4_launches": lm3b["launches"]["wagg_fused"],
         "ssm_lm_train_launches": ssm_lm["launches"]["wagg_fused"],
@@ -5213,6 +5753,7 @@ def main():
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
         "launches": lm["launches"]["rmsnorm"],
+        "lm_pipeline_launches": lm_pipe["launches"]["rmsnorm"],
         "max_abs_err": nt["max_abs_err"], "ms": nt["ms"],
         "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
         "bound_by": nt["bound_by"], "library_ms": nt["library_ms"],
@@ -5244,6 +5785,7 @@ def main():
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
         "launches": lm["launches"]["fused_ce"],
+        "lm_pipeline_launches": lm_pipe["launches"]["fused_ce"],
         "max_abs_err": ce_timing["max_abs_err"], "ms": ce_timing["ms"],
         "plain_ms": ce_timing["plain_ms"], "bound_ms": ce_timing["bound_ms"],
         "bound_by": ce_timing["bound_by"],

@@ -43,6 +43,7 @@ import os
 import queue
 import struct
 import threading
+import time
 import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -97,6 +98,13 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
         return t.numpy(), _dtype_name(t)
     dt = _dtype_name(leaf)
     return np.asarray(leaf, dtype=dt), dt
+
+
+def _nbytes(leaf) -> int:
+    """Bytes of a leaf's host payload, without copying it."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return _host(leaf)[0].nbytes
 
 
 def _npy_header(descr: str, shape) -> bytes:
@@ -365,10 +373,15 @@ class AsyncCheckpointer:
     the shards and the manifest. A failed save is raised by the next
     ``save`` or ``wait``."""
 
-    def __init__(self, depth: int = 2):
+    def __init__(self, depth: int = 2, telemetry=None):
+        """``telemetry`` (a ``repro_torch.obs`` sink, optional) receives a
+        ``CheckpointSave`` for each completed save, its duration taken on
+        the writer thread (the copy to the host and the writes). Callers'
+        threads set the attribute; the writer only reads it."""
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._exc: Optional[Exception] = None
         self._exc_lock = threading.Lock()
+        self.telemetry = telemetry
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="ckpt-writer")
         self._thread.start()
@@ -380,8 +393,16 @@ class AsyncCheckpointer:
                 if job is None:
                     return
                 path, snap, meta, topology, n_shards = job
+                t0 = time.perf_counter()
                 save_sharded(path, snap, meta=meta, topology=topology,
                              n_shards=n_shards)
+                tele = self.telemetry
+                if tele is not None and getattr(tele, "enabled", False):
+                    from repro_torch.obs.events import CheckpointSave
+                    tele.emit(CheckpointSave(
+                        path=path, round=int((meta or {}).get("round", -1)),
+                        duration_s=time.perf_counter() - t0,
+                        nbytes=sum(_nbytes(v) for v in snap.values())))
             except Exception as e:       # raised on the caller's thread
                 with self._exc_lock:
                     self._exc = e

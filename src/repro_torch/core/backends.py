@@ -22,15 +22,20 @@ place collectives on a device mesh and are not ported yet: naming them
 raises ``NotImplementedError``.
 
 Every schedule runs ``prepare -> reduce_phase(i) for i < n_phases ->
-finalize`` for each worker leaf. (The JAX package sequences each phase
-over all leaves so that an ``overlap=`` thunk can run between two
-collectives; the port has no collectives and no such thunk yet.)
+finalize`` for each worker leaf. Without an ``overlap=`` thunk the
+backend takes one leaf through all of that before the next, so one leaf's
+reduce state is alive at a time. With a thunk it runs as the JAX package
+does: every leaf's prepare and phase 0, then the thunk (between the
+``hierarchical`` schedule's two hops; after the one phase of ``einsum``
+and ``pallas_wagg``), then the later phases and every finalize. Each
+leaf's arithmetic is the same either way, so the params are too; the
+thunk's result comes back beside them and never feeds the aggregate.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -195,7 +200,9 @@ def resolve_spec(name: str) -> Tuple[str, Optional[str]]:
 
 class ComposedBackend:
     """schedule x codec: ``aggregate(params, axes, theta, beta, ctx=)``
-    applies Eq. 10 to every worker leaf."""
+    applies Eq. 10 to every worker leaf. With ``overlap=`` (a nullary
+    thunk, its result any tree) the return value is ``(params,
+    overlap_result)`` and the thunk runs after every leaf's phase 0."""
 
     def __init__(self, schedule, codec_name: Optional[str], name: str):
         self.schedule = schedule
@@ -214,13 +221,21 @@ class ComposedBackend:
         return codec
 
     def aggregate(self, params: Dict, axes: Dict, theta: torch.Tensor, beta,
-                  *, ctx: AggregationContext = DEFAULT_CONTEXT) -> Dict:
+                  *, ctx: AggregationContext = DEFAULT_CONTEXT,
+                  overlap: Optional[Callable] = None):
         codec = self._codec(ctx)
         sched = self.schedule
         validate = getattr(sched, "validate", None)
         if validate is not None:
             validate(theta, ctx)
         theta = theta.float()
+        if overlap is not None:             # phase-major, the thunk between
+            run = PhaseMajor(sched, codec, params, axes, theta, ctx)
+            run.reduce(0)
+            overlap_out = overlap()
+            for phase in range(1, sched.n_phases):
+                run.reduce(phase)
+            return run.finalize(beta), overlap_out
         position = itertools.count()
 
         def leaf(x, ax):
@@ -234,6 +249,64 @@ class ComposedBackend:
             return sched.finalize(state, x, theta, beta, codec, lctx)
 
         return tree_map(leaf, params, axes)
+
+    def phase_major(self, params: Dict, axes: Dict, theta: torch.Tensor,
+                    *, ctx: AggregationContext = DEFAULT_CONTEXT
+                    ) -> "PhaseMajor":
+        """The aggregate split into its phases, for a caller that runs
+        them one by one (the phase-fenced round)."""
+        codec = self._codec(ctx)
+        validate = getattr(self.schedule, "validate", None)
+        if validate is not None:
+            validate(theta, ctx)
+        return PhaseMajor(self.schedule, codec, params, axes, theta.float(),
+                          ctx)
+
+
+class PhaseMajor:
+    """One phase-major aggregate: ``reduce(0)`` prepares every worker leaf
+    and runs its first reduce phase, ``reduce(k)`` the later phases leaf
+    by leaf, ``finalize(beta)`` the Eq. 10 FMA of every leaf and returns
+    the new tree. Every leaf's reduce state is alive between the phases
+    (for ``einsum`` a float32 mean of each leaf), which is why the
+    aggregate without a thunk goes leaf by leaf instead."""
+
+    def __init__(self, sched, codec, params, axes, theta, ctx):
+        self.sched, self.codec, self.theta = sched, codec, theta
+        self.params, self.axes = params, axes
+        self.ctxs, self.xs = {}, {}
+        position = itertools.count()
+
+        def index(x, ax):
+            i = next(position)              # the flatten order: sorted keys
+            if is_worker_leaf(ax):
+                self.ctxs[i] = dataclasses.replace(ctx, leaf_index=i)
+                self.xs[i] = x
+            return x
+
+        tree_map(index, params, axes)
+        self.states: Dict[int, object] = {}
+
+    def reduce(self, phase: int) -> None:
+        sched, codec, theta = self.sched, self.codec, self.theta
+        if phase == 0:
+            self.states = {i: sched.prepare(x, theta, codec, self.ctxs[i])
+                           for i, x in self.xs.items()}
+        self.states = {i: sched.reduce_phase(phase, st, theta, codec,
+                                             self.ctxs[i])
+                       for i, st in self.states.items()}
+
+    def finalize(self, beta) -> Dict:
+        position = itertools.count()
+
+        def leaf(x, ax):
+            i = next(position)
+            if not is_worker_leaf(ax):
+                return x
+            return self.sched.finalize(self.states.pop(i), x, self.theta,
+                                       beta, self.codec, self.ctxs[i])
+
+        return tree_map(leaf, self.params, self.axes)
 
 
 def canonical_spec(name: str) -> str:
@@ -251,18 +324,24 @@ def get_backend(name: str) -> ComposedBackend:
 
 
 def aggregate_with(name: str, params: Dict, axes: Dict, theta: torch.Tensor,
-                   beta, *, ctx: AggregationContext = DEFAULT_CONTEXT
-                   ) -> Dict:
-    return get_backend(name).aggregate(params, axes, theta, beta, ctx=ctx)
+                   beta, *, ctx: AggregationContext = DEFAULT_CONTEXT,
+                   overlap: Optional[Callable] = None):
+    """``get_backend(name).aggregate(...)``; with ``overlap=`` the return
+    value is ``(params, overlap_result)``."""
+    return get_backend(name).aggregate(params, axes, theta, beta, ctx=ctx,
+                                       overlap=overlap)
 
 
 def aggregate_from_config(wcfg, params: Dict, axes: Dict,
-                          theta: torch.Tensor, *, beta=None) -> Dict:
+                          theta: torch.Tensor, *, beta=None,
+                          overlap: Optional[Callable] = None):
     """Eq. 10 with the backend and context a ``WASGDConfig`` selects;
-    ``beta`` defaults to ``wcfg.beta``."""
+    ``beta`` defaults to ``wcfg.beta``; ``overlap`` as in
+    ``aggregate_with``."""
     beta = wcfg.beta if beta is None else beta
     return aggregate_with(backend_name_from_config(wcfg), params, axes,
-                          theta, beta, ctx=context_from_config(wcfg))
+                          theta, beta, ctx=context_from_config(wcfg),
+                          overlap=overlap)
 
 
 def backend_name_from_config(wcfg) -> str:

@@ -16,3 +16,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA is not available; pass device='cpu' to run the port's "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def fence(device: torch.device) -> None:
+    """Waits for the card's queued work (a timer's fence); nothing on the
+    CPU, whose work is done when its call returns."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

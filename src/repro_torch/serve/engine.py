@@ -45,16 +45,18 @@ has stopped (as in JAX).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, dtype_of
-from repro_torch.device import resolve_device
+from repro_torch.device import fence, resolve_device
 from repro_torch.models.transformer import (cast_params, decode_step,
                                             decode_step_paged, init_cache,
                                             prefill)
+from repro_torch.obs import NULL, HotSwap, ServeSample
 from repro_torch.serve.paged_cache import PagedCache
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.train.evaluate import consensus_params
@@ -203,13 +205,20 @@ class ContinuousEngine:
     go to the trash block) until the host recycles their slot at the end of
     the chunk. ``eos_id``, when set, is a stop token: a row that emits it
     finishes whatever its remaining budget. ``device=None`` means cuda.
+
+    ``telemetry`` (a ``repro_torch.obs`` sink; default ``NullSink``, off)
+    receives one ``ServeSample`` a ``step()``: the fenced chunk wall, the
+    inter-token latency, the time to first token of the requests admitted
+    in the step, block-pool occupancy, queue depth, admissions and
+    finishes. With the default sink the engine adds no fence and no host
+    read.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict, n_slots: int = 8,
                  max_len: int = 2048, block_size: int = 16,
                  cache_dtype=torch.bfloat16, chunk: int = 32,
                  full_blocks: Optional[int] = None, seed: int = 0,
-                 eos_id: Optional[int] = None, device=None):
+                 eos_id: Optional[int] = None, device=None, telemetry=None):
         for i in range(cfg.n_layers):
             if cfg.layer_is_cross_attn(i):
                 raise NotImplementedError(
@@ -241,6 +250,7 @@ class ContinuousEngine:
         self.n_swaps = 0
         self.eos_id = eos_id
         self.seed = seed
+        self.telemetry = telemetry if telemetry is not None else NULL
 
         n, dev = n_slots, self.device
         i32 = dict(dtype=torch.int32, device=dev)
@@ -309,7 +319,9 @@ class ContinuousEngine:
         that does not). Admissions sharing a prompt length share one batched
         prefill into a bucketed scratch cache; each request's prefill K/V is
         then scattered into its reserved blocks and its first token set in
-        the batch state, to be collected with the next chunk."""
+        the batch state, to be collected with the next chunk. A telemetry
+        sink adds one fence a prefill group, to stamp its requests' first
+        tokens for the time to first token."""
         admitted: List[Request] = []
         while True:
             req = self.scheduler.next_admit()
@@ -359,6 +371,11 @@ class ContinuousEngine:
             for r in group:
                 self._remaining[r.slot] = r.n_new - 1
                 self._temps[r.slot] = r.temperature
+            if self.telemetry.enabled:
+                fence(self.device)
+                now = time.perf_counter()
+                for r in group:
+                    r.t_first = now
         return admitted
 
     def _chunk_steps(self, stop_early: bool) -> int:
@@ -415,10 +432,13 @@ class ContinuousEngine:
         """One scheduling round: admit waiting requests into free slots, run
         one decode chunk, collect tokens and recycle finished slots. Returns
         the requests that finished this round."""
-        self._admit_all()
+        tele = self.telemetry
+        obs_on = tele.enabled
+        admitted = self._admit_all()
         if not self.scheduler.running:
             return []
         n_steps = self._chunk_steps(stop_early=bool(self.scheduler.queue))
+        t0 = time.perf_counter() if obs_on else 0.0
         if n_steps:
             # attend only over full-group table columns that reserved blocks
             # back (the kernel takes a contiguous table)
@@ -433,7 +453,28 @@ class ContinuousEngine:
                 self._decode_once(tables, any_sampled)
             for s in running:
                 self._remaining[s] = max(0, self._remaining[s] - n_steps)
-        return self._collect()
+        if obs_on:
+            fence(self.device)
+            chunk_s = time.perf_counter() - t0
+        tokens_before = self.tokens_generated
+        finished = self._collect()
+        if obs_on:
+            now = time.perf_counter()
+            free = self.cache.free_blocks()
+            total = self.cache._group_phys.get("full", 0)
+            tele.emit(ServeSample(
+                chunk_s=chunk_s, steps=n_steps,
+                tokens=self.tokens_generated - tokens_before,
+                itl_s=chunk_s / max(n_steps, 1),
+                n_running=self.n_running,
+                queue_depth=len(self.scheduler.queue),
+                admitted=len(admitted), finished=len(finished),
+                blocks_free=free, blocks_total=total,
+                occupancy=(1.0 - free / total) if total else 0.0,
+                ttft_s=[r.t_first - r.t_submit for r in admitted
+                        if r.t_first is not None],
+                e2e_s=[now - r.t_submit for r in finished]))
+        return finished
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drain queue + running batch; returns {rid: generated tokens}."""
@@ -465,15 +506,16 @@ class HotSwapBridge:
     handed to the engine (``engine.given_params``: at its construction or
     at the last swap, in the dtype the caller gave them) and the new
     consensus, as JAX measures it against what its engine was given; not
-    against the engine's compute-dtype copy. (Telemetry is not ported:
-    ``telemetry`` other than ``None`` raises.)"""
+    against the engine's compute-dtype copy.
+
+    ``telemetry`` defaults to the engine's sink, so a bridge over an
+    instrumented engine emits a ``HotSwap`` a swap; an explicit sink (or
+    ``repro_torch.obs.NULL``) overrides it."""
 
     def __init__(self, engine, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "HotSwapBridge telemetry=: telemetry (ROADMAP.md queue "
-                "1.8) is not ported yet")
         self.engine = engine
+        self.telemetry = (telemetry if telemetry is not None
+                          else getattr(engine, "telemetry", NULL))
         self.swaps: List[Dict] = []
         self._last_round: Optional[int] = None
         self._tokens_at_swap = engine.tokens_generated
@@ -500,4 +542,6 @@ class HotSwapBridge:
         self._last_round = int(round_idx)
         self._tokens_at_swap = self.engine.tokens_generated
         self.swaps.append(rec)
+        if self.telemetry.enabled:
+            self.telemetry.emit(HotSwap(**rec))
         return rec

@@ -16,6 +16,8 @@ over workers and scales it by p; the two agree up to rounding).
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import time
 import types
 from typing import (Callable, Dict, Optional, Protocol, Tuple,
                     runtime_checkable)
@@ -31,6 +33,7 @@ from repro_torch.core.energy import record_mask
 from repro_torch.core.order import judge_scores
 from repro_torch.core.weights import (compute_theta, omega,
                                       policy_from_config, theta_entropy)
+from repro_torch.device import fence
 from repro_torch.optim import Optimizer
 from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_leaves, tree_map
@@ -57,23 +60,35 @@ def _check_pods(wcfg, name: str) -> None:
                          f"WASGDConfig.n_pods >= 2 (got {wcfg.n_pods})")
 
 
-def wasgd_rule(wcfg) -> Callable:
+def wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
     """Eq. 10 communication rule: theta from the configured policy (its
     state is ``comm_state``), the aggregate through the configured
     ``schedule:codec`` spec. Unknown or unported specs fail here, when the
-    rule is built."""
+    rule is built.
+
+    ``overlap`` is a nullary thunk (its result any tree) that runs inside
+    the aggregate, after every leaf's first reduce phase
+    (``ComposedBackend.aggregate``); its result is ``metrics["overlap"]``
+    and never feeds the aggregate, so the params are the same with or
+    without it. The rule also takes a per-call ``overlap=`` keyword over
+    the built one: the pipelined round hands each round a fresh seam
+    thunk that way."""
     name = backends.backend_name_from_config(wcfg)
     _check_pods(wcfg, name)
     pol = policy_from_config(wcfg)
 
-    def rule(params, axes, h, comm_state):
+    def rule(params, axes, h, comm_state, overlap=overlap):
         theta, comm_state = pol(h, None, comm_state)
-        new_params = backends.aggregate_from_config(wcfg, params, axes, theta)
-        return new_params, comm_state, theta, {}
+        res = backends.aggregate_from_config(wcfg, params, axes, theta,
+                                             overlap=overlap)
+        if overlap is not None:
+            new_params, overlap_out = res
+            return new_params, comm_state, theta, {"overlap": overlap_out}
+        return res, comm_state, theta, {}
     return rule
 
 
-def async_wasgd_rule(wcfg) -> Callable:
+def async_wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
     """Alg. 4 (p-of-(p+b)) rule for ``async_mode="on_device"``.
     ``comm_state`` is the round's ``(w,)`` bool activity mask, or
     ``{"active": mask, "policy": state}`` for a stateful policy; the host
@@ -82,7 +97,8 @@ def async_wasgd_rule(wcfg) -> Callable:
     exactly 0); the aggregate and the late-join run through the
     configured spec's Alg. 4 form (``async_device.async_backend_name``)
     with the mask cast to float32 once a round, which is also
-    ``metrics["active"]``."""
+    ``metrics["active"]``. ``overlap`` as in ``wasgd_rule`` (built-in
+    thunk, per-call keyword)."""
     name = async_device.async_backend_name(
         backends.backend_name_from_config(wcfg))
     backends.get_backend(name)
@@ -90,19 +106,22 @@ def async_wasgd_rule(wcfg) -> Callable:
     pol = policy_from_config(wcfg)
     ctx = backends.context_from_config(wcfg)
 
-    def rule(params, axes, h, comm_state):
+    def rule(params, axes, h, comm_state, overlap=overlap):
         if pol.stateful:
             active, pstate = comm_state["active"], comm_state["policy"]
         else:
             active, pstate = comm_state, ()
         theta, pstate = pol(h, active, pstate, checked=True)
         act = active.float()
-        new_params = backends.aggregate_with(
+        metrics = {"active": act}
+        res = backends.aggregate_with(
             name, params, axes, theta, wcfg.beta,
-            ctx=dataclasses.replace(ctx, active=act))
+            ctx=dataclasses.replace(ctx, active=act), overlap=overlap)
+        if overlap is not None:
+            res, metrics["overlap"] = res
         out_comm = ({"active": active, "policy": pstate} if pol.stateful
                     else comm_state)
-        return new_params, out_comm, theta, {"active": act}
+        return res, out_comm, theta, metrics
     return rule
 
 
@@ -137,10 +156,15 @@ def no_comm_rule() -> Callable:
     return rule
 
 
+PIPELINE_MODES = ("parity", "speculative")
+
+
 def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
                  n_workers: int) -> types.SimpleNamespace:
     """The round's building blocks: batch reshape, the tau-step local
-    loop, per-worker L2 norms, and the state/metrics assembly."""
+    loop, per-worker losses and L2 norms, and the state/metrics assembly,
+    shared by the fused round, the pipelined round and the phase-fenced
+    round (``build_phased_train_step``): the three run the same code."""
     in_dims = agg.worker_in_axes(axes)
     tau = wcfg.tau
     mask = record_mask(tau, wcfg.m_estimate, wcfg.record_chunks)
@@ -180,6 +204,12 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
 
         return tree_map(grad_of, tracked, in_dims), losses.detach()
 
+    def per_worker_losses(params, mb):
+        """The workers' losses (p,) on a microbatch with leading dims
+        (p, b_local), forward only."""
+        with torch.no_grad():
+            return worker_losses(params, mb)[0]
+
     def reshape_batch(batch):
         def r(x):
             b = x.shape[0]
@@ -207,9 +237,12 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
             total = total + torch.square(d).reshape(n_workers, -1).sum(dim=1)
         return torch.sqrt(total)
 
-    def run_scan(state, mb):
-        """tau local steps; returns (params, opt_state, energy) and the
-        (tau,) per-step mean losses. The optimizer's leaf-wise ``apply``
+    def run_scan(state, mb, collect_gnorm=False):
+        """tau local steps; returns (params, opt_state, energy) and
+        ``(round_losses, step_losses, gnorm0)``: the (tau,) per-step mean
+        losses, the (tau, p) per-worker losses, and with
+        ``collect_gnorm`` the workers' gradient norms (p,) at t = 0
+        (else None). The optimizer's leaf-wise ``apply``
         replaces each leaf of the ``state.params`` (and optimizer state)
         dicts by its new tensor and drops its gradient before the next
         leaf (no tensor is written in place): the round consumes its input
@@ -219,19 +252,24 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
         parameters."""
         params, opt_state, energy = (state.params, state.opt_state,
                                      state.energy)
-        step_losses = []
+        step_means, step_losses, gnorm0 = [], [], None
         for t in range(tau):
             grads, losses = worker_grads(params,
                                          tree_map(lambda x: x[t], mb))
+            if collect_gnorm and t == 0:
+                gnorm0 = worker_l2(grads)
             opt_state = optimizer.apply(grads, opt_state, params)
             del grads
             if mask[t]:
                 energy = energy + losses
-            step_losses.append(losses.mean())
-        return (params, opt_state, energy), torch.stack(step_losses)
+            step_means.append(losses.mean())
+            step_losses.append(losses)
+        return (params, opt_state, energy), (torch.stack(step_means),
+                                             torch.stack(step_losses),
+                                             gnorm0)
 
     def assemble(state, params, opt_state, comm_state, round_losses, energy,
-                 theta, rule_metrics):
+                 theta, rule_metrics, extra=None):
         new_state = TrainState(
             step=state.step + 1,
             params=params,
@@ -248,35 +286,240 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
             "theta_entropy": theta_entropy(theta),
             "omega": omega(theta),
             **rule_metrics,
+            **(extra or {}),
         }
         return new_state, metrics
 
     return types.SimpleNamespace(
-        mask=mask, reshape_batch=reshape_batch, worker_grads=worker_grads,
+        mask=mask, per_worker_losses=per_worker_losses,
+        reshape_batch=reshape_batch, worker_grads=worker_grads,
         worker_l2=worker_l2, run_scan=run_scan, assemble=assemble)
 
 
 def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
                      wcfg, n_workers: int,
-                     rule: Optional[Callable] = None) -> Callable:
+                     rule: Optional[Callable] = None,
+                     overlap: Optional[Callable] = None,
+                     pipeline: Optional[str] = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` for one round.
-    (The JAX builder's ``pipeline=``/``overlap=`` seam and its mesh
-    schedules are not ported yet.)"""
+    ``wcfg.async_mode="on_device"`` takes the Alg. 4 rule
+    (``async_wasgd_rule``; the round's mask rides in ``state.comm_state``).
+    ``overlap`` (a nullary thunk) is handed to the default rule, which
+    runs it inside the aggregate; its result is ``metrics["overlap"]``
+    and the params are the same either way.
+
+    Pipelined rounds (``pipeline="parity" | "speculative"``): the builder
+    returns
+
+        ``train_step(state, batch, next_first, carry)
+            -> (state, metrics, carry)``
+
+    ``next_first`` being round ``r+1``'s first worker-major microbatch
+    (leading dims ``(p, b_local)``, staged by
+    ``data/pipeline.RoundPrefetcher``) and ``carry`` what one round hands
+    the next (``train_step.primer(params, batch)`` makes round 0's). The
+    round's seam thunk, handed to the rule's per-call ``overlap=``, runs
+    inside the aggregate and stages the next round's work:
+
+    * the staged ``next_first`` rides the seam, and round ``r+1`` copies
+      it into the ``t = 0`` slice of its reshaped batch, in place, so its
+      first step reads the same buffer as the unpipelined round (equal
+      values by the prefetcher's correctness);
+    * ``"speculative"`` also runs the Judge's forward for that microbatch
+      on the pre-aggregate params.
+
+    ``"parity"`` gives params and metrics bitwise equal to the unpipelined
+    round's. ``"speculative"`` puts the seam forward's stale losses in
+    place of round ``r+1``'s ``t = 0`` energy term (the Judge is a
+    heuristic; paper Sec. 3.4): they are one Eq. 10 step stale, since the
+    seam evaluates at ``x_i`` where the round evaluates at
+    ``x_i' = x_i + beta (m - x_i)`` (a straggler: ``x_i' = m``), so
+
+        ``|L_i(x_i) - L_i(x_i')| <= sup_seg ||grad L_i|| * ||x_i' - x_i||``.
+
+    The round measures both sides: ``metrics["spec_dev"]`` is
+    ``|spec - true|`` per worker, ``metrics["spec_bound"]`` the endpoint
+    surrogate ``||grad L_i(x_i')|| * ||x_i' - x_i||`` (round ``r+1``'s
+    t = 0 gradient norm times round ``r``'s step); at ``beta = 0`` the
+    deviation is exactly 0. The params never take the seam's losses.
+    """
+    if pipeline is not None:
+        if pipeline not in PIPELINE_MODES:
+            raise ValueError(f"unknown pipeline mode {pipeline!r}; "
+                             f"known: {PIPELINE_MODES}")
+        if overlap is not None:
+            raise ValueError(
+                "pipeline= and overlap= both claim the aggregation "
+                "schedule's phase-gap seam; pass one or the other")
+        if rule is not None \
+                and "overlap" not in inspect.signature(rule).parameters:
+            raise ValueError(
+                "pipelined rounds thread the seam thunk through the "
+                "rule's per-call overlap= keyword; the supplied rule "
+                "does not accept one (use wasgd_rule/async_wasgd_rule, "
+                "or add an overlap= kwarg)")
     if rule is None:
-        rule = (async_wasgd_rule(wcfg) if wcfg.async_mode == "on_device"
-                else wasgd_rule(wcfg))
+        rule = (async_wasgd_rule(wcfg, overlap=overlap)
+                if wcfg.async_mode == "on_device"
+                else wasgd_rule(wcfg, overlap=overlap))
     parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers)
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
         mb = parts.reshape_batch(batch)
-        (params, opt_state, energy), round_losses = parts.run_scan(state, mb)
+        (params, opt_state, energy), (round_losses, _, _) = parts.run_scan(
+            state, mb)
         params, comm_state, theta, rule_metrics = rule(
             params, axes, energy, state.comm_state)
         return parts.assemble(state, params, opt_state, comm_state,
                               round_losses, energy, theta, rule_metrics)
 
-    return train_step
+    if pipeline is None:
+        return train_step
+    speculative = pipeline == "speculative"
+
+    def pipelined_step(state: TrainState, batch: Dict, next_first: Dict,
+                       carry: Dict):
+        mb = parts.reshape_batch(batch)
+        # round r-1's seam output is this round's t = 0 microbatch
+        tree_map(lambda m, f: m[0].copy_(f), mb, carry["first"])
+        (params, opt_state, energy), (round_losses, losses_tw, gnorm0) = \
+            parts.run_scan(state, mb, collect_gnorm=speculative)
+        extra = {}
+        if speculative:
+            # the seam's stale losses (on round r-1's pre-aggregate
+            # params) take the t = 0 energy term; the gradients do not
+            true0, spec = losses_tw[0], carry["spec_losses"]
+            if parts.mask[0]:
+                energy = energy + (spec - true0)
+            extra = {"spec_losses": spec,
+                     "spec_dev": torch.abs(spec - true0),
+                     "spec_bound": gnorm0 * carry["comm_delta"]}
+        pre_agg = params
+
+        def seam():
+            staged = {"first": next_first}
+            if speculative:
+                staged["spec_losses"] = parts.per_worker_losses(
+                    pre_agg, next_first)
+            return staged
+
+        params, comm_state, theta, rule_metrics = rule(
+            pre_agg, axes, energy, state.comm_state, overlap=seam)
+        seam_out = rule_metrics.pop("overlap")
+        carry_out = {"first": seam_out["first"]}
+        if speculative:
+            carry_out["spec_losses"] = seam_out["spec_losses"]
+            carry_out["comm_delta"] = parts.worker_l2(params, pre_agg)
+        del pre_agg
+        new_state, metrics = parts.assemble(
+            state, params, opt_state, comm_state, round_losses, energy,
+            theta, rule_metrics, extra)
+        return new_state, metrics, carry_out
+
+    def primer(params: Dict, batch: Dict) -> Dict:
+        """Round 0's carry: the round's own first microbatch (a copy) and,
+        speculatively, its forward on the initial params, which are round
+        0's starting params: round 0's deviation is exactly 0."""
+        first = tree_map(lambda m: m[0].clone(), parts.reshape_batch(batch))
+        carry = {"first": first}
+        if speculative:
+            carry["spec_losses"] = parts.per_worker_losses(params, first)
+            carry["comm_delta"] = torch.zeros(
+                n_workers, dtype=torch.float32,
+                device=carry["spec_losses"].device)
+        return carry
+
+    pipelined_step.primer = primer
+    pipelined_step.pipeline = pipeline
+    return pipelined_step
+
+
+def build_phased_train_step(loss_fn: LossFn, optimizer: Optimizer,
+                            axes: Dict, wcfg, n_workers: int,
+                            overlap: Optional[Callable] = None) -> Callable:
+    """The round of ``build_train_step`` with the default wasgd/Alg. 4
+    rule, run phase by phase so that the Trainer can time each:
+
+        local_steps  the tau local steps (gradients, update, energies)
+        judge        the policy: energies -> theta
+        reduce       the schedule's reduce phase with every leaf's prepare
+                     (``reduce_scatter`` / ``all_gather`` for the
+                     two-phase ``hierarchical``)
+        overlap      the ``overlap=`` thunk, if any
+        finalize     every leaf's Eq. 10 FMA and the state assembly
+
+    Returns ``phased_step(state, batch) -> (state, metrics, phases)``,
+    ``phases`` mapping names to seconds. Each phase ends in
+    ``torch.cuda.synchronize`` on a card (nothing on the CPU) before its
+    timer stops. The arithmetic is the fused round's, op for op, so the
+    params are bitwise its. It runs only for a real telemetry sink
+    (``Trainer.run(telemetry=)``): it fences every phase, and it holds
+    every leaf's reduce state at once (``core.backends.PhaseMajor``)."""
+    parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers)
+    pol = policy_from_config(wcfg)
+    async_mode = wcfg.async_mode == "on_device"
+    name = backends.backend_name_from_config(wcfg)
+    if async_mode:
+        name = async_device.async_backend_name(name)
+    _check_pods(wcfg, name)
+    backend = backends.get_backend(name)
+    ctx_base = backends.context_from_config(wcfg)
+    sched = backend.schedule
+    reduce_names = (("reduce_scatter", "all_gather") if sched.n_phases == 2
+                    else ("reduce",))
+
+    def phased_step(state: TrainState, batch: Dict):
+        device = tree_leaves(state.params)[0].device
+        phases: Dict[str, float] = {}
+
+        def timed(nm, thunk):
+            t0 = time.perf_counter()
+            out = thunk()
+            fence(device)
+            phases[nm] = phases.get(nm, 0.0) + (time.perf_counter() - t0)
+            return out
+
+        def local_steps():
+            mb = parts.reshape_batch(batch)
+            return parts.run_scan(state, mb)
+
+        (params, opt_state, energy), (round_losses, _, _) = timed(
+            "local_steps", local_steps)
+        cs = state.comm_state
+        if async_mode:
+            active, pstate = ((cs["active"], cs["policy"]) if pol.stateful
+                              else (cs, ()))
+            theta, pstate = timed("judge", lambda: pol(
+                energy, active, pstate, checked=True))
+            act = active.float()
+            ctx = dataclasses.replace(ctx_base, active=act)
+            rule_metrics = {"active": act}
+            comm_state = ({"active": active, "policy": pstate}
+                          if pol.stateful else cs)
+        else:
+            theta, comm_state = timed("judge",
+                                      lambda: pol(energy, None, cs))
+            ctx, rule_metrics = ctx_base, {}
+        run = backend.phase_major(params, axes, theta, ctx=ctx)
+        timed(reduce_names[0], lambda: run.reduce(0))
+        overlap_out = None
+        if overlap is not None:
+            overlap_out = timed("overlap", overlap)
+        for k, nm in enumerate(reduce_names[1:], start=1):
+            timed(nm, lambda k=k: run.reduce(k))
+
+        def finalize():
+            return parts.assemble(state, run.finalize(wcfg.beta), opt_state,
+                                  comm_state, round_losses, energy, theta,
+                                  rule_metrics)
+
+        new_state, metrics = timed("finalize", finalize)
+        if overlap is not None:
+            metrics = {**metrics, "overlap": overlap_out}
+        return new_state, metrics, phases
+
+    return phased_step
 
 
 def init_comm_state(rule_name: str, params: Dict, axes: Dict,

@@ -13,15 +13,17 @@ round), feeds the Judge scores into the order search
 (``core/order.OrderState``), whose keep-or-reshuffle decisions shape the
 batches of later rounds, hands the live params to ``serve_hook`` and
 saves sharded checkpoints of the full train state in the background.
-
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue item: pipelined rounds and telemetry.
+Pipelined rounds (``Trainer(pipeline=)``) stage the next round on a
+background thread (``data/pipeline.RoundPrefetcher``) and carry its first
+microbatch through the aggregate's seam; ``run(telemetry=)`` emits the
+``repro_torch.obs`` records.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -35,67 +37,86 @@ from repro_torch.core.membership import (MembershipSchedule, WorkerSet,
                                          resize_train_state)
 from repro_torch.core.order import OrderState
 from repro_torch.core.weights import policy_from_config
-from repro_torch.data.pipeline import OrderedDataset
-from repro_torch.device import resolve_device
+from repro_torch.data.pipeline import OrderedDataset, RoundPrefetcher
+from repro_torch.device import fence, resolve_device
+from repro_torch.obs import (NULL, MembershipChange, RoundTrace,
+                             WorkerAssessment, summarize_policy_state)
 from repro_torch.optim import make_optimizer
 from repro_torch.train import step as step_mod
 from repro_torch.train.state import TrainState, init_state
 from repro_torch.train.step import build_train_step, init_comm_state
 from repro_torch.tree import tree_map
 
-_NOT_PORTED = {
-    "pipeline": "pipelined rounds (ROADMAP.md queue 1.6)",
-    "telemetry": "telemetry (ROADMAP.md queue 1.8)",
-}
 
-
-def _wasgd_rule_for(tcfg):
+def _wasgd_rule_for(tcfg, overlap=None):
     """The synchronous Eq. 10 rule, or the Alg. 4 masked rule when the
     config selects ``async_mode="on_device"`` (the mask rides in
-    ``state.comm_state``)."""
+    ``state.comm_state``); ``overlap`` is the thunk the aggregate runs
+    between its phases (``train/step.py``)."""
     if tcfg.wasgd.async_mode == "on_device":
-        return step_mod.async_wasgd_rule(tcfg.wasgd)
-    return step_mod.wasgd_rule(tcfg.wasgd)
+        return step_mod.async_wasgd_rule(tcfg.wasgd, overlap=overlap)
+    return step_mod.wasgd_rule(tcfg.wasgd, overlap=overlap)
+
+
+def _to_host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
 
 
 RULES = {
     "wasgd": _wasgd_rule_for,
     "wasgd+": _wasgd_rule_for,
-    "spsgd": lambda tcfg: step_mod.spsgd_rule(),
-    "easgd": lambda tcfg: step_mod.easgd_rule(alpha=0.9 / 16),
-    "omwu": lambda tcfg: step_mod.mwu_rule(),
-    "mmwu": lambda tcfg: step_mod.mwu_rule(),
-    "seq": lambda tcfg: step_mod.no_comm_rule(),
+    "spsgd": lambda tcfg, overlap=None: step_mod.spsgd_rule(),
+    "easgd": lambda tcfg, overlap=None: step_mod.easgd_rule(alpha=0.9 / 16),
+    "omwu": lambda tcfg, overlap=None: step_mod.mwu_rule(),
+    "mmwu": lambda tcfg, overlap=None: step_mod.mwu_rule(),
+    "seq": lambda tcfg, overlap=None: step_mod.no_comm_rule(),
 }
-
-
-def _refuse(**given) -> None:
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(f"Trainer {name}=: "
-                                      f"{_NOT_PORTED[name]} is not ported "
-                                      f"yet")
 
 
 class Trainer:
     def __init__(self, loss_fn, params: Dict, axes: Dict, tcfg, n_workers: int,
                  rule: str = "wasgd", device=None,
                  easgd_alpha: Optional[float] = None,
-                 pipeline: Optional[str] = None):
+                 overlap=None, pipeline: Optional[str] = None):
         """``params``: a single-copy tree, moved to ``device`` (``None``:
         cuda; raises without a card unless ``"cpu"``) and replicated to
         ``n_workers`` worker copies; the leaves whose axes name
         ``"experts"`` stay one copy unless ``tcfg`` carries
         ``expert_copies=True`` (read with ``getattr``, as JAX's Trainer
         does). ``rule``: a key of ``RULES``;
-        ``easgd_alpha`` overrides the ``easgd`` rule's moving rate."""
-        _refuse(pipeline=pipeline)
+        ``easgd_alpha`` overrides the ``easgd`` rule's moving rate.
+        ``overlap`` (a nullary thunk, its result any tree) runs inside the
+        aggregate, between its phases; its result lands in
+        ``history[r]["overlap"]``.
+
+        ``pipeline="parity" | "speculative"`` pipelines the round
+        (``train/step.py``): ``run`` stages the batches through a
+        ``RoundPrefetcher`` on the trainer's device, and round ``r+1``'s
+        first microbatch rides round ``r``'s aggregate seam. ``"parity"``
+        is bitwise the unpipelined trainer; ``"speculative"`` also runs
+        the next round's Judge forward on the pre-aggregate params (one
+        Eq. 10 step stale, measured each round in
+        ``history[r]["spec_dev"]`` / ``["spec_bound"]``). Only the
+        wasgd/wasgd+ rules carry the seam. The prefetcher's generator runs
+        up to ``RoundPrefetcher.run_ahead()`` rounds ahead, so build an
+        ``OrderedDataset`` with ``boundary_delay=RoundPrefetcher.
+        run_ahead()`` to keep its OrderGen decisions on the recorded
+        Judge scores."""
+        if pipeline is not None and rule not in ("wasgd", "wasgd+"):
+            raise ValueError(
+                f"pipeline={pipeline!r} threads the seam thunk through the "
+                f"wasgd/wasgd+ rules only (got rule={rule!r})")
         self.device = resolve_device(device)
         self.tcfg = tcfg
         self.workers = WorkerSet(n_workers)
         self.rule_name = rule
+        self.pipeline = pipeline
         self._loss_fn = loss_fn
         self._easgd_alpha = easgd_alpha
+        self._overlap = overlap
+        self._telemetry = NULL                 # set by run(telemetry=)
+        self._phased_cache: Dict[int, Callable] = {}
         params, axes = replicate_workers(
             tree_map(lambda x: x.to(self.device), params), axes, n_workers,
             expert_copies=getattr(tcfg, "expert_copies", False))
@@ -123,10 +144,12 @@ class Trainer:
         if self.rule_name == "easgd" and self._easgd_alpha is not None:
             rule_fn = step_mod.easgd_rule(self._easgd_alpha)
         else:
-            rule_fn = RULES[self.rule_name](self.tcfg)
+            rule_fn = RULES[self.rule_name](self.tcfg, overlap=self._overlap)
         self._step = build_train_step(self._loss_fn, self.optimizer,
                                       self.axes, self.tcfg.wasgd,
-                                      self.n_workers, rule=rule_fn)
+                                      self.n_workers, rule=rule_fn,
+                                      pipeline=self.pipeline)
+        self._primer = getattr(self._step, "primer", None)
 
     def _policy_for_resize(self):
         if self.rule_name not in ("wasgd", "wasgd+"):
@@ -154,8 +177,13 @@ class Trainer:
         self.state = resize_train_state(self.state, self.axes, new_p,
                                         policy=self._policy_for_resize(),
                                         comm_state=comm)
+        old_p = self.n_workers
         event = self.workers.resize(new_p, round=round)
         self._build_step()
+        if event is not None and self._telemetry.enabled:
+            self._telemetry.emit(MembershipChange(
+                round=round if round is not None else -1, old_p=old_p,
+                new_p=new_p, generation=self.workers.generation))
         return event
 
     # -- sharded, resumable checkpoints -----------------------------------
@@ -178,7 +206,7 @@ class Trainer:
         device; a background thread copies it to the host and writes it
         (``checkpoint.AsyncCheckpointer``)."""
         if self._ckpt is None:
-            self._ckpt = AsyncCheckpointer()
+            self._ckpt = AsyncCheckpointer(telemetry=self._telemetry)
         self._ckpt.save(path, self.state, meta={"round": int(round)},
                         topology=self._topology(round))
 
@@ -211,6 +239,53 @@ class Trainer:
         self.state = restored
         return int(topo.get("round", meta.get("round", 0)))
 
+    # -- telemetry ---------------------------------------------------------
+
+    def _phased_step(self):
+        """The phase-fenced round for the current worker count (kept per
+        count), or None where the run cannot be split into phases:
+        pipelined rounds and the baseline rules report a fenced total
+        only. Built only when a real sink is attached."""
+        if self.rule_name not in ("wasgd", "wasgd+") \
+                or self.pipeline is not None:
+            return None
+        fn = self._phased_cache.get(self.n_workers)
+        if fn is None:
+            fn = step_mod.build_phased_train_step(
+                self._loss_fn, self.optimizer, self.axes, self.tcfg.wasgd,
+                self.n_workers, overlap=self._overlap)
+            self._phased_cache[self.n_workers] = fn
+        return fn
+
+    def _emit_round(self, tele, r: int, rec: Dict, total_s: float,
+                    host_staging_s: float, phase_times) -> None:
+        """The round's ``RoundTrace`` and ``WorkerAssessment``, from the
+        metrics already read back."""
+        tele.emit(RoundTrace(
+            round=r, total_s=total_s, host_staging_s=host_staging_s,
+            phases=dict(phase_times) if phase_times is not None else {},
+            detail="phased" if phase_times is not None else "fused",
+            p=self.n_workers))
+        theta, h, active = rec.get("theta"), rec.get("h"), rec.get("active")
+        pstate = None
+        if self.rule_name in ("wasgd", "wasgd+"):
+            cs = self.state.comm_state
+            if isinstance(cs, dict):
+                pstate = cs.get("policy")
+            elif self.tcfg.wasgd.async_mode != "on_device":
+                pstate = cs
+        tele.emit(WorkerAssessment(
+            round=r,
+            theta=(np.ravel(theta).astype(float).tolist()
+                   if theta is not None else []),
+            energies=(np.ravel(h).astype(float).tolist()
+                      if h is not None else []),
+            theta_entropy=float(rec.get("theta_entropy", 0.0)),
+            active=([bool(x) for x in np.ravel(active)]
+                    if active is not None else None),
+            policy=self.tcfg.wasgd.policy or self.tcfg.wasgd.strategy,
+            policy_state=summarize_policy_state(pstate)))
+
     # -- the loop -----------------------------------------------------------
 
     def run(self, batches: Iterator[Dict], n_rounds: int,
@@ -226,9 +301,10 @@ class Trainer:
             serve_every: int = 1, telemetry=None) -> Dict:
         """``batches`` is a round-batch iterator of numpy dicts, or an
         ``OrderedDataset`` (its ``order``/``segment_of_round`` then feed
-        the order search unless given). Each round's metrics land in
-        ``history`` as numpy arrays, and its Judge scores are recorded in
-        ``order_state`` for the round's segment.
+        the order search unless given, and a pipelined run checks that its
+        ``boundary_delay`` covers the prefetcher's run-ahead). Each
+        round's metrics land in ``history`` as numpy arrays, and its Judge
+        scores are recorded in ``order_state`` for the round's segment.
 
         ``metrics_path``: one JSON line a round is appended (the metrics
         as lists, and ``round``). ``log_every``: a progress line every so
@@ -253,15 +329,45 @@ class Trainer:
         ``membership_schedule`` makes the run elastic: where
         ``p_of(r)`` differs from the live count, the trainer resizes
         (``resize``), the ``OrderedDataset`` re-shards its rows and its
-        batches restart at round ``r``; ``history[r]["p"]`` records the
-        count. It needs ``batches`` to be the ``OrderedDataset`` and
-        excludes ``straggler_schedule`` (a fixed ``(rounds, p)`` table)."""
-        _refuse(telemetry=telemetry)
+        batches (and the prefetcher of a pipelined run) restart at round
+        ``r``; ``history[r]["p"]`` records the count. It needs
+        ``batches`` to be the ``OrderedDataset`` and excludes
+        ``straggler_schedule`` (a fixed ``(rounds, p)`` table).
+
+        ``telemetry``: a ``repro_torch.obs`` sink (``RingSink``,
+        ``JsonlSink``; default ``NullSink``, off). With a real sink each
+        round emits a ``RoundTrace`` (unpipelined wasgd/wasgd+ rounds run
+        the phase-fenced round: a time for each phase; pipelined rounds
+        and the baseline rules a fenced total, ``detail="fused"``) and a
+        ``WorkerAssessment``; a resize emits ``MembershipChange`` and the
+        checkpoint writer ``CheckpointSave``. With the default sink no
+        site fences, reads or times anything, and the rounds are the
+        uninstrumented ones."""
         ds = None
         if isinstance(batches, OrderedDataset):
             ds = batches
+            if self.pipeline is not None \
+                    and ds.boundary_delay < RoundPrefetcher.run_ahead():
+                raise ValueError(
+                    f"pipelined run: the prefetcher's generator runs up to "
+                    f"{RoundPrefetcher.run_ahead()} rounds ahead of score "
+                    f"recording, but this OrderedDataset commits OrderGen "
+                    f"decisions after boundary_delay={ds.boundary_delay} "
+                    f"rounds — its keep-or-reshuffle would read truncated "
+                    f"Judge scores; build it with boundary_delay="
+                    f"RoundPrefetcher.run_ahead()")
             if order_state is None and segment_fn is None:
                 order_state, segment_fn = ds.order, ds.segment_of_round
+        elif self.pipeline is not None and order_state is not None:
+            warnings.warn(
+                "pipelined run over a bare iterator with an order_state: "
+                "the Trainer cannot verify the generator defers its "
+                "OrderGen decisions past the prefetch run-ahead "
+                f"({RoundPrefetcher.run_ahead()} rounds); pass the "
+                "OrderedDataset itself (run(ds, ...)) or build it with "
+                "boundary_delay=RoundPrefetcher.run_ahead() to avoid "
+                "decisions that miss the final rounds' Judge scores",
+                stacklevel=2)
         masks = None
         if straggler_schedule is not None:
             if self.tcfg.wasgd.async_mode != "on_device":
@@ -310,10 +416,23 @@ class Trainer:
                     f"past n_rounds={n_rounds} - nothing left to run")
             if ds is not None and ds.p != self.n_workers:
                 ds.resize(self.n_workers)
+        tele = telemetry if telemetry is not None else NULL
+        self._telemetry = tele
+        obs_on = bool(getattr(tele, "enabled", False))
+        if self._ckpt is not None:
+            self._ckpt.telemetry = tele
         if ds is not None:
             batches = ds.batches(start_round=start)
         t0 = time.time()
         mf = open(metrics_path, "a") if metrics_path else None
+        prefetch = None
+        if self.pipeline is not None and not isinstance(batches,
+                                                        RoundPrefetcher):
+            prefetch = RoundPrefetcher(batches, self.n_workers,
+                                       self.tcfg.wasgd.tau,
+                                       device=self.device)
+            batches = prefetch
+        carry = None
         try:
             for r in range(start, n_rounds):
                 if membership_schedule is not None:
@@ -321,20 +440,50 @@ class Trainer:
                     if target != self.n_workers:
                         self.resize(target, round=r)
                         ds.resize(target)
-                        batches = ds.batches(start_round=r)
-                batch = {k: torch.as_tensor(v).to(self.device)
-                         for k, v in next(batches).items()}
+                        gen = ds.batches(start_round=r)
+                        if prefetch is not None:
+                            prefetch.resize(target, gen)
+                        else:
+                            batches = gen
+                        carry = None      # re-prime the pipelined seam
+                t_host = time.perf_counter() if obs_on else 0.0
+                if self.pipeline is not None:
+                    batch, next_first = next(batches)
+                else:
+                    batch = {k: torch.as_tensor(v).to(self.device)
+                             for k, v in next(batches).items()}
                 if masks is not None:
                     cs = self.state.comm_state
                     cs = ({**cs, "active": masks[r]} if isinstance(cs, dict)
                           else masks[r])
                     self.state = self.state._replace(comm_state=cs)
-                self.state, metrics = self._step(self.state, batch)
-                rec = {k: v.cpu().numpy() for k, v in metrics.items()}
+                host_staging_s = (time.perf_counter() - t_host
+                                  if obs_on else 0.0)
+                phased = self._phased_step() if obs_on else None
+                phase_times = None
+                t_step = time.perf_counter() if obs_on else 0.0
+                if self.pipeline is not None:
+                    if carry is None:
+                        carry = self._primer(self.state.params, batch)
+                    self.state, metrics, carry = self._step(
+                        self.state, batch, next_first, carry)
+                elif phased is not None:
+                    self.state, metrics, phase_times = phased(self.state,
+                                                              batch)
+                else:
+                    self.state, metrics = self._step(self.state, batch)
+                if obs_on:
+                    if phase_times is None:      # one fence for the round
+                        fence(self.device)
+                    total_s = time.perf_counter() - t_step
+                rec = {k: tree_map(_to_host, v) for k, v in metrics.items()}
                 rec["round"] = r
                 if membership_schedule is not None:
                     rec["p"] = self.n_workers
                 self.history.append(rec)
+                if obs_on:
+                    self._emit_round(tele, r, rec, total_s, host_staging_s,
+                                     phase_times)
                 if order_state is not None:
                     seg = segment_fn(r) if segment_fn else 0
                     order_state.record_scores(seg, rec["scores"])
@@ -356,6 +505,8 @@ class Trainer:
         finally:
             if mf is not None:
                 mf.close()
+            if prefetch is not None:
+                prefetch.close()
             if self._ckpt is not None:
                 self._ckpt.wait()          # a failed save raises here
         return {"rounds": n_rounds - start, "wall": time.time() - t0,

@@ -319,7 +319,7 @@ def test_round_parts_reshape_worker_major_and_l2_like_jax():
 
 
 # ---------------------------------------------------------------------------
-# entry points, what is not ported, and the import rule
+# entry points and the import rule
 # ---------------------------------------------------------------------------
 
 def test_entry_points_without_a_card_raise(monkeypatch):
@@ -338,20 +338,6 @@ def test_entry_points_without_a_card_raise(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("make", [
-    lambda p, a: Trainer(_port_loss(mlp_apply), p, a, TrainConfig(), 2,
-                         device="cpu", pipeline="parity"),
-    lambda p, a: HotSwapBridge(object(), telemetry=object()),
-    lambda p, a: Trainer(_port_loss(mlp_apply), p, a, TrainConfig(), 2,
-                         device="cpu").run(iter([]), 1, telemetry=object()),
-], ids=["pipeline", "bridge_telemetry", "telemetry"])
-def test_what_is_not_ported_raises(make):
-    params = init_mlp(0, 4, 8, 2, device="cpu")
-    axes = {k: (None,) * v.dim() for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make(params, axes)
-
-
 _IMPORT_PROBE = """
 import sys
 import repro_torch, repro_torch.configs, repro_torch.core, repro_torch.data
@@ -360,6 +346,7 @@ import repro_torch.models, repro_torch.optim, repro_torch.train
 import repro_torch.checkpoint, repro_torch.train.evaluate
 import repro_torch.core.async_sim, repro_torch.core.async_device
 import repro_torch.core.membership
+import repro_torch.obs, repro_torch.data.pipeline
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
