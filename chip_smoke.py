@@ -21,8 +21,10 @@ serves full-width llama-3.2-vision-11b (with media) and musicgen-large
 (codebooks) through the legacy ``ServeEngine``, trains musicgen-large and
 one full-width period of llama-3.2-vision-11b, runs CNN6 and gemma3-1b
 through the pipelined round (bitwise the unpipelined one), records
-telemetry from every producer, and checks that the served and the
-trained paths went through their kernels.
+telemetry from every producer, runs the mesh schedules of decentralized
+WASGD on a one-rank NCCL group (CNN6 and gemma3-1b), runs the training
+launcher on gemma3-1b, and checks that the served and the trained paths
+went through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -190,7 +192,7 @@ Prints one JSON object per phase:
   lm_windowed   gemma3-1b's loss at one 2048-token sequence with
                 windowed_qblock off and on: logits within 2e-2, ms each
   lm3b_train    Trainer.run, WASGD+, stablelm-3b at full width and depth,
-                p=3, tau=4, seq 640, pallas_wagg:int4, remat on, 5 rounds
+                p=3, tau=4, seq 640, pallas_wagg:int4, remat on, 3 rounds
                 after 2: the first round's wagg_fused held to the plain
                 version leaf by leaf (1e-4) with its int4 payload checked
                 and its peak split at the aggregate; s/round, tokens/s,
@@ -207,7 +209,7 @@ Prints one JSON object per phase:
                 kernels vs the plain versions; bf16 each SSM layer on its
                 own inputs (output and gradients)
   ssm_lm_train  Trainer.run, WASGD+, mamba2-370m at full width and depth,
-                lm_train's settings, 8 rounds after 2: s/round,
+                lm_train's settings, 4 rounds after 2: s/round,
                 tokens/s, peak, launches (ssd_chunk 2 x 48 x tau a round
                 with remat), one profiled round
   moe_agree     olmoe-1b-7b at full width (64 experts, top 8): decode
@@ -218,7 +220,7 @@ Prints one JSON object per phase:
                 model's sensitivity to a one-ulp change
   olmoe_serve   serve on olmoe-1b-7b at full width in bf16
   olmoe_train   Trainer.run, WASGD+, olmoe-1b-7b at full width and depth,
-                p=4, remat on, 5 rounds after 2: the experts one copy,
+                p=4, remat on, 3 rounds after 2: the experts one copy,
                 wagg_fused once per worker leaf and never on an expert
                 leaf; s/round, tokens/s, peak, one profiled round
   jamba_serve   jamba-v0.1-52b at full width with n_layers cut to 8 (one
@@ -253,6 +255,30 @@ Prints one JSON object per phase:
                 params) and a media leaf (n, 1600, 4096) float32 in the
                 dataset, riding the vmapped, rematerialised round
                 (wagg_fused 54 a round)
+  mesh_agree    a one-rank NCCL group and a ("data",) DeviceMesh: one
+                aggregate of CNN6's worker-stacked params (p 8) through
+                shard_map:f32, rs_ag:{f32,bf16,int8,int4},
+                async_shard_map and async_rs_ag (masked), pallas_wagg:f32
+                (gathered, masked) and auto under the mesh, each against
+                the meshless einsum of its codec on the card; the device
+                operations the profiler sees in one rs_ag aggregate and
+                one rs_ag round; s/round of each spec's CNN6 round under
+                the group against einsum:f32 and pallas_wagg:f32 (under
+                the group and without it); 3 CNN6 rounds through rs_ag:f32
+                unpipelined and pipeline="parity", bitwise equal
+                (deterministic cuDNN)
+  mesh_lm       gemma3-1b at lm_train's settings through rs_ag:f32 with
+                pipeline="parity" on the group, 2 + 3 rounds: round 0's h
+                and theta bitwise the meshless einsum:f32 round's, its
+                aggregated params within 1e-6 relative of that round's;
+                rmsnorm and fused_ce launches a round, s/round, peak, one
+                profiled round (idle share)
+  launch_train  repro_torch.launch.train.main in process: gemma3-1b at full
+                width, --workers 4 --rounds 4, --telemetry, --checkpoint-
+                dir/--checkpoint-every 2, --ckpt: the printed params=
+                against cfg.param_count() and one worker's numel, the
+                telemetry read back, the flat checkpoint restored bitwise,
+                the kernels launched
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -308,7 +334,7 @@ LM_AGREE_P = 2                  # workers in lm_agree (two gradient trees)
 # settings at p=3 with the int4 payload; remat on (the config's), the
 # leaf-wise update; params and gradients are 31.25 GiB each at p=3
 LM3B_ARCH = "stablelm-3b"
-LM3B = {**LM, "p": 3, "rounds": 5, "backend": "pallas_wagg:int4"}
+LM3B = {**LM, "p": 3, "rounds": 3, "backend": "pallas_wagg:int4"}
 LM3B_LEAF = (3, 2560 * 6912)    # p=3 x one stablelm-3b MLP matrix
 # yi-6b served at full width in bf16 (GQA group 8, head_dim 128)
 YI_ARCH = "yi-6b"
@@ -334,14 +360,15 @@ SSD_TOL = 1e-5
 
 # SSM training: mamba2-370m at full width and depth with lm_train's
 # settings (p 4, tau 4, b_local 1, seq 640, lr 0.03, pallas_wagg:f32,
-# remat as configured: on), 2 + 8 rounds
-SSM_LM = dict(LM)
+# remat as configured: on), 2 + 4 rounds, not more: the whole script has
+# to fit its time limit
+SSM_LM = {**LM, "rounds": 4}
 # olmoe-1b-7b at full width and depth: served in bf16 with the serve
 # smoke's settings, and trained with lm_train's settings at p 4, remat on,
-# 2 + 5 rounds; the experts are one f32 copy (their params and gradients
+# 2 + 3 rounds; the experts are one f32 copy (their params and gradients
 # 48.0 GiB), the other 476M params four copies (14.2 GiB)
 OLMOE_ARCH = "olmoe-1b-7b"
-OLMOE_TRAIN = {**LM, "rounds": 5}
+OLMOE_TRAIN = {**LM, "rounds": 3}
 # jamba-v0.1-52b at full width, n_layers cut from 32 to 8: one period of
 # its 1:7 interleave (layers 0-6 Mamba, 7 attention; MoE on 1, 3, 5, 7),
 # 13.3B params initialised in bf16
@@ -2773,17 +2800,17 @@ def phase_lm_remat(cfg, dev):
             "rounds": rounds, "round_settings": {**LM, **REMAT}}
 
 
-def lm_dataset(cfg, st=LM, boundary_delay=0):
+def lm_dataset(cfg, st=LM, boundary_delay=0, mesh=None):
     """``lm_batch``'s data for ``cfg`` (seed 0): make_tokens' bigram
     language, or codebook streams, and media for a model with cross
-    layers."""
+    layers; under ``mesh``, this rank's rows of each round."""
     from repro_torch.data import OrderedDataset, lm_batch
     data = lm_batch(0, st["n_seq"], st["seq_len"], cfg.vocab_size,
                     n_codebooks=cfg.n_codebooks,
                     media_tokens=cfg.n_media_tokens, d_model=cfg.d_model)
     return OrderedDataset(data, st["p"], st["tau"], st["b_local"],
                           n_segments=st["n_segments"], seed=st["order_seed"],
-                          boundary_delay=boundary_delay)
+                          boundary_delay=boundary_delay, mesh=mesh)
 
 
 def open_gates(params, seed):
@@ -2802,9 +2829,10 @@ def open_gates(params, seed):
     return params
 
 
-def new_lm_trainer(cfg, dev, st=LM, pipeline=None):
+def new_lm_trainer(cfg, dev, st=LM, pipeline=None, mesh=None):
     """A WASGD+ trainer of ``cfg`` (random weights, seed 0, cross gates
-    opened) at the settings ``st``, pipelined as ``pipeline`` says."""
+    opened) at the settings ``st``, pipelined as ``pipeline`` says, on
+    ``mesh`` if given."""
     from repro_torch.configs import TrainConfig, WASGDConfig
     from repro_torch.models import init_params, param_axes
     from repro_torch.train import Trainer, make_lm_loss
@@ -2813,7 +2841,8 @@ def new_lm_trainer(cfg, dev, st=LM, pipeline=None):
                                          backend=st["backend"]))
     params = open_gates(init_params(cfg, seed=0, device=dev), 0)
     return Trainer(make_lm_loss(cfg), params, param_axes(params), tcfg,
-                   st["p"], rule="wasgd+", device=dev, pipeline=pipeline)
+                   st["p"], rule="wasgd+", device=dev, pipeline=pipeline,
+                   mesh=mesh)
 
 
 def layer_norms(cfg, i):
@@ -3142,7 +3171,7 @@ def phase_lm3b_train(dev):
     round holds every leaf's wagg_fused call to the plain version (1e-4)
     and checks its int4 payload (int8, |q| <= 7), and splits the round's
     peak memory at the aggregate (the local steps', then the
-    aggregate's). Then 1 more warm-up round, 5 timed rounds (s/round,
+    aggregate's). Then 1 more warm-up round, 3 timed rounds (s/round,
     tokens/s, peak, launches of rmsnorm, fused_ce and wagg_fused), 1
     unprofiled and 1 profiled round (idle share)."""
     import torch
@@ -5062,7 +5091,10 @@ PIPE = {"rounds": 14, "regime": "stragglers"}
 # speculative rounds: |spec - true| <= SPEC_SLACK[0] * bound + SPEC_SLACK[1]
 # (the endpoint-gradient surrogate's 2x, as tests/test_pipeline.py states)
 SPEC_SLACK = (2.0, 1e-6)
-LM_PIPE_PROFILE_ROUNDS = 1
+# lm_pipeline's profiled rounds: 2, so that staging copies also fall
+# mid-window (with 1, every copy falls at the window's start, and one run
+# of the whole script recorded none of them)
+LM_PIPE_PROFILE_ROUNDS = 2
 
 
 def history_bitwise(a, b, keys=("h", "theta", "loss", "loss_last",
@@ -5507,6 +5539,375 @@ def phase_telemetry(dev, path, sink, serve_part, lm_part):
     return rec
 
 
+# -- decentralized WASGD on a one-rank NCCL group, and the launcher ----------
+
+# mesh_agree: one aggregate each (spec, Alg. 4 mask); the CNN6 rounds timed
+# per spec (1 warm-up + MESH["time_rounds"]); the parity runs' rounds
+MESH = {"time_rounds": 3, "parity_rounds": 3, "noise": 0.01, "seed": 11,
+        "masked": (2, 5)}
+MESH_AGREE = (("shard_map:f32", False), ("rs_ag:f32", False),
+              ("rs_ag:bf16", False), ("rs_ag:int8", False),
+              ("rs_ag:int4", False), ("async_shard_map", True),
+              ("async_rs_ag", True), ("pallas_wagg:f32", True),
+              ("auto", False))
+MESH_TIMED = ("shard_map:f32", "rs_ag:f32", "rs_ag:bf16", "rs_ag:int8",
+              "rs_ag:int4", "einsum:f32", "pallas_wagg:f32")
+MESH_LM = {**LM, "backend": "rs_ag:f32", "warmup_rounds": 2, "rounds": 3}
+LAUNCH = {"workers": 4, "rounds": 4, "checkpoint_every": 2}
+
+
+@contextlib.contextmanager
+def nccl_mesh(dev):
+    """A one-rank NCCL process group (a FileStore in a temporary
+    directory; ``device_id`` starts NCCL at once, so a failure to start
+    fails here) and a ``("data",)`` DeviceMesh over it; the group is
+    destroyed on exit."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        finally:
+            dist.destroy_process_group()
+
+
+def device_ops(prof):
+    """Every device operation of a profiler run by name: count and ms."""
+    import torch
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            out[e.key[:80]] = {"count": e.count, "device_ms": us / 1e3}
+    return out
+
+
+def mesh_cnn6_run(dev, mesh, spec, rounds, pipeline=None):
+    """A fresh CNN6 WASGD+ trainer at ``TRAIN``'s settings through
+    ``spec`` on ``mesh`` (None: meshless), ``rounds`` rounds over an
+    OrderedDataset with boundary_delay = the prefetcher's run-ahead (this
+    rank's rows under the mesh), after a one-round warm-up on another
+    trainer. Returns the trainer, the timed wall and the wagg_fused
+    launches of the timed run."""
+    import torch
+    from repro_torch.core import shared_axes
+    from repro_torch.data import OrderedDataset, RoundPrefetcher
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.models import init_cnn6
+    from repro_torch.train import Trainer
+    from repro_torch.data import make_images
+    loss_fn, tcfg, _ = cnn6_setup()
+    X, y = make_images(0, TRAIN["n_images"])
+
+    def trainer():
+        params = init_cnn6(0, device=dev)
+        return Trainer(loss_fn, params, shared_axes(params), tcfg(spec),
+                       TRAIN["p"], rule="wasgd+", device=dev, mesh=mesh,
+                       pipeline=pipeline)
+
+    def dataset():
+        return OrderedDataset(
+            {"x": X, "y": y}, TRAIN["p"], TRAIN["tau"], TRAIN["b_local"],
+            n_segments=TRAIN["n_segments"], seed=TRAIN["order_seed"],
+            boundary_delay=RoundPrefetcher.run_ahead(), mesh=mesh)
+
+    trainer().run(dataset(), 1)
+    tr = trainer()
+    wagg_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(dataset(), rounds)
+    torch.cuda.synchronize()
+    return tr, time.perf_counter() - t0, wagg_fused.launches
+
+
+def phase_mesh_agree(dev, mesh):
+    import torch
+    from repro_torch.core import backends as B
+    from repro_torch.core import shared_axes
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.models import init_cnn6
+    p = TRAIN["p"]
+    base = init_cnn6(0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MESH["seed"])
+    params = {k: v.unsqueeze(0) + MESH["noise"] * torch.randn(
+        (p,) + tuple(v.shape), generator=gen, device=dev)
+        for k, v in base.items()}
+    axes = {k: ("worker",) + ax for k, ax in shared_axes(base).items()}
+    theta = torch.softmax(torch.randn(p, generator=gen, device=dev), 0)
+    active = torch.ones(p, dtype=torch.bool, device=dev)
+    active[list(MESH["masked"])] = False
+    theta_m = torch.where(active, theta, 0.0)
+    theta_m = theta_m / theta_m.sum()
+    agree, ok = {}, True
+    wagg_fused.launches = 0
+    for spec, masked in MESH_AGREE:
+        th = theta_m if masked else theta
+        act = active if masked else None
+        name = (B.select_auto_spec(params, axes, mesh) if spec == "auto"
+                else spec)
+        codec = B.resolve_spec(name)[1] or "f32"
+        got = B.get_backend(name).aggregate(
+            params, axes, th, 0.9, ctx=B.AggregationContext(mesh=mesh,
+                                                            active=act))
+        ref = B.get_backend(f"einsum:{codec}").aggregate(
+            params, axes, th, 0.9, ctx=B.AggregationContext(active=act))
+        rec = {"spec": name, "masked": masked, "codec": codec}
+        worst = 0.0
+        for k in params:
+            err = float((got[k].float() - ref[k].float()).abs().max())
+            scale = float(ref[k].float().abs().max())
+            # bf16: two rounding paths, each within the codec's bound
+            tol = (2 * float(get_codec("bf16").error_bound(params[k], th,
+                                                           0.9))
+                   if codec == "bf16" else 1e-6 * scale)
+            worst = max(worst, err / tol)
+        rec["max_err_over_tol"] = worst
+        ok &= worst <= 1.0
+        agree[spec] = rec
+    agg_launches = wagg_fused.launches
+    # the device operations of one rs_ag aggregate and of one rs_ag round
+    with device_profile() as prof:
+        B.get_backend("rs_ag:f32").aggregate(
+            params, axes, theta, 0.9, ctx=B.AggregationContext(mesh=mesh))
+        torch.cuda.synchronize()
+    agg_ops = device_ops(prof)
+    tr, _, _ = mesh_cnn6_run(dev, mesh, "rs_ag:f32", 1)
+    gen = cnn6_setup()[2](p).batches(start_round=1)   # every worker's rows
+    batch = next(gen)
+    with device_profile() as prof:
+        tr.run(iter([batch]), 1)
+        torch.cuda.synchronize()
+    round_ops = device_ops(prof)
+    del tr, gen
+    nccl = {k: v for k, v in {**agg_ops, **round_ops}.items()
+            if "nccl" in k.lower()}
+    # s/round of each spec under the group, and the meshless references
+    timed, launches = {}, {}
+    for spec in MESH_TIMED:
+        _, wall, n = mesh_cnn6_run(dev, mesh, spec, MESH["time_rounds"])
+        timed[spec] = wall / MESH["time_rounds"]
+        launches[spec] = n
+    for spec in ("einsum:f32", "pallas_wagg:f32"):
+        _, wall, n = mesh_cnn6_run(dev, None, spec, MESH["time_rounds"])
+        timed[f"{spec} (meshless)"] = wall / MESH["time_rounds"]
+        launches[f"{spec} (meshless)"] = n
+    want_wagg = MESH["time_rounds"] * CNN6_LEAVES
+    # pipelined rs_ag against unpipelined, deterministic cuDNN
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        runs = [mesh_cnn6_run(dev, mesh, "rs_ag:f32", MESH["parity_rounds"],
+                              pipeline=pipe)[0] for pipe in (None, "parity")]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    parity = {"history_bitwise": history_bitwise(runs[0].history,
+                                                 runs[1].history),
+              "params_bitwise": params_bitwise(runs[0].state.params,
+                                               runs[1].state.params)}
+    checks = {"agree": ok, "parity": all(parity.values()),
+              "wagg_launches_gathered": agg_launches == CNN6_LEAVES
+              and launches["pallas_wagg:f32"] == want_wagg,
+              "wagg_none_through_rs_ag": launches["rs_ag:f32"] == 0,
+              "finite": all(bool(np.isfinite(r.losses()).all())
+                            for r in runs)}
+    rec = {"phase": "mesh_agree", "model": "cnn6", **TRAIN,
+           "group": "nccl, world 1", "mesh": "('data',) of 1",
+           "checks": checks, "agree": agree, "parity": parity,
+           "parity_rounds": MESH["parity_rounds"],
+           "seconds_per_round": timed, "time_rounds": MESH["time_rounds"],
+           "wagg_launches": {"aggregates": agg_launches, **launches},
+           "nccl_ops": nccl,
+           "device_ops_rs_ag_aggregate": agg_ops,
+           "device_ops_rs_ag_round_count": sum(
+               v["count"] for v in round_ops.values())}
+    if not all(checks.values()):
+        raise AssertionError(f"mesh_agree: {rec}")
+    return rec
+
+
+def phase_mesh_lm(cfg, dev, mesh):
+    """gemma3-1b at lm_train's settings: a meshless einsum:f32 round, then
+    a fresh pipelined trainer through rs_ag:f32 on the group for 2 + 3
+    rounds (seconds from the round hook's stamps) and one profiled
+    round."""
+    import torch
+    from repro_torch.data import RoundPrefetcher
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.tree import tree_leaves
+    delay = RoundPrefetcher.run_ahead()
+    ref = new_lm_trainer(cfg, dev, st={**MESH_LM, "backend": "einsum:f32"})
+    ref.run(lm_dataset(cfg, MESH_LM, boundary_delay=delay), 1)
+    ref_params = tree_leaves(ref.state.params)
+    ref_hist = ref.history[0]
+    del ref
+    warm, rounds = MESH_LM["warmup_rounds"], MESH_LM["rounds"]
+    total = warm + rounds
+    tr = new_lm_trainer(cfg, dev, st=MESH_LM, pipeline="parity", mesh=mesh)
+    ds = lm_dataset(cfg, MESH_LM, boundary_delay=delay, mesh=mesh)
+    seen, stamps = {}, []
+
+    def hook(r, params, axes):
+        stamps.append(time.perf_counter())
+        if r == 0:
+            worst = 0.0
+            for x, y in zip(tree_leaves(params), ref_params):
+                err = float((x - y).abs().max())
+                worst = max(worst, err / max(float(y.abs().max()), 1e-30))
+            seen["params_max_rel"] = worst
+            ref_params.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for k in counters:
+                k.launches = 0
+
+    counters = (rmsnorm_fwd, add_rmsnorm_fwd, fused_ce_fwd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(ds, total, serve_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after0 = total - 1
+    launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                "fused_ce": fused_ce_fwd.launches}
+    norms, fused = norms_per_step(cfg)
+    tau = MESH_LM["tau"]
+    want = {"rmsnorm": after0 * tau * norms,
+            "rmsnorm_fused": after0 * tau * fused,
+            "fused_ce": after0 * tau}
+    s_round = (stamps[-1] - stamps[warm - 1]) / rounds
+    # every worker's rows (the trainer takes its own)
+    gen = lm_dataset(cfg, MESH_LM, boundary_delay=delay).batches(
+        start_round=total)
+    with device_profile() as prof:
+        tr.run(gen, 1)
+        torch.cuda.synchronize()
+    summary = device_summary(prof, s_round, 10)
+    h0 = tr.history[0]
+    losses = tr.losses()
+    del tr
+    torch.cuda.empty_cache()
+    checks = {"round0_h_bitwise": np.array_equal(h0["h"], ref_hist["h"]),
+              "round0_theta_bitwise": np.array_equal(h0["theta"],
+                                                     ref_hist["theta"]),
+              "round0_params_within_1e-6": seen["params_max_rel"] <= 1e-6,
+              "launches": launches == want,
+              "finite": bool(np.isfinite(losses).all())}
+    rec = {"phase": "mesh_lm", "arch": cfg.name, **MESH_LM,
+           "pipeline": "parity", "group": "nccl, world 1",
+           "checks": checks,
+           "round0_params_max_rel_vs_einsum": seen["params_max_rel"],
+           "launches_rounds_1_to_4": launches, "launches_want": want,
+           "launches_per_round": {k: v / after0 for k, v in
+                                  launches.items()},
+           "seconds_per_round": s_round, "wall_s": wall,
+           "peak_mem_gib_rounds_1_to_4": peak, **summary,
+           "losses": [float(x) for x in losses]}
+    if not all(checks.values()):
+        raise AssertionError(f"mesh_lm: {rec}")
+    return rec
+
+
+def phase_launch_train(cfg, dev):
+    """``repro_torch.launch.train.main`` in this process on ``cfg`` at
+    full width: --workers 4 --rounds 4 with telemetry, sharded
+    checkpoints every 2 rounds and the final flat checkpoint, in a
+    temporary directory."""
+    import contextlib as ctxlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.obs import read_events
+    from repro_torch.tree import tree_leaves
+    counters = (rmsnorm_fwd, add_rmsnorm_fwd, fused_ce_fwd, wagg_fused)
+    for k in counters:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        tele, ck = os.path.join(d, "run.jsonl"), os.path.join(d, "final")
+        cdir = os.path.join(d, "ckpts")
+        argv = ["--arch", cfg.name, "--workers", str(LAUNCH["workers"]),
+                "--rounds", str(LAUNCH["rounds"]), "--telemetry", tele,
+                "--checkpoint-dir", cdir, "--checkpoint-every",
+                str(LAUNCH["checkpoint_every"]), "--ckpt", ck,
+                "--device", "cuda"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctxlib.redirect_stdout(buf):
+            tr = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"rmsnorm": rmsnorm_fwd.launches,
+                    "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                    "fused_ce": fused_ce_fwd.launches,
+                    "wagg_fused": wagg_fused.launches}
+        out = buf.getvalue().splitlines()
+        printed = int(out[0].split("params=")[1].split()[0].replace(",", ""))
+        numel = sum(x[0].numel() for x in tree_leaves(tr.state.params))
+        kinds = [e.kind for e in read_events(tele)]
+        t1 = time.perf_counter()
+        restored, meta = restore(ck, tr.state.params)
+        flat_bitwise = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(restored), tree_leaves(tr.state.params)))
+        restore_s = time.perf_counter() - t1
+        del restored
+        disk = {name: sum(os.path.getsize(os.path.join(r, f))
+                          for r, _, fs in os.walk(os.path.join(d, name))
+                          for f in fs) for name in ("final", "ckpts")}
+        ckpts = sorted(os.listdir(cdir))
+    losses = tr.losses()
+    del tr
+    torch.cuda.empty_cache()
+    norms, fused = norms_per_step(cfg)
+    steps = LAUNCH["rounds"] * 4                  # the launcher's tau 4
+    want = {"rmsnorm": steps * norms, "rmsnorm_fused": steps * fused,
+            "fused_ce": steps, "wagg_fused": 0}
+    n_saves = LAUNCH["rounds"] // LAUNCH["checkpoint_every"]
+    checks = {"params_printed_is_param_count": printed == cfg.param_count(),
+              "header": out[0] == (f"arch={cfg.name} family={cfg.family} "
+                                   f"params={cfg.param_count():,} "
+                                   f"workers={LAUNCH['workers']}"),
+              "telemetry_read_back": kinds.count("round_trace")
+              == LAUNCH["rounds"] and kinds.count("checkpoint_save")
+              == n_saves,
+              "sharded_checkpoints": ckpts == [
+                  f"round_{r}" for r in range(LAUNCH["checkpoint_every"],
+                                              LAUNCH["rounds"] + 1,
+                                              LAUNCH["checkpoint_every"])],
+              "flat_checkpoint_bitwise": flat_bitwise
+              and meta.get("rounds") == LAUNCH["rounds"],
+              "launches": launches == want,
+              "finite": bool(np.isfinite(losses).all())}
+    rec = {"phase": "launch_train", "arch": cfg.name, "argv": argv,
+           "checks": checks, "stdout": out, "params_printed": printed,
+           "param_count": cfg.param_count(), "worker_numel": numel,
+           "launches": launches, "launches_want": want, "wall_s": wall,
+           "restore_s": restore_s, "checkpoint_bytes": disk,
+           "telemetry_events": len(kinds),
+           "losses": [float(x) for x in losses]}
+    if not all(checks.values()):
+        raise AssertionError(f"launch_train: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5624,6 +6025,13 @@ def main():
     run_phase(phase_telemetry, dev, tele_path, tele_sink, tele_serve,
               tele_lm)
     tele_dir.cleanup()
+    with nccl_mesh(dev) as mesh:
+        mesh_cnn6 = run_phase(phase_mesh_agree, dev, mesh)
+        torch.cuda.empty_cache()
+        mesh_lm = run_phase(phase_mesh_lm, cfg, dev, mesh)
+    torch.cuda.empty_cache()
+    launch = run_phase(phase_launch_train, cfg, dev)
+    torch.cuda.empty_cache()
     lm_async = run_phase(phase_lm_async, cfg, dev)
     torch.cuda.empty_cache()
     run_phase(phase_lm_windowed, dev)
@@ -5728,6 +6136,10 @@ def main():
         "lm_train_launches": lm["launches"]["wagg_fused"],
         "lm_pipeline_launches": lm_pipe["launches"]["wagg_fused"],
         "pipeline_agree_launches": pipe["wagg_launches"],
+        "mesh_agree_launches": {
+            "aggregates": mesh_cnn6["wagg_launches"]["aggregates"],
+            "pallas_wagg_under_the_mesh": mesh_cnn6["wagg_launches"][
+                "pallas_wagg:f32"]},
         "train_to_serve_launches": t2s["launches"]["wagg_fused"],
         "lm3b_train_int4_launches": lm3b["launches"]["wagg_fused"],
         "ssm_lm_train_launches": ssm_lm["launches"]["wagg_fused"],
@@ -5754,6 +6166,8 @@ def main():
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
         "launches": lm["launches"]["rmsnorm"],
         "lm_pipeline_launches": lm_pipe["launches"]["rmsnorm"],
+        "mesh_lm_launches": mesh_lm["launches_rounds_1_to_4"]["rmsnorm"],
+        "launch_train_launches": launch["launches"]["rmsnorm"],
         "max_abs_err": nt["max_abs_err"], "ms": nt["ms"],
         "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
         "bound_by": nt["bound_by"], "library_ms": nt["library_ms"],
@@ -5786,6 +6200,8 @@ def main():
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
         "launches": lm["launches"]["fused_ce"],
         "lm_pipeline_launches": lm_pipe["launches"]["fused_ce"],
+        "mesh_lm_launches": mesh_lm["launches_rounds_1_to_4"]["fused_ce"],
+        "launch_train_launches": launch["launches"]["fused_ce"],
         "max_abs_err": ce_timing["max_abs_err"], "ms": ce_timing["ms"],
         "plain_ms": ce_timing["plain_ms"], "bound_ms": ce_timing["bound_ms"],
         "bound_by": ce_timing["bound_by"],

@@ -392,22 +392,27 @@ class AsyncCheckpointer:
             try:
                 if job is None:
                     return
-                path, snap, meta, topology, n_shards = job
-                t0 = time.perf_counter()
-                save_sharded(path, snap, meta=meta, topology=topology,
-                             n_shards=n_shards)
-                tele = self.telemetry
-                if tele is not None and getattr(tele, "enabled", False):
-                    from repro_torch.obs.events import CheckpointSave
-                    tele.emit(CheckpointSave(
-                        path=path, round=int((meta or {}).get("round", -1)),
-                        duration_s=time.perf_counter() - t0,
-                        nbytes=sum(_nbytes(v) for v in snap.values())))
+                self._write(*job)
             except Exception as e:       # raised on the caller's thread
                 with self._exc_lock:
                     self._exc = e
             finally:
+                # the job holds the snapshot on the device: drop it now,
+                # not when the next job replaces it
+                job = None
                 self._q.task_done()
+
+    def _write(self, path, snap, meta, topology, n_shards):
+        t0 = time.perf_counter()
+        save_sharded(path, snap, meta=meta, topology=topology,
+                     n_shards=n_shards)
+        tele = self.telemetry
+        if tele is not None and getattr(tele, "enabled", False):
+            from repro_torch.obs.events import CheckpointSave
+            tele.emit(CheckpointSave(
+                path=path, round=int((meta or {}).get("round", -1)),
+                duration_s=time.perf_counter() - t0,
+                nbytes=sum(_nbytes(v) for v in snap.values())))
 
     def _raise_pending(self):
         with self._exc_lock:

@@ -115,6 +115,14 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return int(math.ceil(self.vocab_size / 256) * 256)
 
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
     def layer_is_attn(self, idx: int) -> bool:
         if self.ssm is None:
             return True
@@ -146,6 +154,53 @@ class ModelConfig:
         if self.attn_window is not None and not self.layer_is_global_attn(idx):
             return self.attn_window
         return None
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding, blocks, head): JAX's
+        formula term for term, the number ``launch/train.py`` prints. It
+        is not the numel of ``init_params`` (in nine of the ten smoke
+        configs it differs from it, in JAX as here)."""
+        d = self.d_model
+        n = 0
+        n += self.padded_vocab * d                       # embed
+        if not self.tie_embeddings:
+            heads = max(1, self.n_codebooks)
+            n += heads * self.padded_vocab * d           # lm head(s)
+        for i in range(self.n_layers):
+            if self.layer_is_attn(i):
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                n += 2 * d                               # norms
+                if self.layer_is_cross_attn(i):
+                    n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                    n += d
+            if self.layer_is_ssm(i):
+                s = self.ssm
+                di = s.d_inner(d)
+                nh = s.n_heads(d)
+                n += d * (2 * di + 2 * s.d_state + nh)        # in_proj
+                n += (di + 2 * s.d_state) * (s.conv_width + 1)  # conv + bias
+                n += 3 * nh + di                  # A_log, D, dt_bias, norm
+                n += di * d + d                   # out proj + final norm
+            if self.layer_is_moe(i):
+                m = self.moe
+                n += d * m.n_experts                          # router
+                n += m.n_experts * 3 * d * m.d_ff_expert      # experts
+                if m.dense_residual and self.d_ff > 0:
+                    n += 3 * d * self.d_ff
+                n += d
+            elif self.d_ff > 0 and not self.layer_is_ssm(i):
+                n += 3 * d * self.d_ff + d                    # dense FFN
+        n += d                                                # final norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (m.n_experts - m.top_k) * 3 * self.d_model * m.d_ff_expert
+        n_moe = sum(self.layer_is_moe(i) for i in range(self.n_layers))
+        return self.param_count() - n_moe * inactive
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -17,12 +17,20 @@ an active worker on the host, in numpy (``validate_active_rounds``),
 before it goes to the device, and the round casts it to float32 once for
 every leaf's kernel.
 
+Under a device mesh (``ctx.mesh``; ``core/shardmap_agg.py``) each rank
+holds its shard's worker rows of the params and the batch, and steps
+them; the round gathers the per-worker losses (and, measured, the
+times) over the worker group, so every rank forms the same theta, the
+same mask and the same policy state, and aggregates through the spec's
+collectives.
+
 Measured-time mode (``run_parallel_sgd_on_device(measure_times=True)``)
-derives the mask from measured round times. On one device every worker
-is one ``vmap``ped program, so ``measure_round_times`` gives all workers
-the same time and the stable first-p rule always picks workers 0..p-1,
-as the JAX package does on one host device; per-worker arrivals need
-several devices (ROADMAP.md queue 1.7).
+derives the mask from measured round times. Each process times its own
+local steps (the device synchronized, the host clock), and under a mesh
+the times are all-gathered, so the stable first-p rule sees one arrival
+per shard. Without a mesh every worker is one ``vmap``ped program on one
+device and gets the same time, and the rule picks workers 0..p-1, as the
+JAX package does on one host device.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backends
+from repro_torch.core import shardmap_agg as smagg
 from repro_torch.core import weights as weights_mod
 from repro_torch.core.async_sim import (AsyncResult, StepTimeModel,
                                         StragglerSchedule, batch_on,
@@ -53,8 +62,7 @@ def async_backend_name(name: str) -> str:
     """A (possibly synchronous) backend name or spec -> its Alg. 4 form:
     the legacy names map to their ``async_*`` aliases, any other spec to
     its canonical ``schedule:codec`` (every schedule applies the mask).
-    An unknown name raises ``ValueError``; a mesh schedule raises
-    ``NotImplementedError`` when it is resolved."""
+    An unknown name raises ``ValueError``."""
     if name in ASYNC_BACKENDS:
         return name
     if name in _ASYNC_OF:
@@ -110,24 +118,33 @@ _SCHEDULE_NAMES = {"einsum": "einsum", "all_reduce": "shard_map:f32",
 
 def weighted_aggregate_async(params: Dict, axes: Dict, theta: torch.Tensor,
                              active: Optional[torch.Tensor], beta,
-                             schedule: str = "all_reduce",
+                             mesh=None, schedule: str = "all_reduce",
                              comm_dtype=torch.float32) -> Dict:
     """The masked Eq. 10 and late-join on every worker leaf. ``schedule``
-    ``"einsum"``; ``"all_reduce"`` and ``"rs_ag"`` place collectives on a
-    mesh and raise ``NotImplementedError`` (not ported)."""
+    ``"einsum"`` (meshless), ``"all_reduce"`` (an all-reduce over
+    ``mesh``'s worker group) or ``"rs_ag"`` (reduce-scatter + FMA +
+    all-gather over it); the two mesh schedules raise ``ValueError``
+    without a mesh."""
     if schedule not in _SCHEDULE_NAMES:
         raise ValueError(f"unknown async schedule {schedule!r}; "
                          f"known: {sorted(_SCHEDULE_NAMES)}")
     if active is None:
         active = torch.ones(theta.shape, dtype=torch.bool,
                             device=theta.device)
-    ctx = backends.AggregationContext(comm_dtype=comm_dtype, active=active)
+    ctx = backends.AggregationContext(mesh=mesh, comm_dtype=comm_dtype,
+                                      active=active)
     return backends.aggregate_with(_SCHEDULE_NAMES[schedule], params, axes,
                                    theta, beta, ctx=ctx)
 
 
-def _resolve_backend(backend: str):
-    return backends.get_backend(async_backend_name(backend))
+def _resolve_backend(backend: str, ctx):
+    name = async_backend_name(backend)
+    backend_obj = backends.get_backend(name)
+    if getattr(backend_obj, "needs_mesh", False) and ctx.mesh is None:
+        raise ValueError(
+            f"async aggregation backend {name!r} places explicit "
+            f"collectives and needs ctx.mesh (AggregationContext(mesh=...))")
+    return backend_obj
 
 
 def _resolve_policy(policy, strategy: str, a_tilde: float):
@@ -139,9 +156,15 @@ def _resolve_policy(policy, strategy: str, a_tilde: float):
     return weights_mod.as_policy(policy, default_a=a_tilde)
 
 
+def gather_losses(losses: torch.Tensor, mesh) -> torch.Tensor:
+    """Every worker's ``(w,)`` losses from this shard's rows (a mesh),
+    or ``losses`` as they are (none)."""
+    return losses if mesh is None else smagg.gather_rows(losses, mesh)
+
+
 def _masked_aggregate(backend_obj, pol, ctx, w_axes, beta):
     """theta and the Eq. 10 + late-join of one round; the mask is cast to
-    float32 once, for every leaf."""
+    float32 once, for every leaf. ``losses`` are every worker's."""
     def agg(params, losses, active, pstate):
         theta, pstate = pol(losses, active, pstate, checked=True)
         params = backend_obj.aggregate(
@@ -163,16 +186,19 @@ def build_async_round(grad_fn: Callable, axes: Dict, *, lr: float,
     stateful: ``round_fn(params, batch, active, pstate) -> (params, losses,
     theta, pstate)`` (``round_fn.stateful`` says which). ``active`` is a
     ``(w,)`` bool mask already checked for an active worker.
-    ``grad_fn(params_stacked, batch) -> (losses (w,), grads_stacked)``."""
+    ``grad_fn(params_stacked, batch) -> (losses (w,), grads_stacked)``.
+    Under ``ctx.mesh`` the params and the batch are this shard's rows and
+    the returned losses every worker's."""
     ctx = backends.DEFAULT_CONTEXT if ctx is None else ctx
     pol = _resolve_policy(policy, strategy, a_tilde)
-    agg = _masked_aggregate(_resolve_backend(backend), pol, ctx,
+    agg = _masked_aggregate(_resolve_backend(backend, ctx), pol, ctx,
                             worker_axes(axes), beta)
 
     def _advance(params, batch, active, pstate):
         losses, grads = grad_fn(params, batch)
         params = tree_map(lambda p, g: p - lr * g, params, grads)
         del grads
+        losses = gather_losses(losses, ctx.mesh)
         params, theta, pstate = agg(params, losses, active, pstate)
         return params, losses, theta, pstate
 
@@ -195,10 +221,11 @@ def build_split_async_round(grad_fn: Callable, axes: Dict, *, lr: float,
     """The round split where measured-time mode takes its measurement:
     ``local_fn(params, batch) -> (params, losses)`` (the local steps) and
     ``agg_fn(params, losses, active, pstate) -> (params, theta, pstate)``
-    (masked theta, Eq. 10 and the late-join)."""
+    (masked theta, Eq. 10 and the late-join; ``losses`` every worker's,
+    ``gather_losses`` under a mesh)."""
     ctx = backends.DEFAULT_CONTEXT if ctx is None else ctx
     pol = weights_mod.as_policy(policy)
-    agg_fn = _masked_aggregate(_resolve_backend(backend), pol, ctx,
+    agg_fn = _masked_aggregate(_resolve_backend(backend, ctx), pol, ctx,
                                worker_axes(axes), beta)
 
     def local_fn(params, batch):
@@ -208,15 +235,24 @@ def build_split_async_round(grad_fn: Callable, axes: Dict, *, lr: float,
     return local_fn, agg_fn
 
 
-def measure_round_times(x: torch.Tensor, w: int) -> np.ndarray:
+def measure_round_times(x: torch.Tensor, w: int, mesh=None,
+                        t0: Optional[float] = None) -> np.ndarray:
     """Measured completion time of each worker's rows of ``x``: the host
-    clock once the device has produced ``x``. One device holds every
-    worker, so all ``w`` workers get that one time (the JAX package's
-    per-device times, on a single device)."""
-    t0 = time.perf_counter()
+    clock, from ``t0`` (default: now), once this process's device has
+    produced ``x``. Its rows share that time; under a mesh each shard's
+    time is all-gathered (the JAX package's per-device times), so every
+    rank holds the same ``(w,)`` times. Without one, all ``w`` workers
+    get the one time."""
+    t0 = time.perf_counter() if t0 is None else t0
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
-    return np.full((w,), time.perf_counter() - t0)
+    dt = time.perf_counter() - t0
+    if mesh is None:
+        return np.full((w,), dt)
+    shards = smagg.mesh_worker_shards(mesh)
+    mine = torch.full((1,), dt, dtype=torch.float64, device=x.device)
+    per_shard = smagg.gather_rows(mine, mesh).cpu().numpy()
+    return np.repeat(per_shard, w // shards)
 
 
 def run_parallel_sgd_on_device(grad_fn: Callable, params0: Dict, axes: Dict,
@@ -242,11 +278,26 @@ def run_parallel_sgd_on_device(grad_fn: Callable, params0: Dict, axes: Dict,
     after its local steps (``build_split_async_round``), the first
     ``n_workers`` arrivals aggregate, and the times feed the policy's
     ``observe_times`` (``time_aware``). ``AsyncResult.round_times`` holds
-    them; ``wall`` sums each round's p-th arrival."""
+    them; ``wall`` sums each round's p-th arrival.
+
+    Under ``ctx.mesh`` each rank steps its shard's rows of the params and
+    of every batch (batches hold every worker's rows) and the losses and
+    times are all-gathered, so every rank forms the same masks, theta and
+    losses; ``AsyncResult.params`` holds this rank's rows."""
     dev = resolve_device(device)
     w = n_workers + backups
     pol = _resolve_policy(policy, strategy, a_tilde)
+    mesh = None if ctx is None else ctx.mesh
     params = stack_workers(tree_map(lambda x: x.to(dev), params0), w)
+    if mesh is not None:
+        rows = smagg.local_rows(w, mesh)
+        params = tree_map(lambda x: x[rows].contiguous(), params)
+
+    def next_batch():
+        batch = next(batches)                      # (w, tau*b_local, ...)
+        if mesh is not None:
+            batch = tree_map(lambda x: x[rows], batch)
+        return batch_on(batch, dev)
 
     if measure_times:
         if schedule is not None or time_model is not None:
@@ -262,9 +313,11 @@ def run_parallel_sgd_on_device(grad_fn: Callable, params0: Dict, axes: Dict,
         wall = 0.0
         dropped = 0
         for r in range(rounds):
-            batch = batch_on(next(batches), dev)   # (w, tau*b_local, ...)
+            batch = next_batch()
+            t0 = time.perf_counter()
             params, losses = local_fn(params, batch)
-            times = measure_round_times(losses, w)
+            times = measure_round_times(losses, w, mesh=mesh, t0=t0)
+            losses = gather_losses(losses, mesh)
             order = np.argsort(times, kind="stable")
             active = np.zeros((w,), bool)
             active[order[:n_workers]] = True       # first p arrivals
@@ -295,7 +348,7 @@ def run_parallel_sgd_on_device(grad_fn: Callable, params0: Dict, axes: Dict,
 
     losses_hist = []
     for r in range(rounds):
-        batch = batch_on(next(batches), dev)       # (w, tau*b_local, ...)
+        batch = next_batch()
         if round_fn.stateful:
             params, losses, _, pstate = round_fn(params, batch, masks[r],
                                                  pstate)

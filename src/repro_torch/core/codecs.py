@@ -25,12 +25,22 @@ change) and ``ctx.leaf_index`` (distinct noise for equal-content leaves);
 element ``i`` draws ``mix32(i * golden + key)``, whose top 24 bits give u.
 The hash runs on int32 lanes holding the u32 bits: products wrap modulo
 2^32 and right shifts are made logical by a mask.
+
+Under a device mesh (``ctx.mesh``) a worker leaf holds this shard's rows
+(``core/shardmap_agg.py``). The quantizing codecs then encode the whole
+leaf as the meshless codec does: the scale's max and the int4 key's size
+and content sum are reduced over the worker group, and element ``i`` of
+the shard is element ``i + shard * numel`` of the leaf, so every rank's
+rows of the payload are the meshless payload's rows, bit for bit.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.core import shardmap_agg
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B1
@@ -66,6 +76,20 @@ class _DtypeCodec:
         w = theta.shape[0]
         return (beta * (w + 4) * 2.0 ** -8 * x.abs().max().float() + 1e-5)
 
+
+def _mesh(ctx):
+    return getattr(ctx, "mesh", None)
+
+
+def _leaf_absmax(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """max|x| over the leaf (every shard's rows under a mesh), in x's
+    dtype, without an |x| temporary the size of the leaf."""
+    amax = torch.maximum(x.max(), -x.min())
+    if mesh is not None:
+        shardmap_agg.all_reduce_(amax, mesh, op=dist.ReduceOp.MAX)
+    return amax
+
+
 class _Int8Codec:
     """Symmetric per-leaf int8: q = round(x/scale), scale = max|x|/127."""
 
@@ -75,11 +99,11 @@ class _Int8Codec:
     quantizing = True
 
     @staticmethod
-    def _scale(x):
-        return torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+    def _scale(x, mesh=None):
+        return torch.clamp_min(_leaf_absmax(x, mesh), 1e-12) / 127.0
 
     def encode(self, x, ctx=None):
-        scale = self._scale(x)
+        scale = self._scale(x, _mesh(ctx))
         q = torch.clamp(torch.round(x.float() / scale), -127, 127)
         return q.to(torch.int8), scale
 
@@ -120,17 +144,23 @@ def _chunks(n: int):
         yield start, min(start + INT4_CHUNK, n)
 
 
-def int4_key(x: torch.Tensor, key=None, leaf_index=None) -> torch.Tensor:
+def int4_key(x: torch.Tensor, key=None, leaf_index=None,
+             mesh=None) -> torch.Tensor:
     """The leaf's 32-bit draw key, an int32 scalar on x's device: ``key``
     (default ``0x144``), then x's size, then the wrapping u32 sum of x's
-    float32 bits, then ``leaf_index`` when given, each mixed in."""
+    float32 bits, then ``leaf_index`` when given, each mixed in. Under a
+    ``mesh`` the size and the sum are the whole leaf's."""
     flat = x.float().reshape(-1)
     bits = flat.view(torch.int32)
     content = sum(bits[a:b].sum() for a, b in _chunks(flat.numel()))
+    numel = flat.numel()
+    if mesh is not None:
+        content = shardmap_agg.all_reduce_(content.reshape(1), mesh)[0]
+        numel *= shardmap_agg.mesh_worker_shards(mesh)
     seed = INT4_DEFAULT_KEY if key is None else int(key)
     # the int64 sum's low 32 bits as the int32 of the same bits
     k = (((content & _M32) ^ 1 << 31) - (1 << 31)).to(torch.int32)
-    k = mix32(k.add_(_mixed(_mixed(seed) + flat.numel())))
+    k = mix32(k.add_(_mixed(_mixed(seed) + numel)))
     if leaf_index is not None:
         k = mix32(k.add_(_mixed(int(leaf_index))))
     return k
@@ -155,20 +185,23 @@ class _Int4StochasticCodec:
     quantizing = True
 
     @staticmethod
-    def _scale(x):
-        # max|x| without an |x| temporary the size of the leaf
-        return torch.clamp_min(torch.maximum(x.max(), -x.min()).float(),
-                               1e-12) / 7.0
+    def _scale(x, mesh=None):
+        return torch.clamp_min(_leaf_absmax(x, mesh).float(), 1e-12) / 7.0
 
     def encode(self, x, ctx=None):
-        scale = self._scale(x)
+        mesh = _mesh(ctx)
+        scale = self._scale(x, mesh)
         key = int4_key(x, getattr(ctx, "key", None),
-                       getattr(ctx, "leaf_index", None))
+                       getattr(ctx, "leaf_index", None), mesh=mesh)
         flat = x.float().reshape(-1)
+        # this shard's first element in the whole leaf
+        off = 0
+        if mesh is not None:
+            off = shardmap_agg.shard_index(mesh) * flat.numel()
         q = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
         for a, b in _chunks(flat.numel()):
-            q[a:b] = torch.addcdiv(int4_uniform(key, a, b), flat[a:b],
-                                   scale).floor_().clamp_(-7, 7)
+            q[a:b] = torch.addcdiv(int4_uniform(key, off + a, off + b),
+                                   flat[a:b], scale).floor_().clamp_(-7, 7)
         return q.reshape(x.shape), scale
 
     def decode_reduced(self, m, aux):

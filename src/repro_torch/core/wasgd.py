@@ -21,13 +21,16 @@ class CommResult(NamedTuple):
 
 
 def communicate(params: Dict, axes: Dict, h: torch.Tensor, wcfg,
-                policy_state=None) -> CommResult:
+                mesh=None, policy_state=None) -> CommResult:
     """One communication (lines 12-19 of Alg. 1). ``h``: (p,) loss
-    energies. A stateful policy starts from a fresh state unless
-    ``policy_state`` is given; the advanced state is returned in
-    ``metrics["policy_state"]``."""
+    energies of every worker. A stateful policy starts from a fresh state
+    unless ``policy_state`` is given; the advanced state is returned in
+    ``metrics["policy_state"]``. ``mesh`` rides in the backend context
+    (the mesh schedules need it; under it ``params`` hold this shard's
+    rows, ``core/shardmap_agg.py``)."""
     theta, policy_state = policy_from_config(wcfg)(h, None, policy_state)
-    new_params = backends.aggregate_from_config(wcfg, params, axes, theta)
+    new_params = backends.aggregate_from_config(wcfg, params, axes, theta,
+                                                mesh=mesh)
     metrics = {
         "theta_entropy": theta_entropy(theta),
         "omega": omega(theta),

@@ -12,6 +12,12 @@ train step's reshape contract.
 the host's index/gather work for round ``r+1`` and its copy to the card,
 with its first worker-major microbatch (which the pipelined round carries
 through the aggregation's seam), happen while round ``r`` runs.
+
+Under a device mesh (``mesh=``; ``core/shardmap_agg.py``) both hand each
+rank its shard's rows: ``OrderedDataset`` gathers only its workers' rows
+of each round (the order state, and so every OrderGen decision, stays
+every worker's), and ``RoundPrefetcher`` stages the rank's rows of each
+round (``rank_rows``) and of its first microbatch.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.order import OrderState
+from repro_torch.core.shardmap_agg import local_rows, local_workers
 from repro_torch.device import resolve_device
 
 
@@ -30,8 +37,12 @@ class OrderedDataset:
     def __init__(self, data: Dict[str, np.ndarray], n_workers: int, tau: int,
                  b_local: int, n_segments: int = 1,
                  order_state: Optional[OrderState] = None, seed: int = 0,
-                 boundary_delay: int = 0):
+                 boundary_delay: int = 0, mesh=None):
+        """``mesh``: a ``DeviceMesh``; ``batches`` then yields this
+        rank's shard's rows of each round (leading dim
+        ``p / S * tau * b_local``)."""
         self.data = data
+        self.mesh = mesh
         self.n = len(next(iter(data.values())))
         self.p = n_workers
         self.tau = tau
@@ -61,6 +72,10 @@ class OrderedDataset:
         already running keeps the old count."""
         if int(new_p) < 1:
             raise ValueError(f"resize needs new_p >= 1, got {new_p}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "OrderedDataset.resize under a mesh: elastic membership "
+                "across processes is not ported (ROADMAP.md queue 1.10)")
         self.p = int(new_p)
         self.order.resize(self.p)
 
@@ -75,6 +90,9 @@ class OrderedDataset:
         is drawn from the seed every round, so a reshuffle mid-traversal
         would change the order under a pass in progress."""
         r = int(start_round)
+        workers = range(self.p)
+        if self.mesh is not None:
+            workers = workers[local_rows(self.p, self.mesh)]
         pending = []                     # (fire_at_round, segment) FIFO
         while True:
             seg = self.segment_of_round(r)
@@ -86,8 +104,8 @@ class OrderedDataset:
                 if pending[0][1] == seg and within != 0:
                     break                # never reshuffle mid-traversal
                 self.order.end_segment(pending.pop(0)[1])
-            idx = np.empty((self.p, self.per_round), np.int64)
-            for w in range(self.p):
+            idx = np.empty((len(workers), self.per_round), np.int64)
+            for i, w in enumerate(workers):
                 perm = self.order.order_for(seg, w, self.seg_len)
                 start = (within * self.per_round) % max(
                     1, self.seg_len - self.per_round + 1)
@@ -95,7 +113,7 @@ class OrderedDataset:
                 if len(sel) < self.per_round:   # wrap
                     sel = np.concatenate(
                         [sel, perm[: self.per_round - len(sel)]])
-                idx[w] = seg * self.seg_len + sel
+                idx[i] = seg * self.seg_len + sel
             flat = idx.reshape(-1)               # worker-major
             yield {k: v[flat] for k, v in self.data.items()}
             r += 1
@@ -104,6 +122,22 @@ class OrderedDataset:
 # ---------------------------------------------------------------------------
 # Round prefetch: the host side of the pipelined round
 # ---------------------------------------------------------------------------
+
+def rank_rows(batch: Dict, n_workers: int, mesh) -> Dict:
+    """This rank's shard's rows of a worker-major round batch of
+    ``n_workers`` workers (views of numpy arrays or tensors)."""
+    rows = local_rows(n_workers, mesh)
+
+    def f(x):
+        b = x.shape[0]
+        if b % n_workers:
+            raise ValueError(f"batch dim {b} not divisible by p = "
+                             f"{n_workers}")
+        per = b // n_workers
+        return x[rows.start * per:rows.stop * per]
+
+    return {k: f(v) for k, v in batch.items()}
+
 
 def first_microbatch(batch: Dict, n_workers: int, tau: int) -> Dict:
     """The first worker-major microbatch of a round batch: every leaf has
@@ -164,6 +198,10 @@ class RoundPrefetcher:
     microbatch (there is no round ``r+1``); the pipelined round's seam
     output for it is never consumed.
 
+    With ``mesh`` the batches hold every one of the ``n_workers``
+    workers' rows and the prefetcher stages this rank's shard's rows of
+    each round and of its first microbatch (``rank_rows``).
+
     The upstream generator runs up to ``run_ahead()`` = depth + 2 rounds
     ahead of training (``depth`` queued, one blocked in the thread's
     ``put``, one held as the consumer's pair lookahead), so its side
@@ -180,9 +218,10 @@ class RoundPrefetcher:
         return (cls.DEFAULT_DEPTH if depth is None else depth) + 2
 
     def __init__(self, batches: Iterator[Dict], n_workers: int, tau: int,
-                 depth: int = DEFAULT_DEPTH, device=None):
+                 depth: int = DEFAULT_DEPTH, device=None, mesh=None):
         self.n_workers = n_workers
         self.tau = tau
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._stop = False
@@ -198,9 +237,12 @@ class RoundPrefetcher:
         return t
 
     def _stage(self, batch: Dict, stream) -> _Staged:
+        if self.mesh is not None:
+            batch = rank_rows(batch, self.n_workers, self.mesh)
         host = {k: _host_tensor(v) for k, v in batch.items()}
         first = {k: v.contiguous() for k, v in first_microbatch(
-            host, self.n_workers, self.tau).items()}
+            host, local_workers(self.n_workers, self.mesh),
+            self.tau).items()}
         if stream is None:                       # the CPU: nothing to copy
             return _Staged(host, first)
         host = {k: v.pin_memory() for k, v in host.items()}
@@ -308,6 +350,10 @@ class RoundPrefetcher:
         membership."""
         if int(n_workers) < 1:
             raise ValueError(f"resize needs n_workers >= 1, got {n_workers}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "RoundPrefetcher.resize under a mesh: elastic membership "
+                "across processes is not ported (ROADMAP.md queue 1.10)")
         self.close()
         self.n_workers = int(n_workers)
         if batches is not None:

@@ -12,6 +12,16 @@ the loss's own worker-stacked form where it has one, ``StackedLoss``:
 the LM loss, whose layers ``cfg.remat`` checkpoints): each worker's
 gradient of its own loss (the JAX package takes the gradient of the mean
 over workers and scales it by p; the two agree up to rounding).
+
+Under a device mesh (``mesh=``; ``core/shardmap_agg.py``) each rank runs
+the round on its shard's worker rows: the params, the optimizer state,
+the energies and the batch (its rows of the worker-major batch, leading
+dim ``B / S``) are that shard's. The energies, and every per-worker
+metric, are all-gathered over the worker group before the policy, so
+every rank computes the same theta, policy state, Judge scores and
+metrics, and the aggregate runs through the spec's collectives. Leaves
+without a worker axis (JAX's ``ep_data`` experts) are not ported under a
+mesh (ROADMAP.md queue 1.11).
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from repro_torch.core import aggregate as agg
 from repro_torch.core import async_device
 from repro_torch.core import backends
 from repro_torch.core import baselines as bl
+from repro_torch.core import shardmap_agg as smagg
 from repro_torch.core.energy import record_mask
 from repro_torch.core.order import judge_scores
 from repro_torch.core.weights import (compute_theta, omega,
@@ -55,16 +66,31 @@ class StackedLoss(Protocol):
 
 
 def _check_pods(wcfg, name: str) -> None:
-    if backends.resolve_spec(name)[0] == "hierarchical" and wcfg.n_pods < 2:
+    try:
+        sched = backends.resolve_spec(name)[0]
+    except KeyError:
+        return                               # a monolithic registration
+    if sched == "hierarchical" and wcfg.n_pods < 2:
         raise ValueError("'hierarchical' aggregation schedule needs "
                          f"WASGDConfig.n_pods >= 2 (got {wcfg.n_pods})")
 
 
-def wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
+def _needs_mesh_check(name: str, mesh, where: str) -> None:
+    backend = backends.get_backend(name)
+    if getattr(backend, "needs_mesh", False) and mesh is None:
+        raise ValueError(
+            f"aggregation backend {backend.name!r} needs a mesh; pass "
+            f"mesh= through {where}")
+
+
+def wasgd_rule(wcfg, mesh=None,
+               overlap: Optional[Callable] = None) -> Callable:
     """Eq. 10 communication rule: theta from the configured policy (its
     state is ``comm_state``), the aggregate through the configured
-    ``schedule:codec`` spec. Unknown or unported specs fail here, when the
-    rule is built.
+    ``schedule:codec`` spec (``"auto"`` resolves per parameter tree).
+    Unknown specs, and a mesh spec without ``mesh``, fail here, when the
+    rule is built. ``h`` is every worker's energies; under ``mesh`` the
+    params are this shard's rows.
 
     ``overlap`` is a nullary thunk (its result any tree) that runs inside
     the aggregate, after every leaf's first reduce phase
@@ -74,13 +100,15 @@ def wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
     the built one: the pipelined round hands each round a fresh seam
     thunk that way."""
     name = backends.backend_name_from_config(wcfg)
-    _check_pods(wcfg, name)
+    if name != "auto":
+        _needs_mesh_check(name, mesh, "Trainer/build_train_step/wasgd_rule")
+        _check_pods(wcfg, name)
     pol = policy_from_config(wcfg)
 
     def rule(params, axes, h, comm_state, overlap=overlap):
         theta, comm_state = pol(h, None, comm_state)
         res = backends.aggregate_from_config(wcfg, params, axes, theta,
-                                             overlap=overlap)
+                                             mesh=mesh, overlap=overlap)
         if overlap is not None:
             new_params, overlap_out = res
             return new_params, comm_state, theta, {"overlap": overlap_out}
@@ -88,7 +116,8 @@ def wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
     return rule
 
 
-def async_wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
+def async_wasgd_rule(wcfg, mesh=None,
+                     overlap: Optional[Callable] = None) -> Callable:
     """Alg. 4 (p-of-(p+b)) rule for ``async_mode="on_device"``.
     ``comm_state`` is the round's ``(w,)`` bool activity mask, or
     ``{"active": mask, "policy": state}`` for a stateful policy; the host
@@ -98,13 +127,16 @@ def async_wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
     configured spec's Alg. 4 form (``async_device.async_backend_name``)
     with the mask cast to float32 once a round, which is also
     ``metrics["active"]``. ``overlap`` as in ``wasgd_rule`` (built-in
-    thunk, per-call keyword)."""
-    name = async_device.async_backend_name(
-        backends.backend_name_from_config(wcfg))
-    backends.get_backend(name)
-    _check_pods(wcfg, name)
+    thunk, per-call keyword); ``mesh`` too (the mask is every worker's).
+    ``"auto"`` resolves per tree among the specs with a masked path."""
+    name = backends.backend_name_from_config(wcfg)
+    if name != "auto":
+        name = async_device.async_backend_name(name)
+        _needs_mesh_check(name, mesh, "Trainer/build_train_step/"
+                                      "async_wasgd_rule")
+        _check_pods(wcfg, name)
     pol = policy_from_config(wcfg)
-    ctx = backends.context_from_config(wcfg)
+    ctx = backends.context_from_config(wcfg, mesh)
 
     def rule(params, axes, h, comm_state, overlap=overlap):
         if pol.stateful:
@@ -114,8 +146,12 @@ def async_wasgd_rule(wcfg, overlap: Optional[Callable] = None) -> Callable:
         theta, pstate = pol(h, active, pstate, checked=True)
         act = active.float()
         metrics = {"active": act}
+        nm = name
+        if nm == "auto":
+            nm = async_device.async_backend_name(backends.select_auto_spec(
+                params, axes, mesh, n_pods=wcfg.n_pods, require_mask=True))
         res = backends.aggregate_with(
-            name, params, axes, theta, wcfg.beta,
+            nm, params, axes, theta, wcfg.beta,
             ctx=dataclasses.replace(ctx, active=act), overlap=overlap)
         if overlap is not None:
             res, metrics["overlap"] = res
@@ -159,12 +195,37 @@ def no_comm_rule() -> Callable:
 PIPELINE_MODES = ("parity", "speculative")
 
 
+MESH_RULES_NOT_PORTED = ("under a mesh, only the wasgd/wasgd+ rules run; "
+                         "the baseline rules, Trainer.resize and its "
+                         "checkpoints are not ported there "
+                         "(ROADMAP.md queue 1.10)")
+
+
+def check_mesh_axes(axes: Dict, mesh) -> None:
+    """Under a mesh every leaf must carry the worker axis."""
+    if mesh is not None and not all(agg.is_worker_leaf(ax)
+                                    for ax in tree_leaves(axes)):
+        raise NotImplementedError(
+            "a leaf without the worker axis (JAX's 'ep_data' experts, one "
+            "copy) under a mesh is not ported (ROADMAP.md queue 1.11); "
+            "train with expert_copies=True or without a mesh")
+
+
 def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
-                 n_workers: int) -> types.SimpleNamespace:
+                 n_workers: int, mesh=None) -> types.SimpleNamespace:
     """The round's building blocks: batch reshape, the tau-step local
     loop, per-worker losses and L2 norms, and the state/metrics assembly,
     shared by the fused round, the pipelined round and the phase-fenced
-    round (``build_phased_train_step``): the three run the same code."""
+    round (``build_phased_train_step``): the three run the same code.
+    Under ``mesh`` the params and batches are this shard's
+    ``n_local`` worker rows, and ``gather`` collects every worker's
+    values of a per-worker vector."""
+    check_mesh_axes(axes, mesh)
+    n_local = smagg.local_workers(n_workers, mesh)
+
+    def gather(x):
+        return x if mesh is None else smagg.gather_rows(x, mesh)
+
     in_dims = agg.worker_in_axes(axes)
     tau = wcfg.tau
     mask = record_mask(tau, wcfg.m_estimate, wcfg.record_chunks)
@@ -213,20 +274,21 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
     def reshape_batch(batch):
         def r(x):
             b = x.shape[0]
-            if b % (tau * n_workers):
+            if b % (tau * n_local):
                 raise ValueError(f"batch {b} not divisible by tau*p = "
-                                 f"{tau}*{n_workers}")
-            x = x.reshape(n_workers, tau, b // (tau * n_workers),
+                                 f"{tau}*{n_local}")
+            x = x.reshape(n_local, tau, b // (tau * n_local),
                           *x.shape[1:])
             return x.transpose(0, 1)            # (tau, p, b_local, ...)
         return tree_map(r, batch)
 
     def worker_l2(tree_a, tree_b=None):
-        """Per-worker L2 norm over the worker-stacked leaves: (p,)."""
+        """Per-worker L2 norm over the worker-stacked leaves: (p,), this
+        shard's rows under a mesh."""
         leaves_ax = tree_leaves(axes)
         la = tree_leaves(tree_a)
         lb = tree_leaves(tree_b) if tree_b is not None else la
-        total = torch.zeros(n_workers, dtype=torch.float32,
+        total = torch.zeros(n_local, dtype=torch.float32,
                             device=la[0].device)
         for xa, xb, ax in zip(la, lb, leaves_ax):
             if not agg.is_worker_leaf(ax):
@@ -234,15 +296,17 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
             d = xa.float()
             if tree_b is not None:
                 d = d - xb.float()
-            total = total + torch.square(d).reshape(n_workers, -1).sum(dim=1)
+            total = total + torch.square(d).reshape(n_local, -1).sum(dim=1)
         return torch.sqrt(total)
 
     def run_scan(state, mb, collect_gnorm=False):
         """tau local steps; returns (params, opt_state, energy) and
         ``(round_losses, step_losses, gnorm0)``: the (tau,) per-step mean
-        losses, the (tau, p) per-worker losses, and with
-        ``collect_gnorm`` the workers' gradient norms (p,) at t = 0
-        (else None). The optimizer's leaf-wise ``apply``
+        losses over every worker, the (tau, p) per-worker losses, and
+        with ``collect_gnorm`` the workers' gradient norms (p,) at t = 0
+        (else None); the energies, the per-worker losses and the norms
+        are this shard's rows under a mesh. The optimizer's leaf-wise
+        ``apply``
         replaces each leaf of the ``state.params`` (and optimizer state)
         dicts by its new tensor and drops its gradient before the next
         leaf (no tensor is written in place): the round consumes its input
@@ -262,14 +326,20 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
             del grads
             if mask[t]:
                 energy = energy + losses
-            step_means.append(losses.mean())
+            if mesh is None:
+                step_means.append(losses.mean())
             step_losses.append(losses)
+        step_losses = torch.stack(step_losses)
+        if mesh is not None:                # every worker's, per step
+            step_means = [row.mean() for row in
+                          gather(step_losses.t().contiguous()).t()]
         return (params, opt_state, energy), (torch.stack(step_means),
-                                             torch.stack(step_losses),
-                                             gnorm0)
+                                             step_losses, gnorm0)
 
     def assemble(state, params, opt_state, comm_state, round_losses, energy,
                  theta, rule_metrics, extra=None):
+        """The next state and the round's metrics; ``energy`` and
+        ``extra`` are every worker's."""
         new_state = TrainState(
             step=state.step + 1,
             params=params,
@@ -291,7 +361,8 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
         return new_state, metrics
 
     return types.SimpleNamespace(
-        mask=mask, per_worker_losses=per_worker_losses,
+        mask=mask, n_local=n_local, gather=gather,
+        per_worker_losses=per_worker_losses,
         reshape_batch=reshape_batch, worker_grads=worker_grads,
         worker_l2=worker_l2, run_scan=run_scan, assemble=assemble)
 
@@ -300,13 +371,17 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
                      wcfg, n_workers: int,
                      rule: Optional[Callable] = None,
                      overlap: Optional[Callable] = None,
-                     pipeline: Optional[str] = None) -> Callable:
+                     pipeline: Optional[str] = None,
+                     mesh=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` for one round.
     ``wcfg.async_mode="on_device"`` takes the Alg. 4 rule
     (``async_wasgd_rule``; the round's mask rides in ``state.comm_state``).
     ``overlap`` (a nullary thunk) is handed to the default rule, which
     runs it inside the aggregate; its result is ``metrics["overlap"]``
-    and the params are the same either way.
+    and the params are the same either way. ``mesh`` reaches the default
+    rule's backend context, and the round runs this shard's rows (the
+    module docstring); a supplied ``rule`` must take every worker's
+    energies and this shard's params.
 
     Pipelined rounds (``pipeline="parity" | "speculative"``): the builder
     returns
@@ -359,20 +434,21 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
                 "does not accept one (use wasgd_rule/async_wasgd_rule, "
                 "or add an overlap= kwarg)")
     if rule is None:
-        rule = (async_wasgd_rule(wcfg, overlap=overlap)
+        rule = (async_wasgd_rule(wcfg, mesh=mesh, overlap=overlap)
                 if wcfg.async_mode == "on_device"
-                else wasgd_rule(wcfg, overlap=overlap))
-    parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers)
+                else wasgd_rule(wcfg, mesh=mesh, overlap=overlap))
+    parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers, mesh)
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
         mb = parts.reshape_batch(batch)
         (params, opt_state, energy), (round_losses, _, _) = parts.run_scan(
             state, mb)
+        h = parts.gather(energy)
         params, comm_state, theta, rule_metrics = rule(
-            params, axes, energy, state.comm_state)
+            params, axes, h, state.comm_state)
         return parts.assemble(state, params, opt_state, comm_state,
-                              round_losses, energy, theta, rule_metrics)
+                              round_losses, h, theta, rule_metrics)
 
     if pipeline is None:
         return train_step
@@ -392,10 +468,11 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
             true0, spec = losses_tw[0], carry["spec_losses"]
             if parts.mask[0]:
                 energy = energy + (spec - true0)
-            extra = {"spec_losses": spec,
-                     "spec_dev": torch.abs(spec - true0),
-                     "spec_bound": gnorm0 * carry["comm_delta"]}
+            extra = {"spec_losses": parts.gather(spec),
+                     "spec_dev": parts.gather(torch.abs(spec - true0)),
+                     "spec_bound": parts.gather(gnorm0 * carry["comm_delta"])}
         pre_agg = params
+        h = parts.gather(energy)
 
         def seam():
             staged = {"first": next_first}
@@ -405,7 +482,7 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
             return staged
 
         params, comm_state, theta, rule_metrics = rule(
-            pre_agg, axes, energy, state.comm_state, overlap=seam)
+            pre_agg, axes, h, state.comm_state, overlap=seam)
         seam_out = rule_metrics.pop("overlap")
         carry_out = {"first": seam_out["first"]}
         if speculative:
@@ -413,7 +490,7 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
             carry_out["comm_delta"] = parts.worker_l2(params, pre_agg)
         del pre_agg
         new_state, metrics = parts.assemble(
-            state, params, opt_state, comm_state, round_losses, energy,
+            state, params, opt_state, comm_state, round_losses, h,
             theta, rule_metrics, extra)
         return new_state, metrics, carry_out
 
@@ -426,7 +503,7 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
         if speculative:
             carry["spec_losses"] = parts.per_worker_losses(params, first)
             carry["comm_delta"] = torch.zeros(
-                n_workers, dtype=torch.float32,
+                parts.n_local, dtype=torch.float32,
                 device=carry["spec_losses"].device)
         return carry
 
@@ -436,13 +513,14 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
 
 
 def build_phased_train_step(loss_fn: LossFn, optimizer: Optimizer,
-                            axes: Dict, wcfg, n_workers: int,
+                            axes: Dict, wcfg, n_workers: int, mesh=None,
                             overlap: Optional[Callable] = None) -> Callable:
     """The round of ``build_train_step`` with the default wasgd/Alg. 4
     rule, run phase by phase so that the Trainer can time each:
 
         local_steps  the tau local steps (gradients, update, energies)
-        judge        the policy: energies -> theta
+        judge        the policy: energies -> theta (under a mesh, with
+                     the energies' all-gather)
         reduce       the schedule's reduce phase with every leaf's prepare
                      (``reduce_scatter`` / ``all_gather`` for the
                      two-phase ``hierarchical``)
@@ -455,19 +533,32 @@ def build_phased_train_step(loss_fn: LossFn, optimizer: Optimizer,
     timer stops. The arithmetic is the fused round's, op for op, so the
     params are bitwise its. It runs only for a real telemetry sink
     (``Trainer.run(telemetry=)``): it fences every phase, and it holds
-    every leaf's reduce state at once (``core.backends.PhaseMajor``)."""
-    parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers)
+    every leaf's reduce state at once (``core.backends.PhaseMajor``).
+    ``"auto"`` resolves per tree at the round."""
+    parts = _round_parts(loss_fn, optimizer, axes, wcfg, n_workers, mesh)
     pol = policy_from_config(wcfg)
     async_mode = wcfg.async_mode == "on_device"
     name = backends.backend_name_from_config(wcfg)
-    if async_mode:
-        name = async_device.async_backend_name(name)
-    _check_pods(wcfg, name)
-    backend = backends.get_backend(name)
-    ctx_base = backends.context_from_config(wcfg)
-    sched = backend.schedule
-    reduce_names = (("reduce_scatter", "all_gather") if sched.n_phases == 2
-                    else ("reduce",))
+    if name != "auto":
+        if async_mode:
+            name = async_device.async_backend_name(name)
+        _needs_mesh_check(name, mesh, "build_phased_train_step")
+        _check_pods(wcfg, name)
+    ctx_base = backends.context_from_config(wcfg, mesh)
+
+    def backend_for(params):
+        nm = name
+        if nm == "auto":
+            nm = backends.select_auto_spec(params, axes, mesh,
+                                           n_pods=wcfg.n_pods,
+                                           require_mask=async_mode)
+            if async_mode:
+                nm = async_device.async_backend_name(nm)
+        return backends.get_backend(nm)
+
+    def judge(energy, active, pstate, **kw):
+        h = parts.gather(energy)
+        return h, pol(h, active, pstate, **kw)
 
     def phased_step(state: TrainState, batch: Dict):
         device = tree_leaves(state.params)[0].device
@@ -490,7 +581,7 @@ def build_phased_train_step(loss_fn: LossFn, optimizer: Optimizer,
         if async_mode:
             active, pstate = ((cs["active"], cs["policy"]) if pol.stateful
                               else (cs, ()))
-            theta, pstate = timed("judge", lambda: pol(
+            energy, (theta, pstate) = timed("judge", lambda: judge(
                 energy, active, pstate, checked=True))
             act = active.float()
             ctx = dataclasses.replace(ctx_base, active=act)
@@ -498,9 +589,12 @@ def build_phased_train_step(loss_fn: LossFn, optimizer: Optimizer,
             comm_state = ({"active": active, "policy": pstate}
                           if pol.stateful else cs)
         else:
-            theta, comm_state = timed("judge",
-                                      lambda: pol(energy, None, cs))
+            energy, (theta, comm_state) = timed("judge", lambda: judge(
+                energy, None, cs))
             ctx, rule_metrics = ctx_base, {}
+        backend = backend_for(params)
+        reduce_names = (("reduce_scatter", "all_gather")
+                        if backend.schedule.n_phases == 2 else ("reduce",))
         run = backend.phase_major(params, axes, theta, ctx=ctx)
         timed(reduce_names[0], lambda: run.reduce(0))
         overlap_out = None

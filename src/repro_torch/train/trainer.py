@@ -17,6 +17,12 @@ Pipelined rounds (``Trainer(pipeline=)``) stage the next round on a
 background thread (``data/pipeline.RoundPrefetcher``) and carry its first
 microbatch through the aggregate's seam; ``run(telemetry=)`` emits the
 ``repro_torch.obs`` records.
+
+``Trainer(mesh=)`` trains decentralized across processes: each rank of
+the ``DeviceMesh`` steps its shard's worker rows (``core/shardmap_agg``);
+the energies, Judge scores and Alg. 4 times are all-gathered before the
+policy, so every rank computes the same theta, policy state and order
+decision, and ``history``/``losses()`` are the same on every rank.
 """
 from __future__ import annotations
 
@@ -32,12 +38,14 @@ import torch
 from repro_torch.checkpoint.io import (AsyncCheckpointer, _flatten, restore,
                                        saved_topology)
 from repro_torch.core import replicate_workers
+from repro_torch.core import shardmap_agg as smagg
 from repro_torch.core.async_device import validate_active_rounds
 from repro_torch.core.membership import (MembershipSchedule, WorkerSet,
                                          resize_train_state)
 from repro_torch.core.order import OrderState
 from repro_torch.core.weights import policy_from_config
-from repro_torch.data.pipeline import OrderedDataset, RoundPrefetcher
+from repro_torch.data.pipeline import (OrderedDataset, RoundPrefetcher,
+                                       rank_rows)
 from repro_torch.device import fence, resolve_device
 from repro_torch.obs import (NULL, MembershipChange, RoundTrace,
                              WorkerAssessment, summarize_policy_state)
@@ -48,14 +56,15 @@ from repro_torch.train.step import build_train_step, init_comm_state
 from repro_torch.tree import tree_map
 
 
-def _wasgd_rule_for(tcfg, overlap=None):
+def _wasgd_rule_for(tcfg, mesh=None, overlap=None):
     """The synchronous Eq. 10 rule, or the Alg. 4 masked rule when the
     config selects ``async_mode="on_device"`` (the mask rides in
     ``state.comm_state``); ``overlap`` is the thunk the aggregate runs
     between its phases (``train/step.py``)."""
     if tcfg.wasgd.async_mode == "on_device":
-        return step_mod.async_wasgd_rule(tcfg.wasgd, overlap=overlap)
-    return step_mod.wasgd_rule(tcfg.wasgd, overlap=overlap)
+        return step_mod.async_wasgd_rule(tcfg.wasgd, mesh=mesh,
+                                         overlap=overlap)
+    return step_mod.wasgd_rule(tcfg.wasgd, mesh=mesh, overlap=overlap)
 
 
 def _to_host(x):
@@ -66,18 +75,19 @@ def _to_host(x):
 RULES = {
     "wasgd": _wasgd_rule_for,
     "wasgd+": _wasgd_rule_for,
-    "spsgd": lambda tcfg, overlap=None: step_mod.spsgd_rule(),
-    "easgd": lambda tcfg, overlap=None: step_mod.easgd_rule(alpha=0.9 / 16),
-    "omwu": lambda tcfg, overlap=None: step_mod.mwu_rule(),
-    "mmwu": lambda tcfg, overlap=None: step_mod.mwu_rule(),
-    "seq": lambda tcfg, overlap=None: step_mod.no_comm_rule(),
+    "spsgd": lambda tcfg, mesh=None, overlap=None: step_mod.spsgd_rule(),
+    "easgd": lambda tcfg, mesh=None, overlap=None:
+        step_mod.easgd_rule(alpha=0.9 / 16),
+    "omwu": lambda tcfg, mesh=None, overlap=None: step_mod.mwu_rule(),
+    "mmwu": lambda tcfg, mesh=None, overlap=None: step_mod.mwu_rule(),
+    "seq": lambda tcfg, mesh=None, overlap=None: step_mod.no_comm_rule(),
 }
 
 
 class Trainer:
     def __init__(self, loss_fn, params: Dict, axes: Dict, tcfg, n_workers: int,
                  rule: str = "wasgd", device=None,
-                 easgd_alpha: Optional[float] = None,
+                 easgd_alpha: Optional[float] = None, mesh=None,
                  overlap=None, pipeline: Optional[str] = None):
         """``params``: a single-copy tree, moved to ``device`` (``None``:
         cuda; raises without a card unless ``"cpu"``) and replicated to
@@ -102,12 +112,28 @@ class Trainer:
         up to ``RoundPrefetcher.run_ahead()`` rounds ahead, so build an
         ``OrderedDataset`` with ``boundary_delay=RoundPrefetcher.
         run_ahead()`` to keep its OrderGen decisions on the recorded
-        Judge scores."""
+        Judge scores.
+
+        ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` whose worker axes
+        are ``("data",)`` or ``("pod", "data")``, JAX's names) makes the
+        run decentralized: this rank keeps its shard's rows of the
+        ``n_workers`` copies (``state`` holds them), takes its rows of
+        each round batch (an ``OrderedDataset(mesh=)`` yields them; other
+        batches hold every worker's rows and are sliced), and the mesh
+        reaches the aggregation specs (``shard_map``, ``rs_ag`` and their
+        ``async_`` forms need it). Every rank must make the same calls.
+        Under a mesh only the wasgd/wasgd+ rules run; ``resize``,
+        checkpoints and a leaf without the worker axis raise
+        ``NotImplementedError``."""
         if pipeline is not None and rule not in ("wasgd", "wasgd+"):
             raise ValueError(
                 f"pipeline={pipeline!r} threads the seam thunk through the "
                 f"wasgd/wasgd+ rules only (got rule={rule!r})")
+        if mesh is not None and rule not in ("wasgd", "wasgd+"):
+            raise NotImplementedError(
+                f"rule {rule!r}: {step_mod.MESH_RULES_NOT_PORTED}")
         self.device = resolve_device(device)
+        self._mesh = mesh
         self.tcfg = tcfg
         self.workers = WorkerSet(n_workers)
         self.rule_name = rule
@@ -123,11 +149,16 @@ class Trainer:
         self.axes = axes
         comm_state = init_comm_state(rule, params, axes, n_workers,
                                      wcfg=tcfg.wasgd)
+        if mesh is not None:                 # this shard's rows
+            step_mod.check_mesh_axes(axes, mesh)
+            rows = smagg.local_rows(n_workers, mesh)
+            params = tree_map(lambda x: x[rows].contiguous(), params)
         self.optimizer = make_optimizer(
             tcfg.optimizer, tcfg.learning_rate, tcfg.momentum,
             tcfg.weight_decay)
         self.state: TrainState = init_state(
-            params, self.optimizer.init(params), n_workers, comm_state)
+            params, self.optimizer.init(params),
+            smagg.local_workers(n_workers, mesh), comm_state)
         self._ckpt: Optional[AsyncCheckpointer] = None     # made at first save
         self._build_step()
         self.history: list = []
@@ -144,12 +175,19 @@ class Trainer:
         if self.rule_name == "easgd" and self._easgd_alpha is not None:
             rule_fn = step_mod.easgd_rule(self._easgd_alpha)
         else:
-            rule_fn = RULES[self.rule_name](self.tcfg, overlap=self._overlap)
+            rule_fn = RULES[self.rule_name](self.tcfg, mesh=self._mesh,
+                                            overlap=self._overlap)
         self._step = build_train_step(self._loss_fn, self.optimizer,
                                       self.axes, self.tcfg.wasgd,
                                       self.n_workers, rule=rule_fn,
-                                      pipeline=self.pipeline)
+                                      pipeline=self.pipeline,
+                                      mesh=self._mesh)
         self._primer = getattr(self._step, "primer", None)
+
+    def _no_mesh(self, what: str) -> None:
+        if self._mesh is not None:
+            raise NotImplementedError(
+                f"{what}: {step_mod.MESH_RULES_NOT_PORTED}")
 
     def _policy_for_resize(self):
         if self.rule_name not in ("wasgd", "wasgd+"):
@@ -164,6 +202,7 @@ class Trainer:
         through ``init_comm_state(prev=)``, and the round is rebuilt for
         the new count. Returns the ``MembershipEvent``, or None when
         ``new_p`` is the live count."""
+        self._no_mesh("Trainer.resize")
         if self.rule_name not in ("wasgd", "wasgd+"):
             raise ValueError(
                 f"elastic membership is a wasgd/wasgd+ capability — rule "
@@ -205,6 +244,7 @@ class Trainer:
         energies, comm state). Returns once the state is copied on its
         device; a background thread copies it to the host and writes it
         (``checkpoint.AsyncCheckpointer``)."""
+        self._no_mesh("Trainer.save_checkpoint")
         if self._ckpt is None:
             self._ckpt = AsyncCheckpointer(telemetry=self._telemetry)
         self._ckpt.save(path, self.state, meta={"round": int(round)},
@@ -217,6 +257,7 @@ class Trainer:
         its recorded ``p`` and then resized to this trainer's: the saved
         survivors land bitwise in their slots, newcomers adopt the
         aggregate."""
+        self._no_mesh("Trainer.resume")
         topo = saved_topology(path)["topology"]
         saved_p = int(topo.get("p", self.n_workers))
         if topo.get("rule") is not None and topo["rule"] != self.rule_name:
@@ -253,7 +294,7 @@ class Trainer:
         if fn is None:
             fn = step_mod.build_phased_train_step(
                 self._loss_fn, self.optimizer, self.axes, self.tcfg.wasgd,
-                self.n_workers, overlap=self._overlap)
+                self.n_workers, mesh=self._mesh, overlap=self._overlap)
             self._phased_cache[self.n_workers] = fn
         return fn
 
@@ -342,10 +383,25 @@ class Trainer:
         ``WorkerAssessment``; a resize emits ``MembershipChange`` and the
         checkpoint writer ``CheckpointSave``. With the default sink no
         site fences, reads or times anything, and the rounds are the
-        uninstrumented ones."""
+        uninstrumented ones.
+
+        Under a mesh, ``membership_schedule``, ``checkpoint_every`` and
+        ``resume_from`` raise ``NotImplementedError``; ``serve_hook``
+        receives this rank's rows of the params."""
+        if self._mesh is not None:
+            if membership_schedule is not None:
+                self._no_mesh("run(membership_schedule=)")
+            if resume_from is not None:
+                self._no_mesh("run(resume_from=)")
+            if checkpoint_every and checkpoint_path:
+                self._no_mesh("run(checkpoint_every=)")
         ds = None
         if isinstance(batches, OrderedDataset):
             ds = batches
+            if ds.mesh is not None and ds.mesh is not self._mesh:
+                raise ValueError(
+                    "the OrderedDataset's mesh is not this trainer's: it "
+                    "would hand the round another shard's rows")
             if self.pipeline is not None \
                     and ds.boundary_delay < RoundPrefetcher.run_ahead():
                 raise ValueError(
@@ -423,14 +479,20 @@ class Trainer:
             self._ckpt.telemetry = tele
         if ds is not None:
             batches = ds.batches(start_round=start)
+        # under a mesh: the mesh whose rows are still to be cut from each
+        # batch (None once an OrderedDataset(mesh=) has cut them)
+        cut = self._mesh if ds is None or ds.mesh is None else None
         t0 = time.time()
         mf = open(metrics_path, "a") if metrics_path else None
         prefetch = None
         if self.pipeline is not None and not isinstance(batches,
                                                         RoundPrefetcher):
-            prefetch = RoundPrefetcher(batches, self.n_workers,
-                                       self.tcfg.wasgd.tau,
-                                       device=self.device)
+            # it cuts this rank's rows (``cut``), or stages the rows an
+            # OrderedDataset(mesh=) has cut
+            staged = (self.n_workers if cut is not None
+                      else smagg.local_workers(self.n_workers, self._mesh))
+            prefetch = RoundPrefetcher(batches, staged, self.tcfg.wasgd.tau,
+                                       device=self.device, mesh=cut)
             batches = prefetch
         carry = None
         try:
@@ -450,8 +512,11 @@ class Trainer:
                 if self.pipeline is not None:
                     batch, next_first = next(batches)
                 else:
+                    batch = next(batches)
+                    if cut is not None:
+                        batch = rank_rows(batch, self.n_workers, cut)
                     batch = {k: torch.as_tensor(v).to(self.device)
-                             for k, v in next(batches).items()}
+                             for k, v in batch.items()}
                 if masks is not None:
                     cs = self.state.comm_state
                     cs = ({**cs, "active": masks[r]} if isinstance(cs, dict)

@@ -47,6 +47,7 @@ from repro_torch.models import (classification_loss, mlp_apply,  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from test_torch_mesh import jmesh1, world1  # noqa: E402
 
 ATOL = 1e-5
 
@@ -182,16 +183,32 @@ def test_async_backend_name_as_jax(name):
     assert ad.async_backend_name(name) == jad.async_backend_name(name)
 
 
-def test_async_backend_name_unknown_and_mesh():
+def test_async_backend_name_unknown_and_mesh(tmp_path):
+    """The mesh backends raise JAX's missing-mesh error without a mesh,
+    and under a one-rank gloo mesh the on-device rounds match JAX's on a
+    one-device mesh."""
     with pytest.raises(ValueError, match="no async"):
         ad.async_backend_name("does_not_exist")
+    X, y, params, axes, _, grad_fn = _setup()
+    sched = _schedule(4, 3, 1)
     for backend in ("async_shard_map", "async_rs_ag", "shard_map:f32"):
-        with pytest.raises(NotImplementedError, match="queue 1.7"):
-            ad.build_async_round(port_grad_fn, _setup()[3], lr=0.1,
+        with pytest.raises(ValueError, match="needs ctx.mesh"):
+            ad.build_async_round(port_grad_fn, axes, lr=0.1,
                                  backend=backend)
+        with pytest.raises(ValueError, match="needs ctx.mesh"):
+            jad.build_async_round(grad_fn, axes, lr=0.1, backend=backend)
+        ref = jad.run_parallel_sgd_on_device(
+            grad_fn, params, axes, _batches(X, y, 4, 8, to=jnp.asarray),
+            n_workers=3, backups=1, tau=2, rounds=4, lr=0.05,
+            schedule=sched, backend=backend,
+            ctx=JB.AggregationContext(mesh=jmesh1()))
+        with world1(tmp_path / f"store_{backend}") as mesh:
+            ours = _port_device_run(sched, 3, 1, backend=backend,
+                                    ctx=B.AggregationContext(mesh=mesh))
+        _hold(ours, ref)
 
 
-def test_weighted_aggregate_async_einsum_matches_jax():
+def test_weighted_aggregate_async_einsum_matches_jax(tmp_path):
     rng = np.random.default_rng(1)
     w = 4
     xs = {"a": rng.normal(size=(w, 6, 5)).astype(np.float32),
@@ -209,10 +226,19 @@ def test_weighted_aggregate_async_einsum_matches_jax():
         schedule="einsum")
     assert _leaf_err(ref, ours) < 1e-6
     for sched in ("all_reduce", "rs_ag"):
-        with pytest.raises(NotImplementedError, match="queue 1.7"):
+        with pytest.raises(ValueError, match="needs ctx.mesh"):
             ad.weighted_aggregate_async(
                 {k: torch.as_tensor(v) for k, v in xs.items()}, axes,
                 torch.as_tensor(theta), None, 0.9, schedule=sched)
+        ref = jad.weighted_aggregate_async(
+            jax.tree.map(jnp.asarray, xs), axes, jnp.asarray(theta),
+            jnp.asarray(active), 0.9, mesh=jmesh1(), schedule=sched)
+        with world1(tmp_path / f"store_{sched}") as mesh:
+            ours = ad.weighted_aggregate_async(
+                {k: torch.as_tensor(v) for k, v in xs.items()}, axes,
+                torch.as_tensor(theta), torch.as_tensor(active), 0.9,
+                mesh=mesh, schedule=sched)
+        assert _leaf_err(ref, ours) < 1e-6
     with pytest.raises(ValueError, match="unknown async schedule"):
         ad.weighted_aggregate_async({}, {}, torch.ones(2), None, 0.9,
                                     schedule="nope")

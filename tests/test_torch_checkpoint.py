@@ -249,6 +249,31 @@ def test_async_checkpointer_snapshots_and_surfaces_errors(tmp_path):
     assert not ac._thread.is_alive()
 
 
+def test_async_checkpointer_frees_each_snapshot_once_written(tmp_path,
+                                                          monkeypatch):
+    """The writer drops a save's snapshot when its write ends, not when
+    the next save arrives: the last snapshot of a run (the whole train
+    state, on the device) must not outlive ``wait()``."""
+    import gc
+    import weakref
+    from repro_torch.checkpoint import io as tio
+    seen = []
+    real = tio.save_sharded
+
+    def spy(path, snap, **kw):
+        seen.extend(weakref.ref(v) for v in snap.values()
+                    if isinstance(v, torch.Tensor))
+        return real(path, snap, **kw)
+
+    monkeypatch.setattr(tio, "save_sharded", spy)
+    ac = tck.AsyncCheckpointer()
+    ac.save(str(tmp_path / "a"), {"w": torch.arange(4.0)})
+    ac.wait()
+    gc.collect()
+    assert seen and all(r() is None for r in seen)
+    ac.close()
+
+
 def test_port_init_trainer_checkpoint_keys_are_jaxs(tmp_path):
     """The port's own init (no JAX params) writes JAX's keys: the JAX
     Trainer resumes it."""
