@@ -2800,17 +2800,17 @@ def phase_lm_remat(cfg, dev):
             "rounds": rounds, "round_settings": {**LM, **REMAT}}
 
 
-def lm_dataset(cfg, st=LM, boundary_delay=0, mesh=None):
+def lm_dataset(cfg, st=LM, boundary_delay=0):
     """``lm_batch``'s data for ``cfg`` (seed 0): make_tokens' bigram
     language, or codebook streams, and media for a model with cross
-    layers; under ``mesh``, this rank's rows of each round."""
+    layers."""
     from repro_torch.data import OrderedDataset, lm_batch
     data = lm_batch(0, st["n_seq"], st["seq_len"], cfg.vocab_size,
                     n_codebooks=cfg.n_codebooks,
                     media_tokens=cfg.n_media_tokens, d_model=cfg.d_model)
     return OrderedDataset(data, st["p"], st["tau"], st["b_local"],
                           n_segments=st["n_segments"], seed=st["order_seed"],
-                          boundary_delay=boundary_delay, mesh=mesh)
+                          boundary_delay=boundary_delay)
 
 
 def open_gates(params, seed):
@@ -5592,10 +5592,10 @@ def device_ops(prof):
 def mesh_cnn6_run(dev, mesh, spec, rounds, pipeline=None):
     """A fresh CNN6 WASGD+ trainer at ``TRAIN``'s settings through
     ``spec`` on ``mesh`` (None: meshless), ``rounds`` rounds over an
-    OrderedDataset with boundary_delay = the prefetcher's run-ahead (this
-    rank's rows under the mesh), after a one-round warm-up on another
-    trainer. Returns the trainer, the timed wall and the wagg_fused
-    launches of the timed run."""
+    OrderedDataset with boundary_delay = the prefetcher's run-ahead (every
+    worker's rows; the trainer takes its own), after a one-round warm-up
+    on another trainer. Returns the trainer, the timed wall and the
+    wagg_fused launches of the timed run."""
     import torch
     from repro_torch.core import shared_axes
     from repro_torch.data import OrderedDataset, RoundPrefetcher
@@ -5616,7 +5616,7 @@ def mesh_cnn6_run(dev, mesh, spec, rounds, pipeline=None):
         return OrderedDataset(
             {"x": X, "y": y}, TRAIN["p"], TRAIN["tau"], TRAIN["b_local"],
             n_segments=TRAIN["n_segments"], seed=TRAIN["order_seed"],
-            boundary_delay=RoundPrefetcher.run_ahead(), mesh=mesh)
+            boundary_delay=RoundPrefetcher.run_ahead())
 
     trainer().run(dataset(), 1)
     tr = trainer()
@@ -5755,7 +5755,7 @@ def phase_mesh_lm(cfg, dev, mesh):
     warm, rounds = MESH_LM["warmup_rounds"], MESH_LM["rounds"]
     total = warm + rounds
     tr = new_lm_trainer(cfg, dev, st=MESH_LM, pipeline="parity", mesh=mesh)
-    ds = lm_dataset(cfg, MESH_LM, boundary_delay=delay, mesh=mesh)
+    ds = lm_dataset(cfg, MESH_LM, boundary_delay=delay)
     seen, stamps = {}, []
 
     def hook(r, params, axes):

@@ -314,7 +314,11 @@ def run_parallel_sgd_on_device(grad_fn: Callable, params0: Dict, axes: Dict,
         dropped = 0
         for r in range(rounds):
             batch = next_batch()
-            t0 = time.perf_counter()
+            # Without a mesh the clock starts after dispatch and times the
+            # wait, as JAX's does. Under one each rank's clock covers its
+            # own dispatch too: a gloo (CPU) rank runs its local steps
+            # synchronously, so only then does it see its own step time.
+            t0 = None if mesh is None else time.perf_counter()
             params, losses = local_fn(params, batch)
             times = measure_round_times(losses, w, mesh=mesh, t0=t0)
             losses = gather_losses(losses, mesh)

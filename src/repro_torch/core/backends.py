@@ -279,16 +279,14 @@ class _PallasWaggSchedule:
 class _Gathered:
     """A meshless schedule under a mesh: each leaf's rows are gathered
     over the worker group, the schedule runs on the whole leaf without
-    the mesh, and this rank keeps its rows of the result."""
+    the mesh, and this rank keeps its rows of the result. The gather and
+    the whole inner schedule run in ``finalize``, so a phase-major run
+    holds one leaf's gathered rows at a time, never the whole tree's."""
+    n_phases = 1
 
     def __init__(self, inner):
         self.inner = inner
         self.name = inner.name
-        self.n_phases = inner.n_phases
-
-    @staticmethod
-    def _meshless(ctx):
-        return dataclasses.replace(ctx, mesh=None)
 
     def validate(self, theta, ctx):
         validate = getattr(self.inner, "validate", None)
@@ -296,18 +294,19 @@ class _Gathered:
             validate(theta, ctx)
 
     def prepare(self, x, theta, codec, ctx):
-        full = smagg.gather_rows(x, ctx.mesh)
-        return {"x": full, "inner": self.inner.prepare(
-            full, theta, codec, self._meshless(ctx))}
+        return None
 
     def reduce_phase(self, i, state, theta, codec, ctx):
-        return {**state, "inner": self.inner.reduce_phase(
-            i, state["inner"], theta, codec, self._meshless(ctx))}
+        return state
 
     def finalize(self, state, x, theta, beta, codec, ctx):
-        full = state["x"]
-        out = self.inner.finalize(state["inner"], full, theta, beta, codec,
-                                  self._meshless(ctx))
+        full = smagg.gather_rows(x, ctx.mesh)
+        meshless = dataclasses.replace(ctx, mesh=None)
+        inner = self.inner.prepare(full, theta, codec, meshless)
+        for phase in range(self.inner.n_phases):
+            inner = self.inner.reduce_phase(phase, inner, theta, codec,
+                                            meshless)
+        out = self.inner.finalize(inner, full, theta, beta, codec, meshless)
         if full.shape[0] == x.shape[0]:          # one shard: every row
             return out
         return out[smagg.local_rows(full.shape[0], ctx.mesh)].clone()

@@ -13,11 +13,9 @@ the host's index/gather work for round ``r+1`` and its copy to the card,
 with its first worker-major microbatch (which the pipelined round carries
 through the aggregation's seam), happen while round ``r`` runs.
 
-Under a device mesh (``mesh=``; ``core/shardmap_agg.py``) both hand each
-rank its shard's rows: ``OrderedDataset`` gathers only its workers' rows
-of each round (the order state, and so every OrderGen decision, stays
-every worker's), and ``RoundPrefetcher`` stages the rank's rows of each
-round (``rank_rows``) and of its first microbatch.
+Under a device mesh (``core/shardmap_agg.py``) a round batch still holds
+every worker's rows; ``rank_rows`` cuts a rank's shard's rows from it
+(``Trainer(mesh=)`` does so once, ahead of the prefetcher).
 """
 from __future__ import annotations
 
@@ -29,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.order import OrderState
-from repro_torch.core.shardmap_agg import local_rows, local_workers
+from repro_torch.core.shardmap_agg import local_rows
 from repro_torch.device import resolve_device
 
 
@@ -37,12 +35,8 @@ class OrderedDataset:
     def __init__(self, data: Dict[str, np.ndarray], n_workers: int, tau: int,
                  b_local: int, n_segments: int = 1,
                  order_state: Optional[OrderState] = None, seed: int = 0,
-                 boundary_delay: int = 0, mesh=None):
-        """``mesh``: a ``DeviceMesh``; ``batches`` then yields this
-        rank's shard's rows of each round (leading dim
-        ``p / S * tau * b_local``)."""
+                 boundary_delay: int = 0):
         self.data = data
-        self.mesh = mesh
         self.n = len(next(iter(data.values())))
         self.p = n_workers
         self.tau = tau
@@ -72,10 +66,6 @@ class OrderedDataset:
         already running keeps the old count."""
         if int(new_p) < 1:
             raise ValueError(f"resize needs new_p >= 1, got {new_p}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "OrderedDataset.resize under a mesh: elastic membership "
-                "across processes is not ported (ROADMAP.md queue 1.10)")
         self.p = int(new_p)
         self.order.resize(self.p)
 
@@ -90,9 +80,6 @@ class OrderedDataset:
         is drawn from the seed every round, so a reshuffle mid-traversal
         would change the order under a pass in progress."""
         r = int(start_round)
-        workers = range(self.p)
-        if self.mesh is not None:
-            workers = workers[local_rows(self.p, self.mesh)]
         pending = []                     # (fire_at_round, segment) FIFO
         while True:
             seg = self.segment_of_round(r)
@@ -104,8 +91,8 @@ class OrderedDataset:
                 if pending[0][1] == seg and within != 0:
                     break                # never reshuffle mid-traversal
                 self.order.end_segment(pending.pop(0)[1])
-            idx = np.empty((len(workers), self.per_round), np.int64)
-            for i, w in enumerate(workers):
+            idx = np.empty((self.p, self.per_round), np.int64)
+            for w in range(self.p):
                 perm = self.order.order_for(seg, w, self.seg_len)
                 start = (within * self.per_round) % max(
                     1, self.seg_len - self.per_round + 1)
@@ -113,7 +100,7 @@ class OrderedDataset:
                 if len(sel) < self.per_round:   # wrap
                     sel = np.concatenate(
                         [sel, perm[: self.per_round - len(sel)]])
-                idx[i] = seg * self.seg_len + sel
+                idx[w] = seg * self.seg_len + sel
             flat = idx.reshape(-1)               # worker-major
             yield {k: v[flat] for k, v in self.data.items()}
             r += 1
@@ -198,10 +185,6 @@ class RoundPrefetcher:
     microbatch (there is no round ``r+1``); the pipelined round's seam
     output for it is never consumed.
 
-    With ``mesh`` the batches hold every one of the ``n_workers``
-    workers' rows and the prefetcher stages this rank's shard's rows of
-    each round and of its first microbatch (``rank_rows``).
-
     The upstream generator runs up to ``run_ahead()`` = depth + 2 rounds
     ahead of training (``depth`` queued, one blocked in the thread's
     ``put``, one held as the consumer's pair lookahead), so its side
@@ -218,10 +201,9 @@ class RoundPrefetcher:
         return (cls.DEFAULT_DEPTH if depth is None else depth) + 2
 
     def __init__(self, batches: Iterator[Dict], n_workers: int, tau: int,
-                 depth: int = DEFAULT_DEPTH, device=None, mesh=None):
+                 depth: int = DEFAULT_DEPTH, device=None):
         self.n_workers = n_workers
         self.tau = tau
-        self.mesh = mesh
         self.device = resolve_device(device)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._stop = False
@@ -237,12 +219,9 @@ class RoundPrefetcher:
         return t
 
     def _stage(self, batch: Dict, stream) -> _Staged:
-        if self.mesh is not None:
-            batch = rank_rows(batch, self.n_workers, self.mesh)
         host = {k: _host_tensor(v) for k, v in batch.items()}
         first = {k: v.contiguous() for k, v in first_microbatch(
-            host, local_workers(self.n_workers, self.mesh),
-            self.tau).items()}
+            host, self.n_workers, self.tau).items()}
         if stream is None:                       # the CPU: nothing to copy
             return _Staged(host, first)
         host = {k: v.pin_memory() for k, v in host.items()}
@@ -350,10 +329,6 @@ class RoundPrefetcher:
         membership."""
         if int(n_workers) < 1:
             raise ValueError(f"resize needs n_workers >= 1, got {n_workers}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "RoundPrefetcher.resize under a mesh: elastic membership "
-                "across processes is not ported (ROADMAP.md queue 1.10)")
         self.close()
         self.n_workers = int(n_workers)
         if batches is not None:

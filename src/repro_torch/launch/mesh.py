@@ -14,11 +14,11 @@ from __future__ import annotations
 import torch.distributed as dist
 
 
-def make_host_mesh(data: int = 1, model: int = 1, device_type=None):
+def make_host_mesh(data: int = 1, model: int = 1):
     """A ``("data",)`` mesh over the ``data`` ranks of the initialised
     default process group, as JAX's ``make_host_mesh`` spans the host's
-    devices. ``device_type``: ``"cuda"`` or ``"cpu"`` (default: ``cuda``
-    for an NCCL group, else ``cpu``). Call it on every rank."""
+    devices: on ``cuda`` for an NCCL group, else on ``cpu``. Call it on
+    every rank."""
     from torch.distributed.device_mesh import init_device_mesh
     if model != 1:
         raise NotImplementedError(
@@ -31,6 +31,5 @@ def make_host_mesh(data: int = 1, model: int = 1, device_type=None):
     if data != dist.get_world_size():
         raise ValueError(f"make_host_mesh(data={data}) over a group of "
                          f"{dist.get_world_size()} ranks")
-    if device_type is None:
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))

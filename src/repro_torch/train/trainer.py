@@ -118,8 +118,9 @@ class Trainer:
         are ``("data",)`` or ``("pod", "data")``, JAX's names) makes the
         run decentralized: this rank keeps its shard's rows of the
         ``n_workers`` copies (``state`` holds them), takes its rows of
-        each round batch (an ``OrderedDataset(mesh=)`` yields them; other
-        batches hold every worker's rows and are sliced), and the mesh
+        each round batch (batches hold every worker's rows and ``run``
+        cuts them with ``data.rank_rows``; a ``RoundPrefetcher`` passed
+        in stages this rank's rows already), and the mesh
         reaches the aggregation specs (``shard_map``, ``rs_ag`` and their
         ``async_`` forms need it). Every rank must make the same calls.
         Under a mesh only the wasgd/wasgd+ rules run; ``resize``,
@@ -398,10 +399,6 @@ class Trainer:
         ds = None
         if isinstance(batches, OrderedDataset):
             ds = batches
-            if ds.mesh is not None and ds.mesh is not self._mesh:
-                raise ValueError(
-                    "the OrderedDataset's mesh is not this trainer's: it "
-                    "would hand the round another shard's rows")
             if self.pipeline is not None \
                     and ds.boundary_delay < RoundPrefetcher.run_ahead():
                 raise ValueError(
@@ -479,20 +476,19 @@ class Trainer:
             self._ckpt.telemetry = tele
         if ds is not None:
             batches = ds.batches(start_round=start)
-        # under a mesh: the mesh whose rows are still to be cut from each
-        # batch (None once an OrderedDataset(mesh=) has cut them)
-        cut = self._mesh if ds is None or ds.mesh is None else None
+        if self._mesh is not None and not isinstance(batches,
+                                                     RoundPrefetcher):
+            # the one place a rank's rows are cut from each round batch
+            batches = (rank_rows(b, self.n_workers, self._mesh)
+                       for b in batches)
         t0 = time.time()
         mf = open(metrics_path, "a") if metrics_path else None
         prefetch = None
         if self.pipeline is not None and not isinstance(batches,
                                                         RoundPrefetcher):
-            # it cuts this rank's rows (``cut``), or stages the rows an
-            # OrderedDataset(mesh=) has cut
-            staged = (self.n_workers if cut is not None
-                      else smagg.local_workers(self.n_workers, self._mesh))
-            prefetch = RoundPrefetcher(batches, staged, self.tcfg.wasgd.tau,
-                                       device=self.device, mesh=cut)
+            prefetch = RoundPrefetcher(
+                batches, smagg.local_workers(self.n_workers, self._mesh),
+                self.tcfg.wasgd.tau, device=self.device)
             batches = prefetch
         carry = None
         try:
@@ -513,8 +509,6 @@ class Trainer:
                     batch, next_first = next(batches)
                 else:
                     batch = next(batches)
-                    if cut is not None:
-                        batch = rank_rows(batch, self.n_workers, cut)
                     batch = {k: torch.as_tensor(v).to(self.device)
                              for k, v in batch.items()}
                 if masks is not None:

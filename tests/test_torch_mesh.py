@@ -486,7 +486,7 @@ def _harness_run(framework, spec, mesh, pipeline=None, async_mode=None):
                      rule="wasgd+", device="cpu", mesh=mesh,
                      pipeline=pipeline)
         ds = OrderedDataset(data, P, TAU, B_LOCAL, n_segments=2, seed=7,
-                            boundary_delay=delay, mesh=mesh)
+                            boundary_delay=delay)
     tr.run(ds, ROUNDS, straggler_schedule=sched)
     return tr, ds
 
@@ -546,7 +546,7 @@ def test_phased_round_on_a_mesh_is_the_fused_round(mesh1):
                  rule="wasgd+", device="cpu", mesh=mesh1)
     sink = RingSink()
     tr.run(OrderedDataset({"x": X[:N_SAMPLES], "y": y[:N_SAMPLES]}, P, TAU,
-                          B_LOCAL, n_segments=2, seed=7, mesh=mesh1),
+                          B_LOCAL, n_segments=2, seed=7),
            ROUNDS, telemetry=sink)
     traces = [e for e in sink.events() if type(e).__name__ == "RoundTrace"]
     assert len(traces) == ROUNDS
@@ -587,6 +587,27 @@ def test_pod_data_mesh_of_one(tmp_path):
     _hold(ours, ref, params, "f32", theta)
 
 
+@pytest.mark.parametrize("spec", ["einsum:f32", "hierarchical:int8",
+                                  "pallas_wagg:bf16"])
+def test_gathered_spec_holds_no_leaf_between_phases(spec, mesh1):
+    """A meshless spec under a mesh gathers each leaf in its finalize: a
+    phase-major run keeps no gathered rows across its phases, and gives
+    the meshless aggregate bitwise."""
+    params, axes, theta = _tree(6)
+    backend = tbk.get_backend(spec)
+    run = backend.phase_major(_tmap(_t, params), axes, _t(theta),
+                              ctx=tbk.AggregationContext(mesh=mesh1,
+                                                         n_pods=2))
+    run.reduce(0)
+    assert len(run.states) == 2
+    assert all(st is None for st in run.states.values())
+    got = run.finalize(BETA)
+    want = backend.aggregate(_tmap(_t, params), axes, _t(theta), BETA,
+                             ctx=tbk.AggregationContext(n_pods=2))
+    for g, w in zip(_leaves(got), _leaves(want)):
+        assert torch.equal(g, w)
+
+
 def _mlp_trainer(mesh, rule="wasgd+", expert_leaf=False, **kw):
     params_j, axes, _, _ = common.model(0, False)
     params = params_from_numpy(jax.tree.map(np.asarray, params_j),
@@ -620,8 +641,9 @@ def test_out_of_scope_under_a_mesh_raises(mesh1, tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1.11"):
         _mlp_trainer(mesh1, expert_leaf=True)
     X, y = common.dataset(0, False)
-    ds = OrderedDataset({"x": X, "y": y}, P, TAU, B_LOCAL, mesh=mesh1)
+    ds = OrderedDataset({"x": X, "y": y}, P, TAU, B_LOCAL)
     with pytest.raises(NotImplementedError, match="queue 1.10"):
-        ds.resize(2)
-    with pytest.raises(ValueError, match="mesh is not this trainer's"):
-        _mlp_trainer(None).run(ds, 1)
+        tr.run(ds, 1, checkpoint_every=1,
+               checkpoint_path=str(tmp_path / "run_ck"))
+    with pytest.raises(NotImplementedError, match="queue 1.10"):
+        tr.run(ds, 1, resume_from=str(tmp_path / "ck"))

@@ -91,7 +91,7 @@ def _codec_of(spec):
     return B.resolve_spec(spec)[1] or "f32"
 
 
-def _trainer_run(spec, mesh, pipeline=None, cut_by_trainer=False):
+def _trainer_run(spec, mesh, pipeline=None):
     """The MLP (init seed 0) for ROUNDS rounds; Alg. 4 specs under the
     straggler schedule. Returns the trainer and its dataset."""
     X, y = _data()
@@ -103,8 +103,7 @@ def _trainer_run(spec, mesh, pipeline=None, cut_by_trainer=False):
     tr = Trainer(_loss_fn, params, shared_axes(params), tcfg, W,
                  rule="wasgd+", device="cpu", mesh=mesh, pipeline=pipeline)
     ds = OrderedDataset({"x": X, "y": y}, W, TAU, B_LOCAL, n_segments=2,
-                        boundary_delay=4 if pipeline else 0,
-                        mesh=None if cut_by_trainer else mesh)
+                        boundary_delay=4 if pipeline else 0)
     tr.run(ds, ROUNDS, straggler_schedule=_schedule() if alg4 else None)
     return tr, ds
 
@@ -164,8 +163,8 @@ def _aggregate_checks(mesh, out):
 
 
 def _train_checks(mesh, out):
-    for i, spec in enumerate(TRAIN_SPECS):
-        tr, ds = _trainer_run(spec, mesh, cut_by_trainer=i % 2 == 0)
+    for spec in TRAIN_SPECS:
+        tr, ds = _trainer_run(spec, mesh)
         if spec == "auto":
             chosen = B.select_auto_spec(tr.state.params, tr.axes, mesh)
             out["auto_in_run"] = chosen
