@@ -22,9 +22,10 @@ serves full-width llama-3.2-vision-11b (with media) and musicgen-large
 one full-width period of llama-3.2-vision-11b, runs CNN6 and gemma3-1b
 through the pipelined round (bitwise the unpipelined one), records
 telemetry from every producer, runs the mesh schedules of decentralized
-WASGD on a one-rank NCCL group (CNN6 and gemma3-1b), runs the training
-launcher on gemma3-1b, and checks that the served and the trained paths
-went through their kernels.
+WASGD on a one-rank NCCL group (CNN6 and gemma3-1b) with the baseline
+rules, elastic resizes and a sharded checkpoint under it, runs the
+training launcher on gemma3-1b, and checks that the served and the
+trained paths went through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -133,14 +134,14 @@ Prints one JSON object per phase:
                 lm_train's trainer (the phase breakdown); a CNN6 elastic
                 run with checkpoints (MembershipChange, CheckpointSave);
                 the file read back with read_events
-  baselines     the CNN6 training smoke's settings with each of spsgd,
-                easgd (alpha 0.9/16), omwu, mmwu and seq: s/round beside
-                train's wasgd+, first and last loss, peak memory; each
-                rule's invariant in one more round (spsgd and MWU rows
-                bitwise equal, MWU's the argmax worker's; seq's rows apart;
-                EASGD's center moved by the sum of the pulls); the MLP
-                harness run of each rule, 10 rounds on the card against
-                the CPU (params atol 1e-5)
+  baselines     the CNN6 training smoke's settings (10 timed rounds) with
+                each of spsgd, easgd (alpha 0.9/16), omwu, mmwu and seq:
+                s/round beside train's wasgd+, first and last loss, peak
+                memory; each rule's invariant in one more round (spsgd and
+                MWU rows bitwise equal, MWU's the argmax worker's; seq's
+                rows apart; EASGD's center moved by the sum of the pulls);
+                the MLP harness run of each rule, 10 rounds on the card
+                against the CPU (params atol 1e-5)
   checkpoint    CNN6: save_checkpoint (sharded, in the background): bytes,
                 the time save blocks the caller and the time to wait();
                 resume into a fresh trainer bitwise; 2 rounds, save, resume,
@@ -192,8 +193,8 @@ Prints one JSON object per phase:
   lm_windowed   gemma3-1b's loss at one 2048-token sequence with
                 windowed_qblock off and on: logits within 2e-2, ms each
   lm3b_train    Trainer.run, WASGD+, stablelm-3b at full width and depth,
-                p=3, tau=4, seq 640, pallas_wagg:int4, remat on, 3 rounds
-                after 2: the first round's wagg_fused held to the plain
+                p=3, tau=4, seq 640, pallas_wagg:int4, remat on, 2 rounds
+                after 1: the first round's wagg_fused held to the plain
                 version leaf by leaf (1e-4) with its int4 payload checked
                 and its peak split at the aggregate; s/round, tokens/s,
                 peak memory, launches; one profiled round (idle share)
@@ -209,7 +210,7 @@ Prints one JSON object per phase:
                 kernels vs the plain versions; bf16 each SSM layer on its
                 own inputs (output and gradients)
   ssm_lm_train  Trainer.run, WASGD+, mamba2-370m at full width and depth,
-                lm_train's settings, 4 rounds after 2: s/round,
+                lm_train's settings, 2 rounds after 1: s/round,
                 tokens/s, peak, launches (ssd_chunk 2 x 48 x tau a round
                 with remat), one profiled round
   moe_agree     olmoe-1b-7b at full width (64 experts, top 8): decode
@@ -220,7 +221,7 @@ Prints one JSON object per phase:
                 model's sensitivity to a one-ulp change
   olmoe_serve   serve on olmoe-1b-7b at full width in bf16
   olmoe_train   Trainer.run, WASGD+, olmoe-1b-7b at full width and depth,
-                p=4, remat on, 3 rounds after 2: the experts one copy,
+                p=4, remat on, 2 rounds after 1: the experts one copy,
                 wagg_fused once per worker leaf and never on an expert
                 leaf; s/round, tokens/s, peak, one profiled round
   jamba_serve   jamba-v0.1-52b at full width with n_layers cut to 8 (one
@@ -247,8 +248,8 @@ Prints one JSON object per phase:
                 prompts (4, 480, 4) codebook tokens, output (4, 96, 4);
                 48 decode_attn and 97 rmsnorm launches a step
   audio_train   Trainer.run, WASGD+, musicgen-large at full width and
-                depth, lm_train's settings at p 2 (remat on), 3 rounds
-                after 2: s/round, tokens/s, peak, launches (wagg_fused 435
+                depth, lm_train's settings at p 2 (remat on), 2 rounds
+                after 1: s/round, tokens/s, peak, launches (wagg_fused 435
                 a round), one profiled round
   vlm_train     the same on llama-3.2-vision-11b with n_layers cut from 40
                 to 5 (one period: 4 self layers, 1 cross layer; 2.18B
@@ -267,16 +268,27 @@ Prints one JSON object per phase:
                 the group and without it); 3 CNN6 rounds through rs_ag:f32
                 unpipelined and pipeline="parity", bitwise equal
                 (deterministic cuDNN)
+  mesh_baselines  CNN6 at baselines' settings (p 8) through spsgd, easgd,
+                omwu, mmwu and seq, 1 + 3 rounds on the group and without
+                it (deterministic cuDNN): omwu, mmwu and seq bitwise every
+                round, spsgd and easgd within 1e-6 relative after the
+                first; s/round each way
   mesh_lm       gemma3-1b at lm_train's settings through rs_ag:f32 with
-                pipeline="parity" on the group, 2 + 3 rounds: round 0's h
+                pipeline="parity" on the group, 1 + 2 rounds: round 0's h
                 and theta bitwise the meshless einsum:f32 round's, its
                 aggregated params within 1e-6 relative of that round's;
                 rmsnorm and fused_ce launches a round, s/round, peak, one
                 profiled round (idle share)
+  mesh_elastic  mesh_lm's trainer through run(membership_schedule=): one
+                round 4 -> 2 and one 2 -> 4 (survivors bitwise, newcomers
+                within 1e-6 relative of the survivors' mean, each resize's
+                ms); at p 2 an 8 GB sharded save under the mesh (seconds
+                it blocks, to wait()), one round, a resume and the round
+                again (bitwise); rmsnorm and fused_ce launches, peak
   launch_train  repro_torch.launch.train.main in process: gemma3-1b at full
-                width, --workers 4 --rounds 4, --telemetry, --checkpoint-
-                dir/--checkpoint-every 2, --ckpt: the printed params=
-                against cfg.param_count() and one worker's numel, the
+                width, --workers 2 --rounds 2, --telemetry, --checkpoint-
+                dir/--checkpoint-every 2 (one save), --ckpt: the printed
+                params= against cfg.param_count() and one worker's numel, the
                 telemetry read back, the flat checkpoint restored bitwise,
                 the kernels launched
 
@@ -334,7 +346,8 @@ LM_AGREE_P = 2                  # workers in lm_agree (two gradient trees)
 # settings at p=3 with the int4 payload; remat on (the config's), the
 # leaf-wise update; params and gradients are 31.25 GiB each at p=3
 LM3B_ARCH = "stablelm-3b"
-LM3B = {**LM, "p": 3, "rounds": 3, "backend": "pallas_wagg:int4"}
+LM3B = {**LM, "p": 3, "warmup_rounds": 1, "rounds": 2,
+        "backend": "pallas_wagg:int4"}
 LM3B_LEAF = (3, 2560 * 6912)    # p=3 x one stablelm-3b MLP matrix
 # yi-6b served at full width in bf16 (GQA group 8, head_dim 128)
 YI_ARCH = "yi-6b"
@@ -360,15 +373,15 @@ SSD_TOL = 1e-5
 
 # SSM training: mamba2-370m at full width and depth with lm_train's
 # settings (p 4, tau 4, b_local 1, seq 640, lr 0.03, pallas_wagg:f32,
-# remat as configured: on), 2 + 4 rounds, not more: the whole script has
+# remat as configured: on), 1 + 2 rounds, not more: the whole script has
 # to fit its time limit
-SSM_LM = {**LM, "rounds": 4}
+SSM_LM = {**LM, "warmup_rounds": 1, "rounds": 2}
 # olmoe-1b-7b at full width and depth: served in bf16 with the serve
 # smoke's settings, and trained with lm_train's settings at p 4, remat on,
-# 2 + 3 rounds; the experts are one f32 copy (their params and gradients
+# 1 + 2 rounds; the experts are one f32 copy (their params and gradients
 # 48.0 GiB), the other 476M params four copies (14.2 GiB)
 OLMOE_ARCH = "olmoe-1b-7b"
-OLMOE_TRAIN = {**LM, "rounds": 3}
+OLMOE_TRAIN = {**LM, "warmup_rounds": 1, "rounds": 2}
 # jamba-v0.1-52b at full width, n_layers cut from 32 to 8: one period of
 # its 1:7 interleave (layers 0-6 Mamba, 7 attention; MoE on 1, 3, 5, 7),
 # 13.3B params initialised in bf16
@@ -379,12 +392,12 @@ JAMBA_LAYERS = 8
 # ServeEngine at LEGACY's settings: media (4, 1600, 4096) float32 from the
 # seed, and (4, 480, 4) codebook prompts. Both trained with lm_train's
 # settings at p 2 (musicgen's f32 params and gradients are 48.5 GiB at
-# p 2, 72.8 at p 3), 2 + 3 rounds; llama-3.2-vision as one period at full
+# p 2, 72.8 at p 3), 1 + 2 rounds; llama-3.2-vision as one period at full
 # width, n_layers cut from 40 to 5 (layers 0-3 self-attention, 4 cross:
 # 2.18B params; all 40 layers' f32 params and gradients are 81 GB at p 1)
 VLM_ARCH = "llama-3.2-vision-11b"
 AUDIO_ARCH = "musicgen-large"
-MEDIA_TRAIN = {**LM, "p": 2, "rounds": 3}
+MEDIA_TRAIN = {**LM, "p": 2, "warmup_rounds": 1, "rounds": 2}
 VLM_TRAIN_LAYERS = 5
 # decode_attn's new shapes, (b, kv, g, hd, S): a vision cross layer over
 # its 1600 media positions, a vision self-attention layer over vlm_serve's
@@ -1536,6 +1549,7 @@ def phase_train_profile(dev):
 
 BASELINE_RULES = ("spsgd", "easgd", "omwu", "mmwu", "seq")
 EASGD_ALPHA = 0.9 / 16
+BASELINE_ROUNDS = 10            # timed CNN6 rounds a rule (the time limit)
 # the MLP run of the harness in benchmarks/common.py, cut as the CPU tests
 # cut it (tests/test_torch_baselines.py), held between the card and the
 # CPU with the CPU tests' tolerances, or within twice the CPU run's own
@@ -1695,7 +1709,7 @@ def mlp_card_vs_cpu(rule, dev):
 def phase_baselines(dev, wasgd_s_per_round):
     """The CNN6 training smoke's settings (``TRAIN``) with each baseline
     rule: a throwaway trainer for 2 warm-up rounds, then a fresh one for
-    ``TRAIN["rounds"]`` timed rounds, one invariant round on the card, and
+    ``BASELINE_ROUNDS`` timed rounds, one invariant round on the card, and
     the MLP harness run on the card against the CPU."""
     import torch
     res = {}
@@ -1705,16 +1719,16 @@ def phase_baselines(dev, wasgd_s_per_round):
         del warm
         tr, loss_fn, dataset = new_baseline_trainer(dev, rule)
         torch.cuda.reset_peak_memory_stats()
-        wall, ds = run_trainer(tr, dataset, TRAIN["rounds"])
+        wall, ds = run_trainer(tr, dataset, BASELINE_ROUNDS)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         losses = tr.losses()
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"baselines/{rule}: losses {losses}")
         batch = {k: torch.as_tensor(v).to(dev)
-                 for k, v in next(ds.batches(TRAIN["rounds"])).items()}
+                 for k, v in next(ds.batches(BASELINE_ROUNDS)).items()}
         inv = rule_invariant(tr, rule, loss_fn, batch)
-        res[rule] = {"seconds_per_round": wall / TRAIN["rounds"],
-                     "vs_wasgd+": wall / TRAIN["rounds"] / wasgd_s_per_round,
+        res[rule] = {"seconds_per_round": wall / BASELINE_ROUNDS,
+                     "vs_wasgd+": wall / BASELINE_ROUNDS / wasgd_s_per_round,
                      "loss_first": float(losses[0]),
                      "loss_last": float(losses[-1]),
                      "peak_mem_gib": peak, "invariant": inv,
@@ -5552,8 +5566,16 @@ MESH_AGREE = (("shard_map:f32", False), ("rs_ag:f32", False),
               ("auto", False))
 MESH_TIMED = ("shard_map:f32", "rs_ag:f32", "rs_ag:bf16", "rs_ag:int8",
               "rs_ag:int4", "einsum:f32", "pallas_wagg:f32")
-MESH_LM = {**LM, "backend": "rs_ag:f32", "warmup_rounds": 2, "rounds": 3}
-LAUNCH = {"workers": 4, "rounds": 4, "checkpoint_every": 2}
+MESH_LM = {**LM, "backend": "rs_ag:f32", "warmup_rounds": 1, "rounds": 2}
+# mesh_baselines: each baseline rule on CNN6 at baselines' settings, 1 + 3
+# rounds under the group and without it
+MESH_BASELINES = {"warmup_rounds": 1, "rounds": 3}
+# mesh_elastic: mesh_lm's trainer through one round 4 -> 2, a sharded save
+# at p 2 and a resume (the round after it run twice), one round 2 -> 4
+MESH_ELASTIC = {"low_p": 2}
+# the launcher at --workers 2: 2 rounds and one 8 GB sharded save (the
+# time limit)
+LAUNCH = {"workers": 2, "rounds": 2, "checkpoint_every": 2}
 
 
 @contextlib.contextmanager
@@ -5736,11 +5758,87 @@ def phase_mesh_agree(dev, mesh):
     return rec
 
 
-def phase_mesh_lm(cfg, dev, mesh):
+def phase_mesh_baselines(dev, mesh):
+    """CNN6 at baselines' settings (``TRAIN``, p 8;
+    ``benchmarks/convergence.py:12-19``) through each baseline rule for 1
+    + 3 rounds on the group and without it, deterministic cuDNN: omwu,
+    mmwu and seq bitwise the meshless run (every round's h and theta, the
+    params after each round read); spsgd and easgd within 1e-6 relative
+    after the first round, whose local steps are the meshless ones bit
+    for bit (the all-reduce sums the rows in its own order, and CNN6
+    amplifies a last bit over a round's 8 steps, so later rounds are
+    read, not held). s/round of the 3 rounds after the first, each way,
+    from the round hook's stamps."""
+    import torch
+    from repro_torch.core import shared_axes
+    from repro_torch.models import init_cnn6
+    from repro_torch.train import Trainer
+    loss_fn, tcfg, dataset = cnn6_setup()
+    warm, rounds = MESH_BASELINES["warmup_rounds"], MESH_BASELINES["rounds"]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    res, ok = {}, True
+    try:
+        for rule in BASELINE_RULES:
+            runs = {}
+            for name, m in (("mesh", mesh), ("meshless", None)):
+                params = init_cnn6(0, device=dev)
+                tr = Trainer(loss_fn, params, shared_axes(params),
+                             tcfg("einsum:f32"), TRAIN["p"], rule=rule,
+                             device=dev, mesh=m,
+                             easgd_alpha=EASGD_ALPHA if rule == "easgd"
+                             else None)
+                snaps, stamps = [], []
+
+                def hook(r, prm, axes):
+                    stamps.append(time.perf_counter())
+                    snaps.append({k: v.clone() for k, v in prm.items()})
+
+                tr.run(dataset(), warm + rounds, serve_hook=hook)
+                runs[name] = (tr, snaps, (stamps[-1] - stamps[warm - 1])
+                              / rounds)
+            (tr_m, sn_m, s_m), (tr_p, sn_p, s_p) = (runs["mesh"],
+                                                    runs["meshless"])
+            rel = [max(float((a[k] - b[k]).abs().max())
+                       / max(float(b[k].abs().max()), 1e-30) for k in b)
+                   for a, b in zip(sn_m, sn_p)]
+            hist = [all(np.array_equal(a[k], b[k]) for k in ("h", "theta"))
+                    for a, b in zip(tr_m.history, tr_p.history)]
+            if rule in ("omwu", "mmwu", "seq"):
+                held = all(hist) and all(x == 0.0 for x in rel) and all(
+                    torch.equal(tr_m.state.params[k], v)
+                    for k, v in tr_p.state.params.items())
+            else:
+                held = hist[0] and rel[0] <= 1e-6
+            losses = tr_m.losses()
+            held &= bool(np.isfinite(losses).all())
+            ok &= held
+            res[rule] = {"held": held, "max_rel_per_round": rel,
+                         "h_theta_bitwise_per_round": hist,
+                         "seconds_per_round": s_m,
+                         "meshless_seconds_per_round": s_p,
+                         "loss_first": float(losses[0]),
+                         "loss_last": float(losses[-1])}
+            del runs, tr_m, tr_p, sn_m, sn_p
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    rec = {"phase": "mesh_baselines", "model": "cnn6", **TRAIN,
+           "group": "nccl, world 1", "rounds": f"{warm} + {rounds}",
+           "easgd_alpha": EASGD_ALPHA, "cudnn": "deterministic",
+           "checks": {"held": ok}, "rules": res}
+    if not ok:
+        raise AssertionError(f"mesh_baselines: {rec}")
+    return rec
+
+
+def phase_mesh_lm(cfg, dev, mesh, keep=None):
     """gemma3-1b at lm_train's settings: a meshless einsum:f32 round, then
-    a fresh pipelined trainer through rs_ag:f32 on the group for 2 + 3
-    rounds (seconds from the round hook's stamps) and one profiled
-    round."""
+    a fresh pipelined trainer through rs_ag:f32 on the group for
+    ``MESH_LM``'s rounds (seconds from the round hook's stamps) and one
+    profiled
+    round. ``keep["tr"]`` receives the trainer (mesh_elastic goes on with
+    it)."""
     import torch
     from repro_torch.data import RoundPrefetcher
     from repro_torch.kernels.fused_ce import fused_ce_fwd
@@ -5798,6 +5896,8 @@ def phase_mesh_lm(cfg, dev, mesh):
     summary = device_summary(prof, s_round, 10)
     h0 = tr.history[0]
     losses = tr.losses()
+    if keep is not None:
+        keep["tr"] = tr
     del tr
     torch.cuda.empty_cache()
     checks = {"round0_h_bitwise": np.array_equal(h0["h"], ref_hist["h"]),
@@ -5810,22 +5910,147 @@ def phase_mesh_lm(cfg, dev, mesh):
            "pipeline": "parity", "group": "nccl, world 1",
            "checks": checks,
            "round0_params_max_rel_vs_einsum": seen["params_max_rel"],
-           "launches_rounds_1_to_4": launches, "launches_want": want,
+           "launches_after_round_0": launches, "launches_want": want,
            "launches_per_round": {k: v / after0 for k, v in
                                   launches.items()},
            "seconds_per_round": s_round, "wall_s": wall,
-           "peak_mem_gib_rounds_1_to_4": peak, **summary,
+           "peak_mem_gib_after_round_0": peak, **summary,
            "losses": [float(x) for x in losses]}
     if not all(checks.values()):
         raise AssertionError(f"mesh_lm: {rec}")
     return rec
 
 
+def phase_mesh_elastic(cfg, dev, keep):
+    """mesh_lm's gemma3-1b trainer (p 4, rs_ag:f32, "parity", on the
+    one-rank group) through ``run(membership_schedule=)``: one round
+    4 -> 2; at p 2 a sharded save under the mesh (the seconds it blocks,
+    then to ``wait()``), one round, a ``resume`` (timed) and the same
+    round again, bitwise; one round 2 -> 4. ``Trainer.resize`` is wrapped
+    to hold each resize on its own: the survivors' rows bitwise, the
+    newcomers within 1e-6 relative of the survivors' mean (the meshless
+    formula, ``tensordot`` of 1/p)."""
+    import tempfile
+    import torch
+    from repro_torch.core.membership import MembershipSchedule
+    from repro_torch.data import RoundPrefetcher
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.tree import tree_leaves
+    tr = keep.pop("tr")
+    p, low = MESH_LM["p"], MESH_ELASTIC["low_p"]
+    delay = RoundPrefetcher.run_ahead()
+    resizes = []
+    plain_resize = tr.resize
+
+    def resize(new_p, round=None):
+        old_p = tr.n_workers
+        keep_rows = min(old_p, new_p)
+        before = [x[:keep_rows].clone()
+                  for x in tree_leaves(tr.state.params)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        event = plain_resize(new_p, round=round)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = tree_leaves(tr.state.params)
+        survivors = all(torch.equal(x[:keep_rows], v)
+                        for x, v in zip(after, before))
+        newcomers = 0.0
+        if new_p > old_p:
+            t = torch.full((old_p,), 1.0 / old_p, device=dev)
+            for x, v in zip(after, before):
+                mean = torch.tensordot(t, v.float(), dims=1)
+                err = float((x[old_p:].float() - mean).abs().max())
+                newcomers = max(newcomers, err / max(
+                    float(mean.abs().max()), 1e-30))
+        resizes.append({"from": old_p, "to": new_p, "ms": ms,
+                        "survivors_bitwise": survivors,
+                        "newcomers_max_rel": newcomers if new_p > old_p
+                        else None})
+        del before
+        return event
+
+    tr.resize = resize
+    counters = (rmsnorm_fwd, add_rmsnorm_fwd, fused_ce_fwd)
+    for k in counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    def ds(p0):
+        return lm_dataset(cfg, {**MESH_LM, "p": p0}, boundary_delay=delay)
+
+    t_run = time.perf_counter()
+    tr.run(ds(p), 1, membership_schedule=MembershipSchedule(p, {0: low}))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "round_1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(path, 1)
+        block_s = time.perf_counter() - t0
+        tr._ckpt.wait()
+        wait_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        tr.run(ds(low).batches(start_round=1), 1)
+        first = tr.history[-1]
+        snap = [x.clone() for x in tree_leaves(tr.state.params)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        at = tr.resume(path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        tr.run(ds(low).batches(start_round=1), 1)
+    again = tr.history[-1]
+    rerun = {"round": at, "history_bitwise": all(
+        np.array_equal(first[k], again[k]) for k in ("h", "theta", "loss")),
+        "params_bitwise": all(torch.equal(x, v) for x, v in zip(
+            tree_leaves(tr.state.params), snap))}
+    del snap
+    tr.run(ds(low), 1, membership_schedule=MembershipSchedule(low, {0: p}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr.resize = plain_resize
+    launches = {"rmsnorm": rmsnorm_fwd.launches,
+                "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                "fused_ce": fused_ce_fwd.launches}
+    norms, fused = norms_per_step(cfg)
+    n_rounds, tau = 4, MESH_LM["tau"]
+    want = {"rmsnorm": n_rounds * tau * norms,
+            "rmsnorm_fused": n_rounds * tau * fused,
+            "fused_ce": n_rounds * tau}
+    losses = [float(h["loss"]) for h in tr.history[-n_rounds:]]
+    ps = [int(h["p"]) for h in tr.history[-n_rounds:] if "p" in h]
+    workers = tr.n_workers
+    del tr
+    torch.cuda.empty_cache()
+    checks = {"resizes": [(r["from"], r["to"]) for r in resizes]
+              == [(p, low), (low, p)]
+              and all(r["survivors_bitwise"] for r in resizes)
+              and resizes[1]["newcomers_max_rel"] <= 1e-6,
+              "resume_rerun_bitwise": at == 1 and rerun["history_bitwise"]
+              and rerun["params_bitwise"],
+              "p_recorded": ps == [low, p] and workers == p,
+              "launches": launches == want,
+              "finite": bool(np.isfinite(losses).all())}
+    rec = {"phase": "mesh_elastic", "arch": cfg.name, **MESH_LM,
+           "pipeline": "parity", "group": "nccl, world 1",
+           "checks": checks, "resizes": resizes, "rerun": rerun,
+           "checkpoint_bytes": nbytes, "save_blocks_s": block_s,
+           "save_to_wait_s": wait_s, "resume_s": resume_s,
+           "peak_mem_gib": peak, "wall_s": wall, "launches": launches,
+           "launches_want": want, "losses": losses}
+    if not all(checks.values()):
+        raise AssertionError(f"mesh_elastic: {rec}")
+    return rec
+
+
 def phase_launch_train(cfg, dev):
     """``repro_torch.launch.train.main`` in this process on ``cfg`` at
-    full width: --workers 4 --rounds 4 with telemetry, sharded
-    checkpoints every 2 rounds and the final flat checkpoint, in a
-    temporary directory."""
+    full width: ``LAUNCH``'s --workers and --rounds with telemetry,
+    sharded checkpoints every 2 rounds and the final flat checkpoint, in
+    a temporary directory."""
     import contextlib as ctxlib
     import io
     import tempfile
@@ -6027,8 +6252,11 @@ def main():
     tele_dir.cleanup()
     with nccl_mesh(dev) as mesh:
         mesh_cnn6 = run_phase(phase_mesh_agree, dev, mesh)
+        run_phase(phase_mesh_baselines, dev, mesh)
         torch.cuda.empty_cache()
-        mesh_lm = run_phase(phase_mesh_lm, cfg, dev, mesh)
+        keep = {}
+        mesh_lm = run_phase(phase_mesh_lm, cfg, dev, mesh, keep)
+        mesh_el = run_phase(phase_mesh_elastic, cfg, dev, keep)
     torch.cuda.empty_cache()
     launch = run_phase(phase_launch_train, cfg, dev)
     torch.cuda.empty_cache()
@@ -6166,7 +6394,8 @@ def main():
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
         "launches": lm["launches"]["rmsnorm"],
         "lm_pipeline_launches": lm_pipe["launches"]["rmsnorm"],
-        "mesh_lm_launches": mesh_lm["launches_rounds_1_to_4"]["rmsnorm"],
+        "mesh_lm_launches": mesh_lm["launches_after_round_0"]["rmsnorm"],
+        "mesh_elastic_launches": mesh_el["launches"]["rmsnorm"],
         "launch_train_launches": launch["launches"]["rmsnorm"],
         "max_abs_err": nt["max_abs_err"], "ms": nt["ms"],
         "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
@@ -6200,7 +6429,8 @@ def main():
         "replaces": "src/repro/kernels/fused_ce/fused_ce.py:67",
         "launches": lm["launches"]["fused_ce"],
         "lm_pipeline_launches": lm_pipe["launches"]["fused_ce"],
-        "mesh_lm_launches": mesh_lm["launches_rounds_1_to_4"]["fused_ce"],
+        "mesh_lm_launches": mesh_lm["launches_after_round_0"]["fused_ce"],
+        "mesh_elastic_launches": mesh_el["launches"]["fused_ce"],
         "launch_train_launches": launch["launches"]["fused_ce"],
         "max_abs_err": ce_timing["max_abs_err"], "ms": ce_timing["ms"],
         "plain_ms": ce_timing["plain_ms"], "bound_ms": ce_timing["bound_ms"],

@@ -12,8 +12,19 @@ field):
   ``restore_sharded``/``saved_topology``). Keys are bin-packed over the
   shards by byte size, as JAX packs them. The manifest is written to a
   temporary file and renamed, so a save cut short leaves no torn
-  manifest. (JAX's multi-host writes, a shard per process, are not
-  ported: one process writes every shard.)
+  manifest.
+
+Under a device mesh (``AsyncCheckpointer.save(mesh=, row_keys=)``; a rank
+holds its shard's rows of the worker-stacked keys) every rank writes its
+own shards, as JAX's ``save_sharded(process_index=)`` has each process
+write: shard ``s`` belongs to rank ``s % S``, which receives the rows of
+its keys one key at a time (``shardmap_agg.gather_rows_to``) on the
+caller's thread, every rank in the same order; the writer thread writes
+only this rank's files, rank 0 the manifest, which records the global
+``(w, ...)`` shapes. The files are the meshless ``save_sharded`` ones
+with ``n_shards`` = S (the default under a mesh). ``restore(rows=)``
+reads a rank's rows of the worker-stacked keys alone: the members are
+stored uncompressed, so a row range is one byte range of its file.
 
 The ``.npz`` members are ``.npy`` files, written and read here without
 ``np.save``/``np.load``: numpy knows ``bfloat16`` only through
@@ -33,11 +44,14 @@ than the restore target's raises unless ``allow_cast=True``.
 
 ``AsyncCheckpointer`` copies the tree on its device and returns; a
 thread copies the snapshot to the host and writes it while the next
-rounds run, and ``wait`` raises a save that failed.
+rounds run, and ``wait`` raises a save that failed (under a mesh after a
+barrier over the worker group, so that every rank's files are on disk
+when any rank's ``wait`` returns).
 """
 from __future__ import annotations
 
 import ast
+import io
 import json
 import os
 import queue
@@ -45,7 +59,7 @@ import struct
 import threading
 import time
 import zipfile
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, FrozenSet, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,8 +142,11 @@ def _write_npz(file: str, flat: Dict[str, Tuple[np.ndarray, str]]) -> None:
                                    .view(np.uint8)))
 
 
-def _read_npy(f) -> Tuple[np.ndarray, str]:
-    """One ``.npy`` member -> (payload, stored dtype name)."""
+def _read_npy(f, rows: Optional[Tuple[int, int]] = None
+              ) -> Tuple[np.ndarray, str]:
+    """One ``.npy`` member -> (payload, stored dtype name); ``rows=(lo,
+    hi)`` reads rows ``lo:hi`` of the leading dim alone, seeking past the
+    others."""
     magic = f.read(8)
     if magic[:6] != _MAGIC:
         raise ValueError("not an .npy member")
@@ -147,20 +164,54 @@ def _read_npy(f) -> Tuple[np.ndarray, str]:
         if dt.hasobject:
             raise ValueError(f"object arrays are not read: {descr!r}")
         name = str(dt)
+    if rows is not None and not head["fortran_order"]:
+        per_row = int(np.prod(shape[1:], dtype=np.int64))
+        f.seek(rows[0] * per_row * dt.itemsize, os.SEEK_CUR)
+        shape = (rows[1] - rows[0],) + shape[1:]
+        if isinstance(f, io.BufferedReader):      # a file: no extra copy
+            a = np.fromfile(f, dtype=dt, count=shape[0] * per_row)
+        else:
+            a = np.frombuffer(bytearray(f.read(shape[0] * per_row
+                                               * dt.itemsize)), dtype=dt)
+        return a.reshape(shape), name
     a = np.frombuffer(bytearray(f.read()), dtype=dt)
-    return a.reshape(shape, order="F" if head["fortran_order"] else "C"), \
-        name
+    a = a.reshape(shape, order="F" if head["fortran_order"] else "C")
+    return (a if rows is None else a[rows[0]:rows[1]]), name
 
 
 class _Npz:
     """Members of an ``.npz`` by key, read when asked for."""
 
     def __init__(self, path: str):
+        self._path = path
         self._z = zipfile.ZipFile(path)
 
     def __getitem__(self, key: str) -> Tuple[np.ndarray, str]:
         with self._z.open(key + ".npy") as f:
             return _read_npy(f)
+
+    def rows(self, key: str, lo: int, hi: int) -> Tuple[np.ndarray, str]:
+        """Rows ``lo:hi`` of a member. An uncompressed member is read from
+        the file at its offset (after the local header's 30 bytes, the
+        name and the extra field), a compressed one whole."""
+        info = self._z.getinfo(key + ".npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            with self._z.open(info) as f:
+                return _read_npy(f, rows=(lo, hi))
+        with open(self._path, "rb") as f:
+            f.seek(info.header_offset)
+            head = f.read(30)
+            if head[:4] != b"PK\x03\x04":
+                raise ValueError(f"{self._path}: no local header for {key}")
+            n_name, n_extra = struct.unpack("<HH", head[26:30])
+            f.seek(n_name + n_extra, os.SEEK_CUR)
+            return _read_npy(f, rows=(lo, hi))
+
+    def reader(self):
+        """``read(key, lo_hi)`` over this file: the key's rows ``lo:hi``,
+        or all of it for None."""
+        return lambda k, lo_hi: self[k] if lo_hi is None \
+            else self.rows(k, *lo_hi)
 
     def close(self):
         self._z.close()
@@ -220,10 +271,31 @@ def _check_leaf(key: str, stored: Tuple[np.ndarray, str], entry: Dict,
     return t.to(getattr(torch, target))
 
 
-def _restore_flat(data_of_key, manifest: Dict, like: Any, allow_cast: bool):
+class Rows(NamedTuple):
+    """A reader's rows of the worker-stacked keys: each key of ``keys`` is
+    a ``(p, ...)`` array of which the reader keeps rows ``rows`` (a
+    rank's under a mesh, ``shardmap_agg.local_rows``)."""
+    keys: FrozenSet[str]
+    p: int
+    rows: slice
+
+
+def _restore_flat(data_of_key, manifest: Dict, like: Any, allow_cast: bool,
+                  rows: Optional[Rows] = None):
     """Rebuilds ``like``'s structure leaf by leaf along ``_flatten``'s
-    traversal."""
+    traversal. ``data_of_key(k, lo_hi)`` reads a key, rows ``lo:hi`` of
+    it or all of it for None; with ``rows`` its keys are read that way."""
     _check_structure(_flatten(like), manifest["keys"])
+
+    def read(k):
+        if rows is None or k not in rows.keys:
+            return data_of_key(k, None)
+        shape = manifest["keys"][k]["shape"]
+        if not shape or shape[0] != rows.p:
+            raise ValueError(
+                f"shape mismatch for {k}: checkpoint holds {tuple(shape)}, "
+                f"a ({rows.p}, ...) worker-stacked array expected")
+        return data_of_key(k, (rows.rows.start, rows.rows.stop))
 
     def build(sub, prefix=""):
         def key(k):
@@ -237,7 +309,7 @@ def _restore_flat(data_of_key, manifest: Dict, like: Any, allow_cast: bool):
         if isinstance(sub, (tuple, list)):
             return type(sub)(build(v, key(f"#{i}"))
                              for i, v in enumerate(sub))
-        return _check_leaf(prefix, data_of_key(prefix),
+        return _check_leaf(prefix, read(prefix),
                            manifest["keys"][prefix], sub, allow_cast)
 
     return build(like)
@@ -256,17 +328,18 @@ def save(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
     })
 
 
-def restore(path: str, like: Any, allow_cast: bool = False
-            ) -> Tuple[Any, Dict]:
+def restore(path: str, like: Any, allow_cast: bool = False,
+            rows: Optional[Rows] = None) -> Tuple[Any, Dict]:
     """Restores into the structure of ``like`` (checked by
     ``_check_leaf``). A sharded checkpoint at ``path`` goes to
-    ``restore_sharded``."""
+    ``restore_sharded``. With ``rows``, ``like`` holds those rows of its
+    worker-stacked keys, and only they are read."""
     manifest = _read_manifest(path)
     if manifest.get("format") == SHARDED_FORMAT:
-        return restore_sharded(path, like, allow_cast=allow_cast)
+        return restore_sharded(path, like, allow_cast=allow_cast, rows=rows)
     data = _Npz(os.path.join(path, "arrays.npz"))
     try:
-        tree = _restore_flat(data.__getitem__, manifest, like, allow_cast)
+        tree = _restore_flat(data.reader(), manifest, like, allow_cast, rows)
     finally:
         data.close()
     return tree, manifest["meta"]
@@ -302,35 +375,104 @@ def _assign_shards(nbytes: Dict[str, int], n_shards: int) -> List[List[str]]:
     return bins
 
 
+def _entry(leaf, row_shards: int = 1) -> Tuple[Tuple[int, ...], str, int]:
+    """A leaf's manifest shape and dtype name, and its bytes; a leaf of
+    which this rank holds one of ``row_shards`` equal row blocks counts
+    them all."""
+    if isinstance(leaf, torch.Tensor):
+        shape = tuple(leaf.shape)
+        if row_shards > 1:
+            shape = (shape[0] * row_shards,) + shape[1:]
+        return shape, _dtype_name(leaf), _nbytes(leaf) * row_shards
+    a, dt = _host(leaf)
+    return tuple(a.shape), dt, a.nbytes
+
+
+def _manifest(entries: Dict, bins: List[List[str]],
+              topology: Optional[Dict], meta: Optional[Dict]) -> Dict:
+    return {
+        "format": SHARDED_FORMAT,
+        "n_shards": len(bins),
+        "keys": {k: {"shape": list(entries[k][0]), "dtype": entries[k][1],
+                     "shard": s}
+                 for s, keys in enumerate(bins) for k in keys},
+        "topology": topology or {},
+        "meta": meta or {},
+    }
+
+
+def _write_shards(path: str, flat: Dict, bins: List[List[str]],
+                  shards) -> None:
+    for s in shards:
+        _write_npz(os.path.join(path, _shard_file(s)),
+                   {k: _host(flat[k]) for k in bins[s]})
+
+
 def save_sharded(path: str, tree: Any, meta: Optional[Dict] = None,
                  topology: Optional[Dict] = None,
                  n_shards: Optional[int] = None) -> None:
     """``n_shards`` (default 1) shard files and the manifest with
     ``topology`` (``{"p", "round", "rule", "policy", "comm_state"}``)."""
     os.makedirs(path, exist_ok=True)
-    flat = {k: _host(v) for k, v in _flatten(tree).items()}
-    n_shards = max(1, n_shards or 1)
-    bins = _assign_shards({k: a.nbytes for k, (a, _) in flat.items()},
-                          n_shards)
+    flat = _flatten(tree)
+    entries = {k: _entry(v) for k, v in flat.items()}
+    bins = _assign_shards({k: e[2] for k, e in entries.items()},
+                          max(1, n_shards or 1))
+    _write_shards(path, flat, bins, range(len(bins)))
+    _write_manifest(path, _manifest(entries, bins, topology, meta))
+
+
+class MeshSave(NamedTuple):
+    """What a rank writes of a save under a mesh: the bins, the shards it
+    owns, and on rank 0 the manifest."""
+    bins: List[List[str]]
+    shards: List[int]
+    manifest: Optional[Dict]
+
+
+def gather_for_save(tree: Any, mesh, row_keys: FrozenSet[str],
+                    n_shards: Optional[int] = None,
+                    meta: Optional[Dict] = None,
+                    topology: Optional[Dict] = None
+                    ) -> Tuple[Dict[str, Any], MeshSave]:
+    """The collective half of a save under a mesh; every rank runs it, in
+    the same order. ``tree`` is this rank's: the leaves of ``row_keys``
+    (flat keys) its worker rows, the others the same on every rank. Keys
+    are bin-packed by their global bytes over ``n_shards`` (default S)
+    shards; shard ``s`` belongs to rank ``s % S``, which receives every
+    rank's rows of each of its row keys, one key at a time. Returns this
+    rank's keys (whole arrays, new tensors on the device) and its part."""
+    from repro_torch.core import shardmap_agg as smagg
+    n_ranks = smagg.mesh_worker_shards(mesh)
+    me = smagg.shard_index(mesh)
+    flat = _flatten(tree)
+    entries = {k: _entry(v, n_ranks if k in row_keys else 1)
+               for k, v in flat.items()}
+    bins = _assign_shards({k: e[2] for k, e in entries.items()},
+                          max(1, n_shards or n_ranks))
+    mine: Dict[str, Any] = {}
     for s, keys in enumerate(bins):
-        _write_npz(os.path.join(path, _shard_file(s)),
-                   {k: flat[k] for k in keys})
-    _write_manifest(path, {
-        "format": SHARDED_FORMAT,
-        "n_shards": n_shards,
-        "keys": {k: {"shape": list(flat[k][0].shape), "dtype": flat[k][1],
-                     "shard": s}
-                 for s, keys in enumerate(bins) for k in keys},
-        "topology": topology or {},
-        "meta": meta or {},
-    })
+        owner = s % n_ranks
+        for k in keys:
+            v = flat[k]
+            if k in row_keys:
+                full = smagg.gather_rows_to(v, owner, mesh)
+                if full is not None:
+                    mine[k] = full
+            elif owner == me:
+                mine[k] = (v.detach().clone() if isinstance(v, torch.Tensor)
+                           else v)
+    return mine, MeshSave(
+        bins, [s for s in range(len(bins)) if s % n_ranks == me],
+        _manifest(entries, bins, topology, meta) if me == 0 else None)
 
 
-def restore_sharded(path: str, like: Any, allow_cast: bool = False
-                    ) -> Tuple[Any, Dict]:
+def restore_sharded(path: str, like: Any, allow_cast: bool = False,
+                    rows: Optional[Rows] = None) -> Tuple[Any, Dict]:
     """Restores a sharded checkpoint into the structure of ``like``, which
     must have the checkpoint's shapes (its worker count: see
-    ``saved_topology``)."""
+    ``saved_topology``), or with ``rows`` those rows of its worker-stacked
+    keys."""
     manifest = _read_manifest(path)
     if manifest.get("format") != SHARDED_FORMAT:
         raise ValueError(
@@ -338,14 +480,14 @@ def restore_sharded(path: str, like: Any, allow_cast: bool = False
             f"(format={manifest.get('format')!r}); use restore()")
     shards: Dict[int, _Npz] = {}
 
-    def data_of_key(k):
+    def data_of_key(k, lo_hi):
         s = manifest["keys"][k]["shard"]
         if s not in shards:
             shards[s] = _Npz(os.path.join(path, _shard_file(s)))
-        return shards[s][k]
+        return shards[s].reader()(k, lo_hi)
 
     try:
-        tree = _restore_flat(data_of_key, manifest, like, allow_cast)
+        tree = _restore_flat(data_of_key, manifest, like, allow_cast, rows)
     finally:
         for z in shards.values():
             z.close()
@@ -371,7 +513,14 @@ class AsyncCheckpointer:
     queued on the device before any later round can replace the state)
     and returns. The thread copies the snapshot to the host and writes
     the shards and the manifest. A failed save is raised by the next
-    ``save`` or ``wait``."""
+    ``save`` or ``wait``.
+
+    ``save(mesh=, row_keys=)`` saves a tree of which this rank holds its
+    rows of ``row_keys``: the gathers (``gather_for_save``) run on the
+    caller's thread, in the same order on every rank, since a collective
+    from the writer thread would race the training's; the thread writes
+    this rank's shards (on rank 0 the manifest too) from what they
+    brought, and ``wait`` ends in a barrier over the worker group."""
 
     def __init__(self, depth: int = 2, telemetry=None):
         """``telemetry`` (a ``repro_torch.obs`` sink, optional) receives a
@@ -382,6 +531,7 @@ class AsyncCheckpointer:
         self._exc: Optional[Exception] = None
         self._exc_lock = threading.Lock()
         self.telemetry = telemetry
+        self._mesh = None                 # set by a save under a mesh
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="ckpt-writer")
         self._thread.start()
@@ -402,10 +552,16 @@ class AsyncCheckpointer:
                 job = None
                 self._q.task_done()
 
-    def _write(self, path, snap, meta, topology, n_shards):
+    def _write(self, path, snap, meta, topology, n_shards, part):
         t0 = time.perf_counter()
-        save_sharded(path, snap, meta=meta, topology=topology,
-                     n_shards=n_shards)
+        if part is None:
+            save_sharded(path, snap, meta=meta, topology=topology,
+                         n_shards=n_shards)
+        else:
+            os.makedirs(path, exist_ok=True)
+            _write_shards(path, snap, part.bins, part.shards)
+            if part.manifest is not None:
+                _write_manifest(path, part.manifest)
         tele = self.telemetry
         if tele is not None and getattr(tele, "enabled", False):
             from repro_torch.obs.events import CheckpointSave
@@ -422,15 +578,30 @@ class AsyncCheckpointer:
 
     def save(self, path: str, tree: Any, meta: Optional[Dict] = None,
              topology: Optional[Dict] = None,
-             n_shards: Optional[int] = None) -> None:
-        self._raise_pending()
-        snap = {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
-                for k, v in _flatten(tree).items()}
-        self._q.put((path, snap, meta, topology, n_shards))
+             n_shards: Optional[int] = None, mesh=None,
+             row_keys: FrozenSet[str] = frozenset()) -> None:
+        if mesh is None:
+            self._raise_pending()
+            snap = {k: v.detach().clone() if isinstance(v, torch.Tensor)
+                    else v for k, v in _flatten(tree).items()}
+            part = None
+        else:
+            self._mesh = mesh
+            snap, part = gather_for_save(tree, mesh, row_keys,
+                                         n_shards=n_shards, meta=meta,
+                                         topology=topology)
+            self._raise_pending()     # after the collectives every rank runs
+        self._q.put((path, snap, meta, topology, n_shards, part))
 
     def wait(self):
-        """Blocks until every queued save is on disk; raises a failure."""
+        """Blocks until every queued save is on disk; raises a failure.
+        After a save under a mesh, every rank's shards are on disk when
+        any rank's ``wait`` returns."""
         self._q.join()
+        if self._mesh is not None:
+            import torch.distributed as dist
+            from repro_torch.core import shardmap_agg as smagg
+            dist.barrier(group=smagg.worker_group(self._mesh))
         self._raise_pending()
 
     def close(self):

@@ -10,6 +10,13 @@ a communication), so a comparison isolates the rule:
   the parameters of the worker with the largest weight. Both run on the
   m-sample energies here, as in the JAX package.
 * sequential SGD: workers that never talk (``train/step.py::no_comm_rule``).
+
+Under a device mesh (``mesh=``; ``core/shardmap_agg.py``) the params are
+this rank's worker rows and every other state is the same on every rank:
+SPSGD's average is the all-reduce of the theta-weighted local sums,
+EASGD's center (no worker axis) moves by the all-reduced sum of the
+ranks' deltas, and under MWU the argmax worker's rows are broadcast from
+the rank that holds them.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.core import aggregate as agg
+from repro_torch.core import shardmap_agg as smagg
 from repro_torch.core.weights import equal_weights
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -36,6 +44,17 @@ def spsgd_communicate(params: Dict, axes: Dict) -> Dict:
     return agg.weighted_aggregate(params, axes, theta, beta=1.0)
 
 
+def adopt_aggregate(params: Dict, axes: Dict, theta: torch.Tensor,
+                    mesh=None) -> Dict:
+    """Eq. 10 at beta 1: every worker adopts ``sum_j theta_j x_j``; under
+    ``mesh`` through the all-reduce of the theta-weighted local sums."""
+    if mesh is None:
+        return agg.weighted_aggregate(params, axes, theta, beta=1.0)
+    return agg.map_worker_leaves(
+        lambda x: smagg.aggregate_leaf_shard_map(x, theta, 1.0, mesh),
+        params, axes)
+
+
 # -- EASGD --------------------------------------------------------------------
 
 class EASGDState(NamedTuple):
@@ -49,16 +68,20 @@ def easgd_init(params: Dict, axes: Dict) -> EASGDState:
 
 
 def easgd_communicate(params: Dict, axes: Dict, state: EASGDState,
-                      alpha: float) -> Tuple[Dict, EASGDState]:
+                      alpha: float, mesh=None) -> Tuple[Dict, EASGDState]:
     """The Eq. 3 elastic pull and the Eq. 4 center update (the
     communication part only), in float32, cast back to each leaf's
-    dtype."""
+    dtype. Under ``mesh`` the center moves by the all-reduced sum of the
+    ranks' deltas."""
     def upd(x, ax, c):
         if not agg.is_worker_leaf(ax):
             return x, c
         delta = alpha * (x.float() - c.float()[None])
+        moved = delta.sum(0)
+        if mesh is not None:
+            smagg.all_reduce_(moved, mesh)
         return ((x.float() - delta).to(x.dtype),
-                (c.float() + delta.sum(0)).to(c.dtype))
+                (c.float() + moved).to(c.dtype))
 
     pairs = tree_map(upd, params, axes, state.center)
     return (tree_map(lambda t: t[0], pairs),
@@ -83,12 +106,22 @@ def mwu_theta(log_w: torch.Tensor) -> torch.Tensor:
 
 
 def mwu_communicate(params: Dict, axes: Dict, state: MWUState,
-                    h: torch.Tensor, eps: float = 0.5
+                    h: torch.Tensor, eps: float = 0.5, mesh=None
                     ) -> Tuple[Dict, MWUState]:
     """``w_i <- w_i * exp(-eps * h'_i)`` with ``h' = h / sum(h)``; every
-    worker adopts the argmax worker's parameters."""
+    worker adopts the argmax worker's parameters. ``h`` and the weights
+    are every worker's; under ``mesh`` the argmax worker's rows are
+    broadcast from the rank that holds them and each worker takes them
+    through the same FMA as without a mesh, so the params are the
+    meshless ones."""
     hp = h.float() / torch.clamp_min(h.sum(), 1e-30)
     log_w = state.log_w - eps * hp
-    new_params = agg.weighted_aggregate(params, axes, mwu_theta(log_w),
-                                        beta=1.0)
+    if mesh is None:
+        new_params = agg.weighted_aggregate(params, axes, mwu_theta(log_w),
+                                            beta=1.0)
+    else:
+        k = int(torch.argmax(log_w))
+        new_params = agg.map_worker_leaves(
+            lambda x: agg.fma_late_join(x, smagg.broadcast_row(x, k, mesh),
+                                        1.0), params, axes)
     return new_params, MWUState(log_w)

@@ -14,7 +14,17 @@ per-worker structure:
 
 The slot contract everywhere: worker ``i`` keeps slot ``i`` for
 ``i < min(old_p, new_p)``; a shrink drops the tail, a grow appends at the
-tail. ``MembershipSchedule`` scripts the events of a run
+tail.
+
+Under a device mesh (``mesh=``; ``core/shardmap_agg.py``) a rank holds
+its shard's rows of every worker-stacked leaf, and both counts must be
+multiples of the shard count S. ``resize_train_state(mesh=)`` moves each
+leaf's surviving rows to the rank that holds them after the resize, one
+leaf at a time (``shardmap_agg.move_rows``), and the newcomers' row is
+the all-reduce of the ranks' local sums; the policy state, the Alg. 4
+mask and theta are full vectors and resize as without a mesh.
+
+``MembershipSchedule`` scripts the events of a run
 (``Trainer.run(membership_schedule=)``) and ``make_chaos_schedule`` draws
 a seeded kill/revive walk with numpy, as the JAX package draws it.
 """
@@ -26,6 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import shardmap_agg as smagg
 from repro_torch.core.aggregate import is_worker_leaf, resize_worker_leaves
 from repro_torch.tree import tree_map
 
@@ -171,12 +182,19 @@ def _params_like(sub: Any, axes: Any) -> bool:
     return isinstance(sub, torch.Tensor)
 
 
-def _resize_params_like(tree: Dict, axes: Dict, new_p: int) -> Dict:
+def _resize_params_like(tree: Dict, axes: Dict, new_p: int,
+                        mesh=None) -> Dict:
     """Worker leaves sliced or grown (newcomers: the survivor mean), shared
-    leaves passed through."""
+    leaves passed through; under ``mesh`` this rank's rows, moved."""
     def visit(x, ax):
         if not is_worker_leaf(ax):
             return x
+        if mesh is not None:
+            old_p = x.shape[0] * smagg.mesh_worker_shards(mesh)
+            fill = None
+            if new_p > old_p:
+                fill = smagg.all_reduce_(x.float().sum(0), mesh) / old_p
+            return smagg.move_rows(x, new_p, mesh, fill)
         old_p = x.shape[0]
         if new_p <= old_p:
             return x[:new_p]
@@ -187,16 +205,15 @@ def _resize_params_like(tree: Dict, axes: Dict, new_p: int) -> Dict:
     return tree_map(visit, tree, axes)
 
 
-def resize_opt_state(opt_state: Any, axes: Dict, new_p: int) -> Any:
-    """Re-shards optimizer state: ``()``, a params-structured tree
-    (momentum), or a container of those and scalars (AdamW's ``(mu, nu,
-    count)``). Worker leaves take the survivor mean for newcomers, so a
-    joiner inherits the fleet's moments; scalars pass through."""
+def map_opt_state(fn, opt_state: Any, axes: Dict) -> Any:
+    """``fn`` over every params-structured tree of an optimizer state:
+    ``()``, such a tree (momentum), or a container of those and scalars
+    (AdamW's ``(mu, nu, count)``); scalars pass through."""
     def visit(sub):
         if isinstance(sub, tuple) and not sub:
             return sub
         if _params_like(sub, axes):
-            return _resize_params_like(sub, axes, new_p)
+            return fn(sub)
         if hasattr(sub, "_fields"):                    # NamedTuple
             return type(sub)(*(visit(getattr(sub, f)) for f in sub._fields))
         if isinstance(sub, (tuple, list)):
@@ -211,26 +228,78 @@ def resize_opt_state(opt_state: Any, axes: Dict, new_p: int) -> Any:
     return visit(opt_state)
 
 
+def resize_opt_state(opt_state: Any, axes: Dict, new_p: int,
+                     mesh=None) -> Any:
+    """Re-shards optimizer state (``map_opt_state``'s shapes). Worker
+    leaves take the survivor mean for newcomers, so a joiner inherits the
+    fleet's moments."""
+    return map_opt_state(
+        lambda sub: _resize_params_like(sub, axes, new_p, mesh), opt_state,
+        axes)
+
+
 def resize_train_state(state, axes: Dict, new_p: int, policy=None,
                        theta: Optional[torch.Tensor] = None,
-                       comm_state: Any = "__resize__"):
+                       comm_state: Any = "__resize__", mesh=None):
     """Re-shards a ``TrainState``: params through ``resize_worker_leaves``
     (newcomers adopt the aggregate, ``theta``-weighted if given), the
     optimizer state mirrors them, the energies grow with zeros, and the
     comm state goes through ``resize_comm_state`` unless a re-sharded one
-    is passed. The round counter carries over."""
+    is passed. The round counter carries over. Under ``mesh`` the state
+    holds this rank's rows, and so does the result: every rank makes the
+    same call, leaf by leaf in the same order."""
+    if isinstance(comm_state, str) and comm_state == "__resize__":
+        comm_state = resize_comm_state(state.comm_state, new_p,
+                                       policy=policy)
+    if mesh is not None:
+        old_p = state.energy.shape[0] * smagg.mesh_worker_shards(mesh)
+        t = (torch.full((old_p,), 1.0 / old_p, dtype=torch.float32,
+                        device=state.energy.device) if theta is None
+             else theta.float())
+
+        def worker_rows(x, ax):
+            if not is_worker_leaf(ax):
+                return x
+            fill = (smagg.all_reduce_m_phase(x, t, mesh) if new_p > old_p
+                    else None)
+            return smagg.move_rows(x, new_p, mesh, fill)
+
+        return state._replace(
+            params=tree_map(worker_rows, state.params, axes),
+            opt_state=resize_opt_state(state.opt_state, axes, new_p, mesh),
+            energy=smagg.move_rows(state.energy, new_p, mesh),
+            comm_state=comm_state)
     old_energy = state.energy
     old_p = old_energy.shape[0]
     if new_p <= old_p:
         energy = old_energy[:new_p]
     else:
         energy = torch.cat([old_energy, old_energy.new_zeros(new_p - old_p)])
-    if isinstance(comm_state, str) and comm_state == "__resize__":
-        comm_state = resize_comm_state(state.comm_state, new_p,
-                                       policy=policy)
     return state._replace(
         params=resize_worker_leaves(state.params, axes, new_p, theta=theta),
         opt_state=resize_opt_state(state.opt_state, axes, new_p),
         energy=energy,
         comm_state=comm_state,
     )
+
+
+def resized_template(state, axes: Dict, new_p: int, policy=None,
+                     mesh=None):
+    """A ``TrainState`` with ``state``'s structure, dtypes and device at
+    ``new_p`` workers (this rank's rows under ``mesh``), the target a
+    restore at ``new_p`` fills: its worker leaves are views of one
+    element (no memory), its comm state resized."""
+    n = smagg.local_workers(new_p, mesh)
+
+    def rows(x, worker=True):
+        return (x.new_empty(()).expand((n,) + tuple(x.shape[1:]))
+                if worker else x)
+
+    def params_like(tree):
+        return tree_map(lambda x, ax: rows(x, is_worker_leaf(ax)), tree, axes)
+
+    return state._replace(
+        params=params_like(state.params),
+        opt_state=map_opt_state(params_like, state.opt_state, axes),
+        energy=rows(state.energy),
+        comm_state=resize_comm_state(state.comm_state, new_p, policy=policy))

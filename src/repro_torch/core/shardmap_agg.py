@@ -23,6 +23,12 @@ schedule's ``finalize``. ``reduce_scatter_phase`` can issue its collective
 asynchronously (``async_op=True``) and ``all_gather_phase`` then waits on
 it first: the ``overlap=`` thunk runs between the two.
 
+Three more moves of rows serve the rest of the trainer under a mesh:
+``broadcast_row`` (MWU's argmax worker, from the rank that holds it),
+``gather_rows_to`` (a checkpoint shard's rows, to the rank that writes
+it) and ``move_rows`` (a membership resize: the survivors' rows point to
+point to the rank that holds them after it).
+
 A mesh axis other than ``"pod"``/``"data"`` (JAX's ``"model"``) must have
 size 1: model parallelism is not ported (ROADMAP.md queue 1.11).
 """
@@ -98,7 +104,9 @@ def local_workers(w: int, mesh) -> int:
         return w
     s = mesh_worker_shards(mesh)
     if w % s:
-        raise ValueError(f"{w} workers do not split over {s} mesh shards")
+        raise ValueError(f"{w} workers do not split over {s} mesh shards: "
+                         f"under a mesh the worker count must be a "
+                         f"multiple of {s}")
     return w // s
 
 
@@ -137,6 +145,81 @@ def all_reduce_(x: torch.Tensor, mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced in place over the worker group (a scalar too)."""
     dist.all_reduce(x, op=op, group=worker_group(mesh))
     return x
+
+
+def _global_rank(mesh, shard: int) -> int:
+    return dist.get_global_rank(worker_group(mesh), shard)
+
+
+def broadcast_row(x: torch.Tensor, k: int, mesh) -> torch.Tensor:
+    """Worker ``k``'s row of a worker-stacked tensor (this shard's rows),
+    in float32 on every rank: broadcast from the rank that holds it."""
+    n = x.shape[0]
+    owner = k // n
+    if shard_index(mesh) == owner:
+        row = x[k - owner * n].float().contiguous()
+    else:
+        row = torch.empty(x.shape[1:], dtype=torch.float32, device=x.device)
+    dist.broadcast(row, src=_global_rank(mesh, owner),
+                   group=worker_group(mesh))
+    return row
+
+
+def gather_rows_to(x: torch.Tensor, owner: int, mesh) -> Optional[
+        torch.Tensor]:
+    """Every shard's rows of a worker-stacked tensor, in worker order, on
+    shard ``owner`` only (``(w, ...)``; None on the other ranks)."""
+    x = x.contiguous()
+    out = parts = None
+    if shard_index(mesh) == owner:
+        out = torch.empty((x.shape[0] * mesh_worker_shards(mesh),)
+                          + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        parts = list(out.chunk(mesh_worker_shards(mesh)))
+    dist.gather(x, gather_list=parts, dst=_global_rank(mesh, owner),
+                group=worker_group(mesh))
+    return out
+
+
+def move_rows(x: torch.Tensor, new_p: int, mesh,
+              fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A membership resize of a worker-stacked tensor under the mesh:
+    ``x`` holds this shard's rows of ``old_p = x.shape[0] * S`` workers,
+    the result its rows of ``new_p``. Worker ``i < min(old_p, new_p)``
+    keeps its row bitwise; where its shard changes, the row goes point to
+    point from the old shard's rank to the new one's. Workers ``i >=
+    old_p`` take ``fill`` (one row, the same on every rank; None: zeros).
+    Every rank holds its old and new rows only."""
+    s = mesh_worker_shards(mesh)
+    r = shard_index(mesh)
+    n, n2 = x.shape[0], local_workers(new_p, mesh)
+    survivors = min(n * s, new_p)
+    out = x.new_zeros((n2,) + tuple(x.shape[1:]))
+    ops = []
+    for src in range(s):
+        for dst in range(s):
+            lo = max(src * n, dst * n2)
+            hi = min((src + 1) * n, (dst + 1) * n2, survivors)
+            if lo >= hi or r not in (src, dst):
+                continue
+            if src == dst:
+                out[lo - r * n2:hi - r * n2] = x[lo - r * n:hi - r * n]
+            elif src == r:
+                ops.append(dist.P2POp(
+                    dist.isend, x[lo - r * n:hi - r * n].contiguous(),
+                    _global_rank(mesh, dst), worker_group(mesh)))
+            else:
+                ops.append(dist.P2POp(dist.irecv, out[lo - r * n2:hi - r * n2],
+                                      _global_rank(mesh, src),
+                                      worker_group(mesh)))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if fill is not None:
+        lo = max(n * s, r * n2)
+        if lo < (r + 1) * n2:
+            out[lo - r * n2:] = fill.to(x.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -161,26 +161,30 @@ def async_wasgd_rule(wcfg, mesh=None,
     return rule
 
 
-def spsgd_rule() -> Callable:
+def spsgd_rule(mesh=None) -> Callable:
+    """Equal theta, beta 1; under ``mesh`` the all-reduce of the
+    theta-weighted local sums (``core/baselines.py``, as each rule
+    below)."""
     def rule(params, axes, h, comm_state):
         theta = compute_theta(h, "equal")
-        new_params = agg.weighted_aggregate(params, axes, theta, beta=1.0)
+        new_params = bl.adopt_aggregate(params, axes, theta, mesh)
         return new_params, comm_state, theta, {}
     return rule
 
 
-def easgd_rule(alpha: float) -> Callable:
+def easgd_rule(alpha: float, mesh=None) -> Callable:
     def rule(params, axes, h, comm_state):
         new_params, new_center = bl.easgd_communicate(params, axes,
-                                                      comm_state, alpha)
+                                                      comm_state, alpha,
+                                                      mesh=mesh)
         return new_params, new_center, compute_theta(h, "equal"), {}
     return rule
 
 
-def mwu_rule(eps: float = 0.5) -> Callable:
+def mwu_rule(eps: float = 0.5, mesh=None) -> Callable:
     def rule(params, axes, h, comm_state):
         new_params, new_state = bl.mwu_communicate(params, axes, comm_state,
-                                                   h, eps)
+                                                   h, eps, mesh=mesh)
         return new_params, new_state, bl.mwu_theta(new_state.log_w), {}
     return rule
 
@@ -193,12 +197,6 @@ def no_comm_rule() -> Callable:
 
 
 PIPELINE_MODES = ("parity", "speculative")
-
-
-MESH_RULES_NOT_PORTED = ("under a mesh, only the wasgd/wasgd+ rules run; "
-                         "the baseline rules, Trainer.resize and its "
-                         "checkpoints are not ported there "
-                         "(ROADMAP.md queue 1.10)")
 
 
 def check_mesh_axes(axes: Dict, mesh) -> None:

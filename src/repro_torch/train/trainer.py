@@ -22,7 +22,10 @@ microbatch through the aggregate's seam; ``run(telemetry=)`` emits the
 the ``DeviceMesh`` steps its shard's worker rows (``core/shardmap_agg``);
 the energies, Judge scores and Alg. 4 times are all-gathered before the
 policy, so every rank computes the same theta, policy state and order
-decision, and ``history``/``losses()`` are the same on every rank.
+decision, and ``history``/``losses()`` are the same on every rank. Every
+rule runs there, a resize moves the rows between ranks
+(``core/membership``), and each rank writes its own shards of a
+checkpoint and reads its own rows back (``checkpoint/io``).
 """
 from __future__ import annotations
 
@@ -35,13 +38,15 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.io import (AsyncCheckpointer, _flatten, restore,
-                                       saved_topology)
+from repro_torch.checkpoint.io import (AsyncCheckpointer, Rows, _flatten,
+                                       restore, saved_topology)
 from repro_torch.core import replicate_workers
 from repro_torch.core import shardmap_agg as smagg
 from repro_torch.core.async_device import validate_active_rounds
+from repro_torch.core.aggregate import is_worker_leaf
 from repro_torch.core.membership import (MembershipSchedule, WorkerSet,
-                                         resize_train_state)
+                                         map_opt_state, resize_train_state,
+                                         resized_template)
 from repro_torch.core.order import OrderState
 from repro_torch.core.weights import policy_from_config
 from repro_torch.data.pipeline import (OrderedDataset, RoundPrefetcher,
@@ -75,11 +80,14 @@ def _to_host(x):
 RULES = {
     "wasgd": _wasgd_rule_for,
     "wasgd+": _wasgd_rule_for,
-    "spsgd": lambda tcfg, mesh=None, overlap=None: step_mod.spsgd_rule(),
+    "spsgd": lambda tcfg, mesh=None, overlap=None:
+        step_mod.spsgd_rule(mesh=mesh),
     "easgd": lambda tcfg, mesh=None, overlap=None:
-        step_mod.easgd_rule(alpha=0.9 / 16),
-    "omwu": lambda tcfg, mesh=None, overlap=None: step_mod.mwu_rule(),
-    "mmwu": lambda tcfg, mesh=None, overlap=None: step_mod.mwu_rule(),
+        step_mod.easgd_rule(alpha=0.9 / 16, mesh=mesh),
+    "omwu": lambda tcfg, mesh=None, overlap=None:
+        step_mod.mwu_rule(mesh=mesh),
+    "mmwu": lambda tcfg, mesh=None, overlap=None:
+        step_mod.mwu_rule(mesh=mesh),
     "seq": lambda tcfg, mesh=None, overlap=None: step_mod.no_comm_rule(),
 }
 
@@ -118,21 +126,18 @@ class Trainer:
         are ``("data",)`` or ``("pod", "data")``, JAX's names) makes the
         run decentralized: this rank keeps its shard's rows of the
         ``n_workers`` copies (``state`` holds them), takes its rows of
-        each round batch (batches hold every worker's rows and ``run``
-        cuts them with ``data.rank_rows``; a ``RoundPrefetcher`` passed
-        in stages this rank's rows already), and the mesh
-        reaches the aggregation specs (``shard_map``, ``rs_ag`` and their
-        ``async_`` forms need it). Every rank must make the same calls.
-        Under a mesh only the wasgd/wasgd+ rules run; ``resize``,
-        checkpoints and a leaf without the worker axis raise
-        ``NotImplementedError``."""
+        each round batch (batches hold every worker's rows: ``run`` cuts
+        them with ``data.rank_rows``, also after a resize; a
+        ``RoundPrefetcher`` passed in must stage this rank's rows), and
+        the mesh reaches the rules (every rule runs there) and the
+        aggregation specs (``shard_map``, ``rs_ag`` and their ``async_``
+        forms need it). Every rank must make the same calls: ``resize``,
+        ``save_checkpoint`` and ``resume`` are collective too. A leaf
+        without the worker axis raises ``NotImplementedError``."""
         if pipeline is not None and rule not in ("wasgd", "wasgd+"):
             raise ValueError(
                 f"pipeline={pipeline!r} threads the seam thunk through the "
                 f"wasgd/wasgd+ rules only (got rule={rule!r})")
-        if mesh is not None and rule not in ("wasgd", "wasgd+"):
-            raise NotImplementedError(
-                f"rule {rule!r}: {step_mod.MESH_RULES_NOT_PORTED}")
         self.device = resolve_device(device)
         self._mesh = mesh
         self.tcfg = tcfg
@@ -174,7 +179,7 @@ class Trainer:
         """Builds the round for the current membership (the step closes
         over ``n_workers``); ``resize`` calls it again."""
         if self.rule_name == "easgd" and self._easgd_alpha is not None:
-            rule_fn = step_mod.easgd_rule(self._easgd_alpha)
+            rule_fn = step_mod.easgd_rule(self._easgd_alpha, mesh=self._mesh)
         else:
             rule_fn = RULES[self.rule_name](self.tcfg, mesh=self._mesh,
                                             overlap=self._overlap)
@@ -184,11 +189,6 @@ class Trainer:
                                       pipeline=self.pipeline,
                                       mesh=self._mesh)
         self._primer = getattr(self._step, "primer", None)
-
-    def _no_mesh(self, what: str) -> None:
-        if self._mesh is not None:
-            raise NotImplementedError(
-                f"{what}: {step_mod.MESH_RULES_NOT_PORTED}")
 
     def _policy_for_resize(self):
         if self.rule_name not in ("wasgd", "wasgd+"):
@@ -202,13 +202,15 @@ class Trainer:
         adopt the aggregate; ``core/membership.py``), the comm state
         through ``init_comm_state(prev=)``, and the round is rebuilt for
         the new count. Returns the ``MembershipEvent``, or None when
-        ``new_p`` is the live count."""
-        self._no_mesh("Trainer.resize")
+        ``new_p`` is the live count. Under a mesh ``new_p`` must be a
+        multiple of the shard count (else ``ValueError``, before any
+        collective), and the rows move between the ranks."""
         if self.rule_name not in ("wasgd", "wasgd+"):
             raise ValueError(
                 f"elastic membership is a wasgd/wasgd+ capability — rule "
                 f"{self.rule_name!r} pins worker count at construction")
         new_p = int(new_p)
+        smagg.local_workers(new_p, self._mesh)   # raises on every rank
         if new_p == self.n_workers:
             return None
         comm = init_comm_state(self.rule_name, self.state.params, self.axes,
@@ -216,7 +218,7 @@ class Trainer:
                                prev=self.state.comm_state)
         self.state = resize_train_state(self.state, self.axes, new_p,
                                         policy=self._policy_for_resize(),
-                                        comm_state=comm)
+                                        comm_state=comm, mesh=self._mesh)
         old_p = self.n_workers
         event = self.workers.resize(new_p, round=round)
         self._build_step()
@@ -240,16 +242,30 @@ class Trainer:
             "comm_state": sorted(_flatten({"cs": self.state.comm_state})),
         }
 
+    def _row_keys(self):
+        """The checkpoint keys whose leaves are this rank's worker rows:
+        the worker leaves of the params and of the optimizer state, and
+        the energies."""
+        marks = tree_map(is_worker_leaf, self.axes)
+        flat = _flatten(self.state._replace(
+            step=False, params=marks, energy=True, comm_state=(),
+            opt_state=map_opt_state(lambda _: marks, self.state.opt_state,
+                                    self.axes)))
+        return frozenset(k for k, v in flat.items() if v is True)
+
     def save_checkpoint(self, path: str, round: int) -> None:
         """Sharded save of the full train state (params, optimizer state,
         energies, comm state). Returns once the state is copied on its
         device; a background thread copies it to the host and writes it
-        (``checkpoint.AsyncCheckpointer``)."""
-        self._no_mesh("Trainer.save_checkpoint")
+        (``checkpoint.AsyncCheckpointer``). Under a mesh every rank calls
+        it: the rows of each shard's keys are gathered to the rank that
+        writes the shard first (one shard a rank), and the files are the
+        meshless save's with as many shards."""
         if self._ckpt is None:
             self._ckpt = AsyncCheckpointer(telemetry=self._telemetry)
         self._ckpt.save(path, self.state, meta={"round": int(round)},
-                        topology=self._topology(round))
+                        topology=self._topology(round), mesh=self._mesh,
+                        row_keys=self._row_keys())
 
     def resume(self, path: str, allow_cast: bool = False) -> int:
         """Restores a checkpoint (the JAX Trainer's or this one's, flat or
@@ -257,8 +273,9 @@ class Trainer:
         sharded checkpoint saved at another worker count is restored at
         its recorded ``p`` and then resized to this trainer's: the saved
         survivors land bitwise in their slots, newcomers adopt the
-        aggregate."""
-        self._no_mesh("Trainer.resume")
+        aggregate. Under a mesh each rank reads its own rows (of a
+        checkpoint saved under any number of ranks, or none), and a
+        recorded ``p`` must be a multiple of the shard count."""
         topo = saved_topology(path)["topology"]
         saved_p = int(topo.get("p", self.n_workers))
         if topo.get("rule") is not None and topo["rule"] != self.rule_name:
@@ -272,12 +289,18 @@ class Trainer:
                 raise ValueError(
                     f"checkpoint p={saved_p} != trainer p={self.n_workers} "
                     f"and rule {self.rule_name!r} has no elastic resize")
-            like = resize_train_state(self.state, self.axes, saved_p,
-                                      policy=pol)
-        restored, meta = restore(path, like, allow_cast=allow_cast)
+            like = resized_template(self.state, self.axes, saved_p,
+                                    policy=pol, mesh=self._mesh)
+        rows = None
+        if self._mesh is not None:
+            rows = Rows(self._row_keys(), saved_p,
+                        smagg.local_rows(saved_p, self._mesh))
+        restored, meta = restore(path, like, allow_cast=allow_cast,
+                                 rows=rows)
         if saved_p != self.n_workers:
             restored = resize_train_state(restored, self.axes,
-                                          self.n_workers, policy=pol)
+                                          self.n_workers, policy=pol,
+                                          mesh=self._mesh)
         self.state = restored
         return int(topo.get("round", meta.get("round", 0)))
 
@@ -386,16 +409,9 @@ class Trainer:
         site fences, reads or times anything, and the rounds are the
         uninstrumented ones.
 
-        Under a mesh, ``membership_schedule``, ``checkpoint_every`` and
-        ``resume_from`` raise ``NotImplementedError``; ``serve_hook``
-        receives this rank's rows of the params."""
-        if self._mesh is not None:
-            if membership_schedule is not None:
-                self._no_mesh("run(membership_schedule=)")
-            if resume_from is not None:
-                self._no_mesh("run(resume_from=)")
-            if checkpoint_every and checkpoint_path:
-                self._no_mesh("run(checkpoint_every=)")
+        Under a mesh ``serve_hook`` receives this rank's rows of the
+        params, and every count of ``membership_schedule`` must be a
+        multiple of the shard count (checked before the first round)."""
         ds = None
         if isinstance(batches, OrderedDataset):
             ds = batches
@@ -460,6 +476,8 @@ class Trainer:
                     "— a bare batch iterator bakes in a fixed worker "
                     "count, so its rounds cannot be re-sharded at a "
                     "membership event")
+            for r in range(n_rounds):
+                smagg.local_workers(membership_schedule.p_of(r), self._mesh)
         start = 0
         if resume_from is not None:
             start = self.resume(resume_from)
@@ -476,11 +494,8 @@ class Trainer:
             self._ckpt.telemetry = tele
         if ds is not None:
             batches = ds.batches(start_round=start)
-        if self._mesh is not None and not isinstance(batches,
-                                                     RoundPrefetcher):
-            # the one place a rank's rows are cut from each round batch
-            batches = (rank_rows(b, self.n_workers, self._mesh)
-                       for b in batches)
+        if not isinstance(batches, RoundPrefetcher):
+            batches = self._rank_batches(batches)
         t0 = time.time()
         mf = open(metrics_path, "a") if metrics_path else None
         prefetch = None
@@ -498,9 +513,10 @@ class Trainer:
                     if target != self.n_workers:
                         self.resize(target, round=r)
                         ds.resize(target)
-                        gen = ds.batches(start_round=r)
+                        gen = self._rank_batches(ds.batches(start_round=r))
                         if prefetch is not None:
-                            prefetch.resize(target, gen)
+                            prefetch.resize(
+                                smagg.local_workers(target, self._mesh), gen)
                         else:
                             batches = gen
                         carry = None      # re-prime the pipelined seam
@@ -570,6 +586,14 @@ class Trainer:
                 self._ckpt.wait()          # a failed save raises here
         return {"rounds": n_rounds - start, "wall": time.time() - t0,
                 "final_loss": float(self.history[-1]["loss"])}
+
+    def _rank_batches(self, batches):
+        """This rank's rows of each round batch under a mesh (the one
+        place they are cut), the batches themselves without one."""
+        if self._mesh is None:
+            return batches
+        p = self.n_workers
+        return (rank_rows(b, p, self._mesh) for b in batches)
 
     def losses(self) -> np.ndarray:
         return np.array([h["loss"] for h in self.history])

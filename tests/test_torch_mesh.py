@@ -50,6 +50,7 @@ from repro_torch import configs as tcfg  # noqa: E402
 from repro_torch.core import async_device as tad  # noqa: E402
 from repro_torch.core import backends as tbk  # noqa: E402
 from repro_torch.core import codecs as tcodecs  # noqa: E402
+from repro_torch.core import membership as tmem  # noqa: E402
 from repro_torch.core import shardmap_agg as tsm  # noqa: E402
 from repro_torch.core import wasgd as twasgd  # noqa: E402
 from repro_torch.data import OrderedDataset  # noqa: E402
@@ -624,26 +625,74 @@ def _mlp_trainer(mesh, rule="wasgd+", expert_leaf=False, **kw):
                    mesh=mesh, **kw)
 
 
+def _run_pair(mesh, rule, rounds=3, **kw):
+    """The MLP through ``rule`` for ``rounds`` rounds under the one-rank
+    mesh and without one (the same OrderedDataset each way)."""
+    X, y = common.dataset(0, False)
+    out = []
+    for m in (mesh, None):
+        tr = _mlp_trainer(m, rule=rule)
+        tr.run(OrderedDataset({"x": X[:N_SAMPLES], "y": y[:N_SAMPLES]}, P,
+                              TAU, B_LOCAL, n_segments=2, seed=7),
+               rounds, **kw)
+        out.append(tr)
+    return out
+
+
 @pytest.mark.parametrize("rule", ["spsgd", "easgd", "omwu", "mmwu", "seq"])
-def test_baseline_rules_under_a_mesh_name_their_queue(rule, mesh1):
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        _mlp_trainer(mesh1, rule=rule)
+def test_baseline_rules_under_a_mesh_match_the_meshless_run(rule, mesh1):
+    """Every baseline rule runs under the mesh: omwu, mmwu and seq give
+    the meshless params bitwise, spsgd and easgd within 1e-6 (the
+    all-reduce sums in its own order); h and theta are the meshless
+    ones."""
+    meshed, plain = _run_pair(mesh1, rule)
+    for a, b in zip(meshed.history, plain.history):
+        np.testing.assert_allclose(a["h"], b["h"], rtol=1e-6)
+        np.testing.assert_array_equal(a["theta"], b["theta"])
+    for k, v in plain.state.params.items():
+        if rule in ("omwu", "mmwu", "seq"):
+            assert torch.equal(meshed.state.params[k], v), k
+        else:
+            np.testing.assert_allclose(meshed.state.params[k].numpy(),
+                                       v.numpy(), rtol=0,
+                                       atol=_f32_tol(v.numpy()), err_msg=k)
 
 
-def test_out_of_scope_under_a_mesh_raises(mesh1, tmp_path):
-    tr = _mlp_trainer(mesh1)
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        tr.resize(2)
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        tr.save_checkpoint(str(tmp_path / "ck"), 1)
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        tr.resume(str(tmp_path / "ck"))
+def test_out_of_scope_under_a_mesh_raises(mesh1):
+    """A leaf without the worker axis (JAX's one-copy experts) stays out
+    of scope under a mesh (the model axis: ``test_make_host_mesh``)."""
     with pytest.raises(NotImplementedError, match="queue 1.11"):
         _mlp_trainer(mesh1, expert_leaf=True)
+
+
+def test_resize_and_checkpoints_run_under_a_mesh(mesh1, tmp_path):
+    """``resize``, ``save_checkpoint``, ``resume`` and ``run(
+    membership_schedule=, checkpoint_every=, resume_from=)`` under the
+    one-rank mesh give the meshless trainer's state."""
+    sched = tmem.MembershipSchedule(P, {1: 2, 2: 3})
+    meshed, plain = _run_pair(mesh1, "wasgd+", membership_schedule=sched,
+                              checkpoint_every=3,
+                              checkpoint_path=str(tmp_path / "ck"))
+    for k, v in plain.state.params.items():
+        np.testing.assert_allclose(meshed.state.params[k].numpy(), v.numpy(),
+                                   rtol=0, atol=_f32_tol(v.numpy()),
+                                   err_msg=k)
+    assert meshed.n_workers == plain.n_workers == 3
+    meshed.resize(P, round=3)
+    plain.resize(P, round=3)
+    for k, v in plain.state.params.items():
+        np.testing.assert_allclose(meshed.state.params[k].numpy(), v.numpy(),
+                                   rtol=0, atol=_f32_tol(v.numpy()),
+                                   err_msg=k)
+    ck = str(tmp_path / "ck" / "round_3")
+    for tr in (meshed, _mlp_trainer(mesh1)):
+        assert tr.resume(ck) == 3
+        assert tr.n_workers == P
     X, y = common.dataset(0, False)
-    ds = OrderedDataset({"x": X, "y": y}, P, TAU, B_LOCAL)
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        tr.run(ds, 1, checkpoint_every=1,
-               checkpoint_path=str(tmp_path / "run_ck"))
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        tr.run(ds, 1, resume_from=str(tmp_path / "ck"))
+    cont = _mlp_trainer(mesh1)
+    cont.run(OrderedDataset({"x": X[:N_SAMPLES], "y": y[:N_SAMPLES]}, P,
+                            TAU, B_LOCAL, n_segments=2, seed=7), 4,
+             resume_from=ck)
+    assert len(cont.history) == 1
+    for k, v in meshed.state.params.items():
+        assert v.shape[0] == P, k
