@@ -513,7 +513,9 @@ class AsyncCheckpointer:
     queued on the device before any later round can replace the state)
     and returns. The thread copies the snapshot to the host and writes
     the shards and the manifest. A failed save is raised by the next
-    ``save`` or ``wait``.
+    ``save`` or ``wait``. The thread starts at a ``save`` and ends at
+    ``wait``: none is left idle to outlive the caller's process group
+    and to race the interpreter's exit.
 
     ``save(mesh=, row_keys=)`` saves a tree of which this rank holds its
     rows of ``row_keys``: the gathers (``gather_for_save``) run on the
@@ -532,9 +534,11 @@ class AsyncCheckpointer:
         self._exc_lock = threading.Lock()
         self.telemetry = telemetry
         self._mesh = None                 # set by a save under a mesh
-        self._thread = threading.Thread(target=self._worker, daemon=True,
-                                        name="ckpt-writer")
-        self._thread.start()
+        self._thread = self._new_writer()  # started by the first save
+
+    def _new_writer(self) -> threading.Thread:
+        return threading.Thread(target=self._worker, daemon=True,
+                                name="ckpt-writer")
 
     def _worker(self):
         while True:
@@ -591,13 +595,20 @@ class AsyncCheckpointer:
                                          n_shards=n_shards, meta=meta,
                                          topology=topology)
             self._raise_pending()     # after the collectives every rank runs
+        if not self._thread.is_alive():
+            self._thread = self._new_writer()
+            self._thread.start()
         self._q.put((path, snap, meta, topology, n_shards, part))
 
     def wait(self):
-        """Blocks until every queued save is on disk; raises a failure.
-        After a save under a mesh, every rank's shards are on disk when
-        any rank's ``wait`` returns."""
+        """Blocks until every queued save is on disk and the writer
+        thread has ended; raises a failure. After a save under a mesh,
+        every rank's shards are on disk when any rank's ``wait``
+        returns."""
         self._q.join()
+        if self._thread.is_alive():
+            self._q.put(None)
+            self._thread.join()
         if self._mesh is not None:
             import torch.distributed as dist
             from repro_torch.core import shardmap_agg as smagg
@@ -606,5 +617,3 @@ class AsyncCheckpointer:
 
     def close(self):
         self.wait()
-        self._q.put(None)
-        self._thread.join(timeout=5.0)

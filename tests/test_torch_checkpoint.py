@@ -249,6 +249,20 @@ def test_async_checkpointer_snapshots_and_surfaces_errors(tmp_path):
     assert not ac._thread.is_alive()
 
 
+def test_async_checkpointer_writer_ends_at_wait(tmp_path):
+    """No writer thread outlives ``wait``; a later ``save`` starts one
+    again and its file is written."""
+    ac = tck.AsyncCheckpointer()
+    for name, v in (("a", 1.0), ("b", 2.0)):
+        ac.save(str(tmp_path / name), {"w": torch.full((2,), v)})
+        writer = ac._thread
+        ac.wait()
+        assert not writer.is_alive() and not ac._thread.is_alive()
+        got, _ = tck.restore(str(tmp_path / name), {"w": torch.zeros(2)})
+        np.testing.assert_array_equal(got["w"].numpy(), [v, v])
+    ac.close()
+
+
 def test_async_checkpointer_frees_each_snapshot_once_written(tmp_path,
                                                           monkeypatch):
     """The writer drops a save's snapshot when its write ends, not when
