@@ -193,7 +193,7 @@ Prints one JSON object per phase:
   lm_windowed   gemma3-1b's loss at one 2048-token sequence with
                 windowed_qblock off and on: logits within 2e-2, ms each
   lm3b_train    Trainer.run, WASGD+, stablelm-3b at full width and depth,
-                p=3, tau=4, seq 640, pallas_wagg:int4, remat on, 2 rounds
+                p=3, tau=4, seq 640, pallas_wagg:int4, remat on, 1 round
                 after 1: the first round's wagg_fused held to the plain
                 version leaf by leaf (1e-4) with its int4 payload checked
                 and its peak split at the aggregate; s/round, tokens/s,
@@ -210,7 +210,7 @@ Prints one JSON object per phase:
                 kernels vs the plain versions; bf16 each SSM layer on its
                 own inputs (output and gradients)
   ssm_lm_train  Trainer.run, WASGD+, mamba2-370m at full width and depth,
-                lm_train's settings, 2 rounds after 1: s/round,
+                lm_train's settings, 1 round after 1: s/round,
                 tokens/s, peak, launches (ssd_chunk 2 x 48 x tau a round
                 with remat), one profiled round
   moe_agree     olmoe-1b-7b at full width (64 experts, top 8): decode
@@ -221,9 +221,18 @@ Prints one JSON object per phase:
                 model's sensitivity to a one-ulp change
   olmoe_serve   serve on olmoe-1b-7b at full width in bf16
   olmoe_train   Trainer.run, WASGD+, olmoe-1b-7b at full width and depth,
-                p=4, remat on, 2 rounds after 1: the experts one copy,
+                p=4, remat on, 1 round after 1: the experts one copy,
                 wagg_fused once per worker leaf and never on an expert
-                leaf; s/round, tokens/s, peak, one profiled round
+                leaf; s/round, tokens/s, peak, one profiled round; round
+                0's h, theta and two leaves kept for mesh_olmoe
+  mesh_olmoe    olmoe_train's round 0 again without a mesh (the run's own
+                spread), then olmoe-1b-7b at olmoe_train's settings
+                through rs_ag:f32 on a one-rank NCCL group (the experts
+                one copy, their gradient all-reduced): round 0's h, theta,
+                an expert leaf and a worker leaf within max(1e-6, 4 x the
+                spread) of olmoe_train's, relative; 1 timed round
+                (s/round, peak within 2 GiB of olmoe_train's, rmsnorm and
+                fused_ce launches, no wagg_fused) and 1 profiled round
   jamba_serve   jamba-v0.1-52b at full width with n_layers cut to 8 (one
                 period: 7 Mamba layers, 1 attention, MoE every other),
                 13.3B params in bf16: every kernel call of a prefill and
@@ -248,7 +257,7 @@ Prints one JSON object per phase:
                 prompts (4, 480, 4) codebook tokens, output (4, 96, 4);
                 48 decode_attn and 97 rmsnorm launches a step
   audio_train   Trainer.run, WASGD+, musicgen-large at full width and
-                depth, lm_train's settings at p 2 (remat on), 2 rounds
+                depth, lm_train's settings at p 2 (remat on), 1 round
                 after 1: s/round, tokens/s, peak, launches (wagg_fused 435
                 a round), one profiled round
   vlm_train     the same on llama-3.2-vision-11b with n_layers cut from 40
@@ -274,7 +283,7 @@ Prints one JSON object per phase:
                 round, spsgd and easgd within 1e-6 relative after the
                 first; s/round each way
   mesh_lm       gemma3-1b at lm_train's settings through rs_ag:f32 with
-                pipeline="parity" on the group, 1 + 2 rounds: round 0's h
+                pipeline="parity" on the group, 1 + 1 rounds: round 0's h
                 and theta bitwise the meshless einsum:f32 round's, its
                 aggregated params within 1e-6 relative of that round's;
                 rmsnorm and fused_ce launches a round, s/round, peak, one
@@ -291,6 +300,14 @@ Prints one JSON object per phase:
                 params= against cfg.param_count() and one worker's numel, the
                 telemetry read back, the flat checkpoint restored bitwise,
                 the kernels launched
+  examples      examples/torch_train_e2e.py at its ~100M config (JAX's
+                flags, 3 rounds, a sharded checkpoint each round, metrics
+                JSONL, the consensus evaluated on 4 held-out batches) and
+                examples/torch_serve_demo.py on the card, in process:
+                their own asserts, the e2e header, rmsnorm and fused_ce
+                launches against its steps and evaluation batches, and
+                paged_decode_attn, rmsnorm, decode_attn and ssd_chunk
+                launched by the demo
 
 then the ``kernels`` summary, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` as the last
@@ -346,7 +363,7 @@ LM_AGREE_P = 2                  # workers in lm_agree (two gradient trees)
 # settings at p=3 with the int4 payload; remat on (the config's), the
 # leaf-wise update; params and gradients are 31.25 GiB each at p=3
 LM3B_ARCH = "stablelm-3b"
-LM3B = {**LM, "p": 3, "warmup_rounds": 1, "rounds": 2,
+LM3B = {**LM, "p": 3, "warmup_rounds": 1, "rounds": 1,
         "backend": "pallas_wagg:int4"}
 LM3B_LEAF = (3, 2560 * 6912)    # p=3 x one stablelm-3b MLP matrix
 # yi-6b served at full width in bf16 (GQA group 8, head_dim 128)
@@ -373,15 +390,15 @@ SSD_TOL = 1e-5
 
 # SSM training: mamba2-370m at full width and depth with lm_train's
 # settings (p 4, tau 4, b_local 1, seq 640, lr 0.03, pallas_wagg:f32,
-# remat as configured: on), 1 + 2 rounds, not more: the whole script has
+# remat as configured: on), 1 + 1 rounds, not more: the whole script has
 # to fit its time limit
-SSM_LM = {**LM, "warmup_rounds": 1, "rounds": 2}
+SSM_LM = {**LM, "warmup_rounds": 1, "rounds": 1}
 # olmoe-1b-7b at full width and depth: served in bf16 with the serve
 # smoke's settings, and trained with lm_train's settings at p 4, remat on,
-# 1 + 2 rounds; the experts are one f32 copy (their params and gradients
+# 1 + 1 rounds; the experts are one f32 copy (their params and gradients
 # 48.0 GiB), the other 476M params four copies (14.2 GiB)
 OLMOE_ARCH = "olmoe-1b-7b"
-OLMOE_TRAIN = {**LM, "warmup_rounds": 1, "rounds": 2}
+OLMOE_TRAIN = {**LM, "warmup_rounds": 1, "rounds": 1}
 # jamba-v0.1-52b at full width, n_layers cut from 32 to 8: one period of
 # its 1:7 interleave (layers 0-6 Mamba, 7 attention; MoE on 1, 3, 5, 7),
 # 13.3B params initialised in bf16
@@ -392,12 +409,12 @@ JAMBA_LAYERS = 8
 # ServeEngine at LEGACY's settings: media (4, 1600, 4096) float32 from the
 # seed, and (4, 480, 4) codebook prompts. Both trained with lm_train's
 # settings at p 2 (musicgen's f32 params and gradients are 48.5 GiB at
-# p 2, 72.8 at p 3), 1 + 2 rounds; llama-3.2-vision as one period at full
+# p 2, 72.8 at p 3), 1 + 1 rounds; llama-3.2-vision as one period at full
 # width, n_layers cut from 40 to 5 (layers 0-3 self-attention, 4 cross:
 # 2.18B params; all 40 layers' f32 params and gradients are 81 GB at p 1)
 VLM_ARCH = "llama-3.2-vision-11b"
 AUDIO_ARCH = "musicgen-large"
-MEDIA_TRAIN = {**LM, "p": 2, "warmup_rounds": 1, "rounds": 2}
+MEDIA_TRAIN = {**LM, "p": 2, "warmup_rounds": 1, "rounds": 1}
 VLM_TRAIN_LAYERS = 5
 # decode_attn's new shapes, (b, kv, g, hd, S): a vision cross layer over
 # its 1600 media positions, a vision self-attention layer over vlm_serve's
@@ -2721,9 +2738,9 @@ def phase_lm_remat(cfg, dev):
     (``update``: new params beside the old and the gradients) and
     leaf-wise (``apply``, the round's), with max_memory_allocated over
     each; (c) a fresh trainer each way, 1 warm-up and 1 timed round:
-    s/round and peak, then 1 unprofiled and 1 profiled round (device busy
-    time, idle share, kernel launches and the top kernels: where remat's
-    recompute spends its time)."""
+    s/round and peak, then 1 profiled round (device busy time, idle share
+    against the timed round's wall, kernel launches and the top kernels:
+    where remat's recompute spends its time)."""
     import torch
     from repro_torch.configs import WASGDConfig
     from repro_torch.core import replicate_workers
@@ -2792,9 +2809,9 @@ def phase_lm_remat(cfg, dev):
                              REMAT["warmup_rounds"])
         peak = torch.cuda.max_memory_allocated() / gib
         done = REMAT["warmup_rounds"] + REMAT["rounds"]
-        wall1 = run_lm_rounds(tr, ds, batches, 1, done)
+        wall1 = wall / REMAT["rounds"]
         with device_profile() as prof:
-            wall_prof = run_lm_rounds(tr, ds, batches, 1, done + 1)
+            wall_prof = run_lm_rounds(tr, ds, batches, 1, done)
         losses = tr.losses()
         if not np.isfinite(losses).all():
             raise AssertionError(f"lm_remat: losses {losses}")
@@ -3185,9 +3202,9 @@ def phase_lm3b_train(dev):
     round holds every leaf's wagg_fused call to the plain version (1e-4)
     and checks its int4 payload (int8, |q| <= 7), and splits the round's
     peak memory at the aggregate (the local steps', then the
-    aggregate's). Then 1 more warm-up round, 3 timed rounds (s/round,
-    tokens/s, peak, launches of rmsnorm, fused_ce and wagg_fused), 1
-    unprofiled and 1 profiled round (idle share)."""
+    aggregate's). Then ``LM3B``'s timed rounds (s/round,
+    tokens/s, peak, launches of rmsnorm, fused_ce and wagg_fused) and 1
+    profiled round (idle share against the timed rounds' wall)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import backends
@@ -3253,9 +3270,9 @@ def phase_lm3b_train(dev):
     if launches != want:
         raise AssertionError(f"lm3b_train: launches {launches}, want {want}")
     done = warm + rounds
-    wall1 = run_lm_rounds(tr, ds, batches, 1, done)
+    wall1 = wall / rounds
     with device_profile() as prof:
-        wall_prof = run_lm_rounds(tr, ds, batches, 1, done + 1)
+        wall_prof = run_lm_rounds(tr, ds, batches, 1, done)
     losses = tr.losses()
     if not np.isfinite(losses).all():
         raise AssertionError(f"lm3b_train: losses {losses}")
@@ -3284,13 +3301,13 @@ def phase_lm3b_train(dev):
 
 
 LM3B_F32 = {**LM3B, "backend": "pallas_wagg:f32", "warmup_rounds": 1,
-            "rounds": 2}
+            "rounds": 1}
 
 
 def phase_lm3b_f32(dev, int4_s_per_round):
     """``lm3b_train``'s run with the f32 payload (pallas_wagg:f32) in place
-    of int4, a fresh trainer once that one is freed: 1 warm-up and 2
-    timed rounds, s/round beside int4's, peak, launches."""
+    of int4, a fresh trainer once that one is freed: 1 warm-up and 1
+    timed round, s/round beside int4's, peak, launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.wagg import wagg_fused
@@ -3571,14 +3588,36 @@ def _worker_slice(params, w):
     return params[w]
 
 
-def lm_train_run(cfg, st, phase, dev):
+def round0_snapshot(keys, out):
+    """A ``serve_hook`` that puts round 0's params of the flat ``keys``
+    (host copies, float32) in ``out``; the round's h and theta are read
+    from the history afterwards (``round0_of``)."""
+    from repro_torch.checkpoint.io import _flatten
+
+    def hook(r, params, axes):
+        if r == 0:
+            flat = _flatten(params)
+            out.update({k: flat[k].detach().float().cpu() for k in keys})
+    return hook
+
+
+def round0_of(tr, leaves):
+    return {"h": np.asarray(tr.history[0]["h"], np.float64),
+            "theta": np.asarray(tr.history[0]["theta"], np.float64),
+            **{k: v.double().numpy() for k, v in leaves.items()}}
+
+
+def lm_train_run(cfg, st, phase, dev, round0=None):
     """WASGD+ on ``cfg`` at ``st``'s settings through Trainer.run (a fresh
     trainer, random weights from seed 0, f32 params): ``warmup_rounds``,
     then ``rounds`` timed rounds (s/round, tokens/s, peak memory; launches
     of rmsnorm, fused_ce, wagg_fused and ssd_chunk against the round's
     counts: wagg_fused once per worker leaf and on nothing else, the
-    shapes it was handed recorded), then 1 unprofiled and 1 profiled
-    round (device busy time, idle share, top kernels)."""
+    shapes it was handed recorded), then 1 profiled round (device busy
+    time, idle share against the timed rounds' wall, top kernels). ``round0`` (a
+    dict) receives round 0's h, theta and the params of the flat keys
+    ``MESH_OLMOE_KEYS`` on the host (``mesh_olmoe`` holds its round to
+    them)."""
     import torch
     from repro_torch.core import is_worker_leaf
     from repro_torch.kernels.fused_ce import fused_ce_fwd
@@ -3601,7 +3640,12 @@ def lm_train_run(cfg, st, phase, dev):
                 + sum(x.numel() for x, ax in pairs if not is_worker_leaf(ax)))
     del pairs           # the round replaces the leaves: keep no old ones
     warm, rounds, tau = st["warmup_rounds"], st["rounds"], st["tau"]
-    warm_s = run_lm_rounds(tr, ds, batches, warm, 0)
+    leaves0 = {}
+    warm_s = run_lm_rounds(
+        tr, ds, batches, warm, 0, serve_hook=None if round0 is None
+        else round0_snapshot(MESH_OLMOE_KEYS, leaves0))
+    if round0 is not None:
+        round0.update(round0_of(tr, leaves0))
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_fwd.launches = add_rmsnorm_fwd.launches = 0
     fused_ce_fwd.launches = wagg_fused.launches = ssd_chunk.launches = 0
@@ -3634,9 +3678,9 @@ def lm_train_run(cfg, st, phase, dev):
         raise AssertionError(f"{phase}: wagg_fused was handed other leaves "
                              f"than the worker leaves")
     done = warm + rounds
-    wall1 = run_lm_rounds(tr, ds, batches, 1, done)
+    wall1 = wall / rounds
     with device_profile() as prof:
-        wall_prof = run_lm_rounds(tr, ds, batches, 1, done + 1)
+        wall_prof = run_lm_rounds(tr, ds, batches, 1, done)
     losses = tr.losses()
     if not np.isfinite(losses).all():
         raise AssertionError(f"{phase}: losses {losses}")
@@ -3782,12 +3826,13 @@ def phase_olmoe_serve(cfg, eng):
     return rec
 
 
-def phase_olmoe_train(cfg, dev):
+def phase_olmoe_train(cfg, dev, round0):
     """WASGD+ on olmoe-1b-7b at full width and depth (6.92B params: 6.44B
     in the experts, one copy; f32 params, bf16 compute, remat on),
     ``OLMOE_TRAIN``'s settings: wagg_fused once per worker leaf a round
-    and never on an expert leaf."""
-    return lm_train_run(cfg, OLMOE_TRAIN, "olmoe_train", dev)
+    and never on an expert leaf. ``round0`` receives round 0's h, theta
+    and two leaves (``mesh_olmoe``'s reference)."""
+    return lm_train_run(cfg, OLMOE_TRAIN, "olmoe_train", dev, round0)
 
 
 def hybrid_agree(cfg, params, dev):
@@ -5566,7 +5611,7 @@ MESH_AGREE = (("shard_map:f32", False), ("rs_ag:f32", False),
               ("auto", False))
 MESH_TIMED = ("shard_map:f32", "rs_ag:f32", "rs_ag:bf16", "rs_ag:int8",
               "rs_ag:int4", "einsum:f32", "pallas_wagg:f32")
-MESH_LM = {**LM, "backend": "rs_ag:f32", "warmup_rounds": 1, "rounds": 2}
+MESH_LM = {**LM, "backend": "rs_ag:f32", "warmup_rounds": 1, "rounds": 1}
 # mesh_baselines: each baseline rule on CNN6 at baselines' settings, 1 + 3
 # rounds under the group and without it
 MESH_BASELINES = {"warmup_rounds": 1, "rounds": 3}
@@ -6133,6 +6178,212 @@ def phase_launch_train(cfg, dev):
     return rec
 
 
+# mesh_olmoe: olmoe-1b-7b at OLMOE_TRAIN's settings through rs_ag:f32 on the
+# one-rank NCCL group (the experts one copy, their gradient all-reduced
+# over the worker group), round 0 held to olmoe_train's, then 1 timed and
+# 1 profiled round. Round 0's h, theta and the two leaves of
+# MESH_OLMOE_KEYS (an expert leaf and a worker leaf) may differ from
+# olmoe_train's by MESH_OLMOE_SPREAD times the difference between two
+# meshless round 0s of this run (the MoE backward's index adds run in
+# another order each time), and always by MESH_OLMOE_FLOOR relative
+# (float32 summation order: rs_ag's aggregate against wagg_fused's)
+MESH_OLMOE = {**OLMOE_TRAIN, "backend": "rs_ag:f32", "warmup_rounds": 1,
+              "rounds": 1}
+MESH_OLMOE_KEYS = ("layers//L0//moe//experts//w_up", "layers//L0//attn//wq")
+MESH_OLMOE_SPREAD = 4.0
+MESH_OLMOE_FLOOR = 1e-6
+# the examples on the card: torch_train_e2e at its ~100M config (JAX's
+# flags, 3 rounds: a sharded checkpoint every round) and torch_serve_demo
+EXAMPLES = {"e2e_rounds": 3, "e2e_tau": 4, "eval_batches": 4}
+
+
+def olmoe_round0(cfg, dev, st, mesh=None):
+    """A fresh olmoe trainer at ``st``'s settings (on ``mesh`` if given)
+    after its round 0: the trainer, its dataset and batches, round 0's h,
+    theta and ``MESH_OLMOE_KEYS`` leaves on the host, and the round's
+    seconds."""
+    tr, ds = new_lm_trainer(cfg, dev, st, mesh=mesh), lm_dataset(cfg, st)
+    batches = ds.batches()
+    leaves = {}
+    wall = run_lm_rounds(tr, ds, batches, 1, 0, serve_hook=round0_snapshot(
+        MESH_OLMOE_KEYS, leaves))
+    return tr, ds, batches, round0_of(tr, leaves), wall
+
+
+def phase_mesh_olmoe(cfg, dev, ref, olmoe_peak_gib):
+    """olmoe-1b-7b at full width and depth (the experts one f32 copy, no
+    worker axis) through ``rs_ag:f32`` on a one-rank NCCL group: round 0
+    against ``olmoe_train``'s round 0 (``ref``) within the run's own
+    spread (``MESH_OLMOE``'s comment), then 1 timed round (s/round, peak
+    beside olmoe_train's, launches of rmsnorm and fused_ce, none of
+    wagg_fused) and 1 profiled round (idle share)."""
+    import torch
+    from repro_torch.core import is_worker_leaf
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.tree import tree_leaves
+    gib = 2 ** 30
+    tr, _, _, again, rerun_s = olmoe_round0(cfg, dev, OLMOE_TRAIN)
+    del tr
+    torch.cuda.empty_cache()
+    with nccl_mesh(dev) as mesh:
+        tr, ds, batches, got, warm_s = olmoe_round0(cfg, dev, MESH_OLMOE,
+                                                    mesh)
+        experts = [tuple(x.shape) for x, ax in zip(
+            tree_leaves(tr.state.params), tree_leaves(tr.axes))
+            if not is_worker_leaf(ax)]
+        torch.cuda.reset_peak_memory_stats()
+        counters = (rmsnorm_fwd, add_rmsnorm_fwd, fused_ce_fwd, wagg_fused)
+        for k in counters:
+            k.launches = 0
+        wall = run_lm_rounds(tr, ds, batches, 1, 1)
+        peak = torch.cuda.max_memory_allocated() / gib
+        launches = {"rmsnorm": rmsnorm_fwd.launches,
+                    "rmsnorm_fused": add_rmsnorm_fwd.launches,
+                    "fused_ce": fused_ce_fwd.launches,
+                    "wagg_fused": wagg_fused.launches}
+        with device_profile() as prof:
+            wall_prof = run_lm_rounds(tr, ds, batches, 1, 2)
+        summary = device_summary(prof, wall, 12)
+        losses = tr.losses()
+        del tr, batches
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    spread = {k: rel(again[k], ref[k]) for k in ref}
+    dev_ = {k: rel(got[k], ref[k]) for k in ref}
+    tol = {k: max(MESH_OLMOE_FLOOR, MESH_OLMOE_SPREAD * spread[k])
+           for k in ref}
+    tau = MESH_OLMOE["tau"]
+    norms, fused = norms_per_step(cfg)
+    want = {"rmsnorm": tau * norms, "rmsnorm_fused": tau * fused,
+            "fused_ce": tau, "wagg_fused": 0}
+    m = cfg.moe
+    checks = {"round0_within_tolerance": all(dev_[k] <= tol[k] for k in ref),
+              "experts_one_copy": experts and all(
+                  e == (m.n_experts, cfg.d_model, m.d_ff_expert)
+                  or e == (m.n_experts, m.d_ff_expert, cfg.d_model)
+                  for e in experts if len(e) == 3),
+              "launches": launches == want,
+              "peak_within_2_gib": abs(peak - olmoe_peak_gib) <= 2.0,
+              "finite": bool(np.isfinite(losses).all())}
+    rec = {"phase": "mesh_olmoe", "arch": cfg.name, **MESH_OLMOE,
+           "group": "nccl, world 1", "checks": checks,
+           "round0_rel_dev_vs_olmoe_train": dev_,
+           "round0_rel_spread_meshless_rerun": spread,
+           "round0_tolerance": tol, "tolerance_rule": (
+               f"max({MESH_OLMOE_FLOOR}, {MESH_OLMOE_SPREAD} x the rerun's "
+               f"spread), relative to max|olmoe_train's|"),
+           "shared_leaf_shapes": sorted(set(experts)),
+           "launches": launches, "launches_want": want,
+           "seconds_per_round": wall, "round0_s": warm_s,
+           "meshless_rerun_round0_s": rerun_s,
+           "peak_mem_gib": peak, "olmoe_train_peak_mem_gib": olmoe_peak_gib,
+           "profile": {"rounds": 1, "wall_ms_profiled": wall_prof * 1e3,
+                       **summary},
+           "losses": [float(v) for v in losses]}
+    if not all(checks.values()):
+        raise AssertionError(f"mesh_olmoe: {rec}")
+    return rec
+
+
+def load_example(name):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(dev):
+    """The port's examples as a user runs them, on their default device
+    (cuda), in this process: ``torch_train_e2e`` at its ~100M config
+    (``EXAMPLES``' rounds, its metrics and checkpoints in a temporary
+    directory; rmsnorm and fused_ce launches counted against its local
+    steps and its 4 evaluation batches) and ``torch_serve_demo`` (its own
+    asserts; paged_decode_attn, rmsnorm, decode_attn and ssd_chunk
+    launched)."""
+    import contextlib as ctxlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn, paged_decode_attn
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.kernels.wagg import wagg_fused
+    counters = {"rmsnorm": rmsnorm_fwd, "rmsnorm_fused": add_rmsnorm_fwd,
+                "fused_ce": fused_ce_fwd, "wagg_fused": wagg_fused,
+                "paged_decode_attn": paged_decode_attn,
+                "decode_attn": decode_attn, "ssd_chunk": ssd_chunk}
+
+    def run(fn):
+        for k in counters.values():
+            k.launches = 0
+        buf = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctxlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        return (out, buf.getvalue().splitlines(),
+                {k: v.launches for k, v in counters.items()},
+                time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    e2e = load_example("torch_train_e2e")
+    rounds = EXAMPLES["e2e_rounds"]
+    with tempfile.TemporaryDirectory() as d:
+        metrics_path, ck = os.path.join(d, "m.jsonl"), os.path.join(d, "ck")
+        (tr, held), lines, e2e_launches, e2e_s, e2e_peak = run(
+            lambda: e2e.main(["--rounds", str(rounds), "--metrics",
+                              metrics_path, "--ckpt", ck]))
+        n_records = len(open(metrics_path).read().splitlines())
+        ckpts = sorted(os.listdir(ck))
+    losses = tr.losses()
+    del tr
+    torch.cuda.empty_cache()
+    cfg = e2e.model_100m()
+    norms, fused = norms_per_step(cfg)
+    calls = rounds * EXAMPLES["e2e_tau"] + EXAMPLES["eval_batches"]
+    want = {"rmsnorm": calls * norms, "rmsnorm_fused": calls * fused,
+            "fused_ce": calls}
+    demo = load_example("torch_serve_demo")
+    _, demo_lines, demo_launches, demo_s, demo_peak = run(lambda: demo.main(
+        []))
+    torch.cuda.empty_cache()
+    checks = {
+        "e2e_header": lines[0] == (
+            f"model={cfg.name} params={cfg.param_count():,} workers=4 "
+            f"tau={EXAMPLES['e2e_tau']}"),
+        "e2e_launches": {k: e2e_launches[k] for k in want} == want,
+        "e2e_outputs": n_records == rounds and ckpts == [
+            f"round_{r}" for r in range(1, rounds + 1)]
+        and bool(np.isfinite(losses).all())
+        and all(np.isfinite(v) for v in held.values()),
+        "serve_demo_ok": demo_lines[-1] == "serving demo OK",
+        "serve_demo_kernels": all(demo_launches[k] > 0 for k in (
+            "paged_decode_attn", "rmsnorm", "decode_attn", "ssd_chunk"))}
+    rec = {"phase": "examples", "checks": checks,
+           "train_e2e": {"config": cfg.name, "params": cfg.param_count(),
+                         "rounds": rounds, "launches": e2e_launches,
+                         "launches_want": want, "wall_s": e2e_s,
+                         "peak_mem_gib": e2e_peak, "held_out": held,
+                         "losses": [float(v) for v in losses],
+                         "stdout": lines},
+           "serve_demo": {"launches": demo_launches, "wall_s": demo_s,
+                          "peak_mem_gib": demo_peak, "stdout": demo_lines}}
+    if not all(checks.values()):
+        raise AssertionError(f"examples: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6298,7 +6549,12 @@ def main():
     olmoe_serve = run_phase(phase_olmoe_serve, ocfg, oeng)
     del oeng
     torch.cuda.empty_cache()
-    olmoe_train = run_phase(phase_olmoe_train, ocfg, dev)
+    olmoe_round0 = {}
+    olmoe_train = run_phase(phase_olmoe_train, ocfg, dev, olmoe_round0)
+    torch.cuda.empty_cache()
+    mesh_olmoe = run_phase(phase_mesh_olmoe, ocfg, dev, olmoe_round0,
+                           olmoe_train["peak_mem_gib"])
+    del olmoe_round0
     torch.cuda.empty_cache()
     jamba = run_phase(phase_jamba_serve, dev)
     torch.cuda.empty_cache()
@@ -6317,6 +6573,9 @@ def main():
     torch.cuda.empty_cache()
     vlm_train = run_phase(phase_vlm_train, dev)
     media_train = {"audio_train": audio_train, "vlm_train": vlm_train}
+    torch.cuda.empty_cache()
+    examples = run_phase(phase_examples, dev)
+    demo = examples["serve_demo"]["launches"]
 
     t = timing["ring512"]
     w = wagg_timing["cnn6_round/none"]
@@ -6342,6 +6601,7 @@ def main():
         "yi_serve_launches": yi_serve["launches"],
         "olmoe_serve_launches": olmoe_serve["launches"],
         "jamba_serve_launches": jamba["launches"]["paged_decode_attn"],
+        "examples_serve_demo_launches": demo["paged_decode_attn"],
         **{f"{arch}_linear1024": {k: timing[arch][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")} for arch in PAGED_GQA},
@@ -6419,6 +6679,10 @@ def main():
         "ssm_lm_train_launches": ssm_lm["launches"]["rmsnorm"],
         "olmoe_serve_launches": olmoe_serve["rmsnorm_launches"],
         "olmoe_train_launches": olmoe_train["launches"]["rmsnorm"],
+        "mesh_olmoe_launches": mesh_olmoe["launches"]["rmsnorm"],
+        "examples_train_e2e_launches": examples["train_e2e"]["launches"][
+            "rmsnorm"],
+        "examples_serve_demo_launches": demo["rmsnorm"],
         "jamba_serve_launches": jamba["launches"]["rmsnorm"],
         "vlm_serve_launches": vlm_serve["launches"]["rmsnorm"],
         "audio_serve_launches": audio_serve["launches"]["rmsnorm"],
@@ -6445,6 +6709,9 @@ def main():
         "lm3b_train_launches": lm3b["launches"]["fused_ce"],
         "ssm_lm_train_launches": ssm_lm["launches"]["fused_ce"],
         "olmoe_train_launches": olmoe_train["launches"]["fused_ce"],
+        "mesh_olmoe_launches": mesh_olmoe["launches"]["fused_ce"],
+        "examples_train_e2e_launches": examples["train_e2e"]["launches"][
+            "fused_ce"],
         **{f"{k}_launches": v["launches"]["fused_ce"]
            for k, v in media_train.items()}}, {
         "name": "decode_attn", "route": "cuda",
@@ -6467,6 +6734,7 @@ def main():
         "audio_serve_launches": audio_serve["launches"]["decode_attn"],
         "vlm_serve_profile": vlm_serve["decode_attn_device"],
         "audio_serve_profile": audio_serve["decode_attn_device"],
+        "examples_serve_demo_launches": demo["decode_attn"],
         **{layer: {k: da_timing[layer][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernels_per_call")}
@@ -6493,6 +6761,7 @@ def main():
         "ssd_train_check_launches_per_call": [
             c["launches"] for c in ssd_train["cases"]],
         "jamba_serve_launches": jamba["launches"]["ssd_chunk"],
+        "examples_serve_demo_launches": demo["ssd_chunk"],
         "prefill_b4": {k: ssd_timing["prefill_b4"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bytes_ms", "f32_ops_ms",
             "bound_by")}}]})

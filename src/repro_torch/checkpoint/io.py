@@ -21,8 +21,9 @@ write: shard ``s`` belongs to rank ``s % S``, which receives the rows of
 its keys one key at a time (``shardmap_agg.gather_rows_to``) on the
 caller's thread, every rank in the same order; the writer thread writes
 only this rank's files, rank 0 the manifest, which records the global
-``(w, ...)`` shapes. The files are the meshless ``save_sharded`` ones
-with ``n_shards`` = S (the default under a mesh). ``restore(rows=)``
+``(w, ...)`` shapes; over a ``"model"`` axis only its index 0 writes.
+The files are the meshless ``save_sharded`` ones with ``n_shards`` = S
+(the default under a mesh). ``restore(rows=)``
 reads a rank's rows of the worker-stacked keys alone: the members are
 stored uncompressed, so a row range is one byte range of its file.
 
@@ -441,7 +442,10 @@ def gather_for_save(tree: Any, mesh, row_keys: FrozenSet[str],
     are bin-packed by their global bytes over ``n_shards`` (default S)
     shards; shard ``s`` belongs to rank ``s % S``, which receives every
     rank's rows of each of its row keys, one key at a time. Returns this
-    rank's keys (whole arrays, new tensors on the device) and its part."""
+    rank's keys (whole arrays, new tensors on the device) and its part.
+    Over a mesh axis other than the worker axes (``"model"``) only the
+    ranks at its index 0 gather and write; the others' worker groups
+    hold the same rows and write nothing."""
     from repro_torch.core import shardmap_agg as smagg
     n_ranks = smagg.mesh_worker_shards(mesh)
     me = smagg.shard_index(mesh)
@@ -451,6 +455,8 @@ def gather_for_save(tree: Any, mesh, row_keys: FrozenSet[str],
     bins = _assign_shards({k: e[2] for k, e in entries.items()},
                           max(1, n_shards or n_ranks))
     mine: Dict[str, Any] = {}
+    if smagg.replica_index(mesh) != 0:
+        return mine, MeshSave(bins, [], None)
     for s, keys in enumerate(bins):
         owner = s % n_ranks
         for k in keys:
@@ -610,9 +616,14 @@ class AsyncCheckpointer:
             self._q.put(None)
             self._thread.join()
         if self._mesh is not None:
+            # the writers (the replica at index 0) wait for each other, and
+            # then every replica for its writer
             import torch.distributed as dist
             from repro_torch.core import shardmap_agg as smagg
             dist.barrier(group=smagg.worker_group(self._mesh))
+            replicas = smagg.replica_group(self._mesh)
+            if replicas is not None:
+                dist.barrier(group=replicas)
         self._raise_pending()
 
     def close(self):

@@ -24,7 +24,8 @@ from repro_torch.core.backends import (AggregationContext, ComposedBackend,
                                        register_schedule, resolve_spec,
                                        select_auto_spec, worker_leaf_bytes)
 from repro_torch.core.codecs import get_codec
-from repro_torch.core.energy import record_indices, record_mask
+from repro_torch.core.energy import (estimation_error, record_indices,
+                                     record_mask)
 from repro_torch.core.membership import (MembershipEvent, MembershipSchedule,
                                          WorkerSet, make_chaos_schedule,
                                          resize_comm_state, resize_opt_state,
@@ -44,7 +45,8 @@ __all__ = [
     "async_backend_name", "available_backends", "available_codecs",
     "available_schedules", "available_specs", "backend_name_from_config",
     "build_async_round", "build_split_async_round", "canonical_spec",
-    "communicate", "compute_theta", "context_from_config", "fma_late_join",
+    "communicate", "compute_theta", "context_from_config",
+    "estimation_error", "fma_late_join",
     "get_backend", "get_codec", "grouped_order", "is_worker_leaf",
     "judge_scores", "make_chaos_schedule", "make_schedule",
     "map_worker_leaves", "masked_compute_theta", "measure_round_times",

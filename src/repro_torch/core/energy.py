@@ -1,5 +1,6 @@
 """Loss-energy recording (paper Sec. 3.3, Eq. 26 and Alg. 2
-``RecordIndex``), a numpy copy of ``repro/core/energy.py``.
+``RecordIndex``), a numpy copy of ``repro/core/energy.py``, and the
+estimation error of Eq. 27.
 
 ``record_mask`` marks which of the tau in-round steps add their losses to
 the worker's energy: the last ``m/c`` steps of each of the ``c`` round
@@ -9,6 +10,7 @@ forward pass.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def record_indices(tau: int, m: int, c: int) -> np.ndarray:
@@ -30,3 +32,9 @@ def record_mask(tau: int, m: int, c: int) -> np.ndarray:
     mask = np.zeros((tau,), bool)
     mask[record_indices(tau, m, c)] = True
     return mask
+
+
+def estimation_error(theta, theta_true) -> torch.Tensor:
+    """Eq. 27: sum_i |theta_i - theta_true_i|, in [0, 2] for two weight
+    vectors (tensors or arrays; a 0-d tensor)."""
+    return (torch.as_tensor(theta) - torch.as_tensor(theta_true)).abs().sum()

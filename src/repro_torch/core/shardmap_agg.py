@@ -29,12 +29,18 @@ Three more moves of rows serve the rest of the trainer under a mesh:
 it) and ``move_rows`` (a membership resize: the survivors' rows point to
 point to the rank that holds them after it).
 
-A mesh axis other than ``"pod"``/``"data"`` (JAX's ``"model"``) must have
-size 1: model parallelism is not ported (ROADMAP.md queue 1.11).
+A mesh axis other than ``"pod"``/``"data"`` (JAX's ``"model"``) holds
+replicas: JAX's specs name only the worker axes, so each worker row is
+replicated over the others, and each index on them runs the round of the
+worker axes alone. The worker group of a rank is the ranks that share its
+coordinates on every other axis, its shards in the row-major order of
+the worker coordinates; the mesh may lay any ranks out in any order
+(``_Group``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,9 +50,19 @@ from repro_torch.core.aggregate import fma_late_join, is_worker_leaf
 from repro_torch.tree import tree_map
 
 WORKER_AXES = ("pod", "data")
-MODEL_AXIS_NOT_PORTED = ("a mesh axis other than 'pod'/'data' of size > 1 "
-                         "(model or expert parallelism) is not ported "
-                         "(ROADMAP.md queue 1.11)")
+
+
+class _Group(NamedTuple):
+    """The ranks that share this rank's coordinates on every axis but
+    ``axes``. ``ranks``: their global ranks in the row-major order of their
+    coordinates on ``axes`` (the shard order); ``index``: this rank's
+    position there; ``to_group[s]``: the process-group rank of position
+    ``s`` (a group orders its ranks by their global rank), None where the
+    two orders agree."""
+    group: object
+    ranks: Tuple[int, ...]
+    index: int
+    to_group: Optional[Tuple[int, ...]]
 
 
 def _worker_axes_in(mesh) -> Tuple[str, ...]:
@@ -54,17 +70,63 @@ def _worker_axes_in(mesh) -> Tuple[str, ...]:
     return tuple(a for a in WORKER_AXES if a in names)
 
 
+def _other_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.mesh_dim_names if a not in WORKER_AXES)
+
+
 def check_mesh(mesh) -> None:
-    """Raises unless the mesh's every axis of size > 1 is a worker axis."""
+    """Raises unless the mesh names a worker axis."""
     names = mesh.mesh_dim_names
     if not names or not _worker_axes_in(mesh):
         raise ValueError(f"a WASGD mesh names its worker axes {WORKER_AXES} "
                          f"(got mesh_dim_names={names})")
-    for i, a in enumerate(names):
-        if a not in WORKER_AXES and mesh.mesh.shape[i] > 1:
-            raise NotImplementedError(f"mesh axis {a!r} of size "
-                                      f"{mesh.mesh.shape[i]}: "
-                                      f"{MODEL_AXIS_NOT_PORTED}")
+
+
+def _group_over(mesh, axes: Tuple[str, ...]) -> _Group:
+    """This rank's ``_Group`` over ``axes``, made once per mesh and cached
+    on it. One axis: the mesh's own group of that dimension. Every rank of
+    the default group over ``axes``: the default group. Otherwise every
+    such group of the mesh is made with ``dist.new_group``, by every rank
+    of the default group in the same order (the first call is then
+    collective over the default group, ranks outside the mesh included)."""
+    cache = mesh.__dict__.setdefault("_wasgd_groups", {})
+    if axes in cache:
+        return cache[axes]
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in dims]
+    rows = mesh.mesh.permute(rest + dims).reshape(
+        -1, math.prod(mesh.mesh.shape[i] for i in dims)).tolist()
+    me = dist.get_rank()
+    mine = next((row for row in rows if me in row), None)
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0]) if mine is not None else None
+    elif len(rows) == 1 and sorted(mine or ()) == list(
+            range(dist.get_world_size())):
+        group = dist.group.WORLD
+    else:
+        group = None
+        for row in rows:
+            g = dist.new_group(row)
+            if row is mine:
+                group = g
+    out = _Group(None, (), -1, None)
+    if mine is not None:
+        order = sorted(mine)
+        to_group = tuple(order.index(r) for r in mine)
+        out = _Group(group, tuple(mine), mine.index(me),
+                     None if to_group == tuple(range(len(mine)))
+                     else to_group)
+    cache[axes] = out
+    return out
+
+
+def _worker(mesh) -> _Group:
+    check_mesh(mesh)
+    g = _group_over(mesh, _worker_axes_in(mesh))
+    if g.group is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+    return g
 
 
 def mesh_worker_shards(mesh) -> int:
@@ -76,25 +138,33 @@ def mesh_worker_shards(mesh) -> int:
 
 
 def worker_group(mesh):
-    """The process group over the worker axes, whose rank order is the
-    shards' row-major order. With both ``pod`` and ``data`` that group
-    is the whole mesh, which must then be the default group's ranks in
-    order (as ``init_device_mesh`` lays them out)."""
+    """The process group of this rank's worker shards: the ranks that
+    share its coordinates on every axis other than ``pod``/``data``. None
+    on a rank outside the mesh, whose call still takes its part in making
+    the mesh's groups (``_group_over``)."""
     check_mesh(mesh)
-    axes = _worker_axes_in(mesh)
-    if len(axes) == 1:
-        return mesh.get_group(axes[0])
-    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
-        raise NotImplementedError(
-            "a ('pod', 'data') mesh over a subset or a permutation of the "
-            "default group's ranks; build it with init_device_mesh over "
-            "every rank")
-    return dist.group.WORLD
+    return _group_over(mesh, _worker_axes_in(mesh)).group
+
+
+def replica_index(mesh) -> int:
+    """This rank's row-major coordinate over the mesh's other axes (JAX's
+    ``"model"``): 0 on the replica that writes a checkpoint."""
+    other = _other_axes(mesh)
+    return _group_over(mesh, other).index if other else 0
+
+
+def replica_group(mesh):
+    """The process group of the ranks that hold this rank's worker rows
+    (its coordinates on the worker axes, any on the others); None where
+    the other axes are all of size 1."""
+    if mesh.mesh.numel() == mesh_worker_shards(mesh):
+        return None
+    return _group_over(mesh, _other_axes(mesh)).group
 
 
 def shard_index(mesh) -> int:
     """This rank's shard: its row-major coordinate over the worker axes."""
-    return dist.get_rank(worker_group(mesh))
+    return _worker(mesh).index
 
 
 def local_workers(w: int, mesh) -> int:
@@ -133,12 +203,17 @@ def local_theta(theta: torch.Tensor, n_local: int, mesh) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     """Every shard's rows of a worker-stacked tensor, in worker order:
     ``(w / S, ...)`` on each rank -> ``(w, ...)`` on every rank."""
-    s = mesh_worker_shards(mesh)
+    g = _worker(mesh)
+    s = len(g.ranks)
     x = x.contiguous()
     out = torch.empty((x.shape[0] * s,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x, group=worker_group(mesh))
-    return out
+    dist.all_gather_into_tensor(out, x, group=g.group)
+    if g.to_group is None:
+        return out
+    # the group's order to the shards'
+    return out.reshape((s, -1) + tuple(x.shape[1:]))[list(g.to_group)] \
+        .reshape(out.shape)
 
 
 def all_reduce_(x: torch.Tensor, mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -148,7 +223,7 @@ def all_reduce_(x: torch.Tensor, mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 
 def _global_rank(mesh, shard: int) -> int:
-    return dist.get_global_rank(worker_group(mesh), shard)
+    return _worker(mesh).ranks[shard]
 
 
 def broadcast_row(x: torch.Tensor, k: int, mesh) -> torch.Tensor:
@@ -169,15 +244,17 @@ def gather_rows_to(x: torch.Tensor, owner: int, mesh) -> Optional[
         torch.Tensor]:
     """Every shard's rows of a worker-stacked tensor, in worker order, on
     shard ``owner`` only (``(w, ...)``; None on the other ranks)."""
+    g = _worker(mesh)
+    s = len(g.ranks)
     x = x.contiguous()
     out = parts = None
-    if shard_index(mesh) == owner:
-        out = torch.empty((x.shape[0] * mesh_worker_shards(mesh),)
-                          + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=x.device)
-        parts = list(out.chunk(mesh_worker_shards(mesh)))
-    dist.gather(x, gather_list=parts, dst=_global_rank(mesh, owner),
-                group=worker_group(mesh))
+    if g.index == owner:
+        out = torch.empty((x.shape[0] * s,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        parts = list(out.chunk(s))
+        if g.to_group is not None:       # the list is in the group's order
+            parts = [parts[g.to_group.index(k)] for k in range(s)]
+    dist.gather(x, gather_list=parts, dst=g.ranks[owner], group=g.group)
     return out
 
 
@@ -250,11 +327,14 @@ def reduce_scatter_phase(payload: torch.Tensor, theta: torch.Tensor, mesh,
     until ``all_gather_phase`` waits on ``work``."""
     t = local_theta(theta, payload.shape[0], mesh).float()
     contrib = (t[:, None] * payload.float()).sum(dim=0).to(wire_dtype)
-    s = mesh_worker_shards(mesh)
+    g = _worker(mesh)
+    s = len(g.ranks)
+    if g.to_group is not None:     # group rank j receives chunk j
+        contrib = contrib.reshape(s, -1)[
+            [g.to_group.index(j) for j in range(s)]].reshape(-1)
     out = torch.empty(contrib.shape[0] // s, dtype=wire_dtype,
                       device=contrib.device)
-    work = dist.reduce_scatter_tensor(out, contrib,
-                                      group=worker_group(mesh),
+    work = dist.reduce_scatter_tensor(out, contrib, group=g.group,
                                       async_op=async_op)
     return (out, work) if async_op else out
 

@@ -6,8 +6,9 @@ across pods (``core/shardmap_agg.py``).
 
 JAX's ``make_production_mesh`` lays TPU pods out as (pod, data, model)
 slices of 256 or 512 chips; it has no counterpart (ROADMAP.md queue 1.9).
-A ``"model"`` dimension of size > 1 is model parallelism
-(``parallel/sharding.py``), which is not ported either.
+A ``"model"`` dimension holds replicas: as in JAX's Trainer, whose
+shard_map specs name only the worker axes, each index on it runs the whole
+round of its worker rows (no tensor parallelism).
 """
 from __future__ import annotations
 
@@ -15,21 +16,21 @@ import torch.distributed as dist
 
 
 def make_host_mesh(data: int = 1, model: int = 1):
-    """A ``("data",)`` mesh over the ``data`` ranks of the initialised
-    default process group, as JAX's ``make_host_mesh`` spans the host's
-    devices: on ``cuda`` for an NCCL group, else on ``cpu``. Call it on
-    every rank."""
+    """A mesh over the ``data * model`` ranks of the initialised default
+    process group, as JAX's ``make_host_mesh`` spans the host's devices:
+    ``("data",)`` with ``model`` 1, else ``("data", "model")``; on
+    ``cuda`` for an NCCL group, else on ``cpu``. Call it on every rank."""
     from torch.distributed.device_mesh import init_device_mesh
-    if model != 1:
-        raise NotImplementedError(
-            f"make_host_mesh(model={model}): a 'model' mesh axis of size "
-            f"> 1 (model parallelism) is not ported (ROADMAP.md queue 1.11)")
     if not dist.is_initialized():
         raise RuntimeError(
             "make_host_mesh needs an initialised process group "
             "(torch.distributed.init_process_group, or torchrun)")
-    if data != dist.get_world_size():
-        raise ValueError(f"make_host_mesh(data={data}) over a group of "
-                         f"{dist.get_world_size()} ranks")
+    if data * model != dist.get_world_size():
+        raise ValueError(f"make_host_mesh(data={data}, model={model}) over "
+                         f"a group of {dist.get_world_size()} ranks")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))
+    if model == 1:
+        return init_device_mesh(device_type, (data,),
+                                mesh_dim_names=("data",))
+    return init_device_mesh(device_type, (data, model),
+                            mesh_dim_names=("data", "model"))

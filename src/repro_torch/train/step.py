@@ -19,9 +19,14 @@ the energies and the batch (its rows of the worker-major batch, leading
 dim ``B / S``) are that shard's. The energies, and every per-worker
 metric, are all-gathered over the worker group before the policy, so
 every rank computes the same theta, policy state, Judge scores and
-metrics, and the aggregate runs through the spec's collectives. Leaves
-without a worker axis (JAX's ``ep_data`` experts) are not ported under a
-mesh (ROADMAP.md queue 1.11).
+metrics, and the aggregate runs through the spec's collectives. A leaf
+without the worker axis (JAX's one-copy ``ep_data`` experts) is whole on
+every rank: its gradient, each rank's sum over its workers, is summed
+over the worker group in place and divided by the worker count, the
+gradient of the mean loss over every worker as JAX takes it, the same
+bits on every rank, so every rank applies the same update to its copy.
+Over a mesh axis other than the worker axes (``"model"``) each index runs
+this round alone, a replica.
 """
 from __future__ import annotations
 
@@ -199,16 +204,6 @@ def no_comm_rule() -> Callable:
 PIPELINE_MODES = ("parity", "speculative")
 
 
-def check_mesh_axes(axes: Dict, mesh) -> None:
-    """Under a mesh every leaf must carry the worker axis."""
-    if mesh is not None and not all(agg.is_worker_leaf(ax)
-                                    for ax in tree_leaves(axes)):
-        raise NotImplementedError(
-            "a leaf without the worker axis (JAX's 'ep_data' experts, one "
-            "copy) under a mesh is not ported (ROADMAP.md queue 1.11); "
-            "train with expert_copies=True or without a mesh")
-
-
 def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
                  n_workers: int, mesh=None) -> types.SimpleNamespace:
     """The round's building blocks: batch reshape, the tau-step local
@@ -218,7 +213,6 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
     Under ``mesh`` the params and batches are this shard's
     ``n_local`` worker rows, and ``gather`` collects every worker's
     values of a per-worker vector."""
-    check_mesh_axes(axes, mesh)
     n_local = smagg.local_workers(n_workers, mesh)
 
     def gather(x):
@@ -239,7 +233,8 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
         worker leaf, so the gradient of the summed losses holds each
         worker's own gradient. A shared leaf (no worker axis) receives the
         sum of the workers' gradients, divided by p: their mean, as the
-        gradient of the mean loss gives it in the JAX package.
+        gradient of the mean loss gives it in the JAX package; under a mesh
+        the sum is this shard's, all-reduced over the worker group first.
         (``vmap(torch.func.grad_and_value(loss))`` gives the same
         gradients, but runs its backward with ``create_graph=True``, which
         keeps the backward's intermediates alive until it ends: the
@@ -253,13 +248,17 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
                 losses.sum(), tree_leaves(tracked), allow_unused=True))
 
         def grad_of(x, d):
-            # a shared leaf's gradient is divided in place: the tuple of
-            # gradients stays alive until the last leaf, and a new tensor
-            # per shared leaf would hold a second copy of them all (24 GiB
-            # for olmoe-1b-7b's experts)
+            # a shared leaf's gradient is all-reduced (under a mesh) and
+            # divided in place: the tuple of gradients stays alive until
+            # the last leaf, and a new tensor per shared leaf would hold a
+            # second copy of them all (24 GiB for olmoe-1b-7b's experts)
             g = next(flat)
             g = torch.zeros_like(x) if g is None else g
-            return g if d == 0 else g.div_(n_workers)
+            if d == 0:
+                return g
+            if mesh is not None:
+                g = smagg.all_reduce_(g.contiguous(), mesh)
+            return g.div_(n_workers)
 
         return tree_map(grad_of, tracked, in_dims), losses.detach()
 

@@ -25,7 +25,8 @@ policy, so every rank computes the same theta, policy state and order
 decision, and ``history``/``losses()`` are the same on every rank. Every
 rule runs there, a resize moves the rows between ranks
 (``core/membership``), and each rank writes its own shards of a
-checkpoint and reads its own rows back (``checkpoint/io``).
+checkpoint and reads its own rows back (``checkpoint/io``). A leaf
+without the worker axis is one copy on every rank, updated alike on each.
 """
 from __future__ import annotations
 
@@ -133,7 +134,11 @@ class Trainer:
         aggregation specs (``shard_map``, ``rs_ag`` and their ``async_``
         forms need it). Every rank must make the same calls: ``resize``,
         ``save_checkpoint`` and ``resume`` are collective too. A leaf
-        without the worker axis raises ``NotImplementedError``."""
+        without the worker axis (JAX's one-copy ``ep_data`` experts) stays
+        whole on every rank, and so does its optimizer state; the round
+        all-reduces its gradient. A mesh axis other than the worker axes
+        (``"model"``) holds replicas: each index on it runs the round of
+        the worker axes alone, and only its index 0 writes checkpoints."""
         if pipeline is not None and rule not in ("wasgd", "wasgd+"):
             raise ValueError(
                 f"pipeline={pipeline!r} threads the seam thunk through the "
@@ -156,9 +161,9 @@ class Trainer:
         comm_state = init_comm_state(rule, params, axes, n_workers,
                                      wcfg=tcfg.wasgd)
         if mesh is not None:                 # this shard's rows
-            step_mod.check_mesh_axes(axes, mesh)
             rows = smagg.local_rows(n_workers, mesh)
-            params = tree_map(lambda x: x[rows].contiguous(), params)
+            params = tree_map(lambda x, ax: x[rows].contiguous()
+                              if is_worker_leaf(ax) else x, params, axes)
         self.optimizer = make_optimizer(
             tcfg.optimizer, tcfg.learning_rate, tcfg.momentum,
             tcfg.weight_decay)

@@ -562,18 +562,22 @@ def test_phased_round_on_a_mesh_is_the_fused_round(mesh1):
 # ---------------------------------------------------------------------------
 
 def test_make_host_mesh(tmp_path):
+    """``make_host_mesh(data, model)`` spans ``data * model`` ranks (a
+    (data 2, model 2) mesh runs in ``tests/test_torch_mesh_experts.py``);
+    ``model`` 1 keeps the ``("data",)`` mesh."""
     with pytest.raises(RuntimeError, match="initialised process group"):
         make_host_mesh(1)
-    with pytest.raises(NotImplementedError, match="queue 1.11"):
-        make_host_mesh(1, model=2)
     with world1(tmp_path / "store"):
         mesh = make_host_mesh(1)
         assert mesh.mesh_dim_names == ("data",)
         assert mesh.device_type == "cpu"
         assert tsm.mesh_worker_shards(mesh) == 1
         assert tsm.local_rows(4, mesh) == slice(0, 4)
+        assert make_host_mesh(1, 1).mesh_dim_names == ("data",)
         with pytest.raises(ValueError, match="group of 1"):
             make_host_mesh(2)
+        with pytest.raises(ValueError, match="group of 1"):
+            make_host_mesh(1, model=2)
 
 
 def test_pod_data_mesh_of_one(tmp_path):
@@ -658,11 +662,26 @@ def test_baseline_rules_under_a_mesh_match_the_meshless_run(rule, mesh1):
                                        atol=_f32_tol(v.numpy()), err_msg=k)
 
 
-def test_out_of_scope_under_a_mesh_raises(mesh1):
-    """A leaf without the worker axis (JAX's one-copy experts) stays out
-    of scope under a mesh (the model axis: ``test_make_host_mesh``)."""
-    with pytest.raises(NotImplementedError, match="queue 1.11"):
-        _mlp_trainer(mesh1, expert_leaf=True)
+def test_out_of_scope_under_a_mesh_raises(mesh1, tmp_path):
+    """A leaf without the worker axis (JAX's one-copy experts) runs under
+    the mesh, whole on the rank, as without one; a mesh that names no
+    worker axis is what stays refused."""
+    X, y = common.dataset(0, False)
+    runs = []
+    for m in (mesh1, None):
+        tr = _mlp_trainer(m, expert_leaf=True)
+        tr.run(OrderedDataset({"x": X[:N_SAMPLES], "y": y[:N_SAMPLES]}, P,
+                              TAU, B_LOCAL, n_segments=2, seed=7), 3)
+        runs.append(tr)
+    meshed, plain = runs
+    assert meshed.state.params["router"].shape == (3,)
+    for k, v in plain.state.params.items():
+        np.testing.assert_allclose(meshed.state.params[k].numpy(), v.numpy(),
+                                   rtol=0, atol=_f32_tol(v.numpy()),
+                                   err_msg=k)
+    bad = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+    with pytest.raises(ValueError, match="worker axes"):
+        _mlp_trainer(bad)
 
 
 def test_resize_and_checkpoints_run_under_a_mesh(mesh1, tmp_path):

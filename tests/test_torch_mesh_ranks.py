@@ -21,7 +21,10 @@ held to the port's meshless round (held to JAX by the other port tests):
   rounding paths, each within the bound, over the rounds);
 * on every rank the same h, theta, Judge scores, losses, order seeds,
   measured-time arrivals and active sets;
-* the pipelined ``rs_ag`` round bitwise the unpipelined one.
+* the pipelined ``rs_ag`` round bitwise the unpipelined one;
+* in the 2 ranks, a ``(data 1, model 2)`` mesh: two replicas, each with
+  every worker row, the mesh schedules within 1e-6 of the meshless
+  aggregate.
 
 This file imports no JAX in the ranks; the ``auto`` expectations come from
 the JAX package's ``select_auto_spec`` in the parent, on a stand-in of a
@@ -261,19 +264,27 @@ def _auto_checks(mesh, out, expect):
 
 
 def _model_axis_check(out):
-    """A ("data", "model") mesh with a model axis of 2 is refused."""
+    """A ("data", "model") mesh with a model axis of 2: each rank is a
+    replica holding every worker row, and the mesh schedules give the
+    meshless aggregate of their codec within 1e-6."""
     from torch.distributed.device_mesh import init_device_mesh
-    bad = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
     params, axes = _tree()
-    local = {k: torch.as_tensor(v) for k, v in params.items()}
-    try:
-        B.get_backend("rs_ag:f32").aggregate(
-            local, axes, torch.full((W,), 1.0 / W), 0.9,
-            ctx=B.AggregationContext(mesh=bad))
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    out["checks"]["model_axis_refused"] = ["queue 1.11" in refused, refused]
+    full = {k: torch.as_tensor(v) for k, v in params.items()}
+    theta = torch.as_tensor(np.random.default_rng(4).dirichlet(
+        np.ones(W)).astype(np.float32))
+    want = B.get_backend("einsum:f32").aggregate(full, axes, theta, 0.9)
+    errs = {}
+    for spec in ("shard_map:f32", "rs_ag:f32"):
+        got = B.get_backend(spec).aggregate(
+            full, axes, theta, 0.9, ctx=B.AggregationContext(mesh=mesh))
+        errs[spec] = max(float((got[k] - want[k]).abs().max())
+                         for k in want)
+    out["checks"]["model_axis/replica_aggregate"] = [
+        smagg.mesh_worker_shards(mesh) == 1
+        and smagg.local_rows(W, mesh) == slice(0, W)
+        and max(errs.values()) <= 1e-6, errs]
+    out["model_axis_replica"] = smagg.replica_index(mesh)
 
 
 def _rank_main(rank, world, shape, dims, store, out_dir, expect):
@@ -366,4 +377,8 @@ def _hold(outs):
     ((2,), ("data",)), ((4,), ("data",)), ((2, 2), ("pod", "data"))],
     ids=["data2", "data4", "pod2xdata2"])
 def test_gloo_group_matches_the_meshless_round(tmp_path, shape, dims):
-    _hold(_spawn(tmp_path, shape, dims))
+    outs = _spawn(tmp_path, shape, dims)
+    _hold(outs)
+    if shape == (2,):
+        assert "model_axis/replica_aggregate" in outs[0]["checks"]
+        assert [o["model_axis_replica"] for o in outs] == [0, 1]
