@@ -24,8 +24,9 @@ through the pipelined round (bitwise the unpipelined one), records
 telemetry from every producer, runs the mesh schedules of decentralized
 WASGD on a one-rank NCCL group (CNN6 and gemma3-1b) with the baseline
 rules, elastic resizes and a sharded checkpoint under it, runs the
-training launcher on gemma3-1b, and checks that the served and the
-trained paths went through their kernels.
+training launcher on gemma3-1b, holds the dry run's prediction of the
+gemma3-1b round (a meta-device trace) to the measured round, and checks
+that the served and the trained paths went through their kernels.
 Prints one JSON object per phase:
 
   env           card, power limit, torch/CUDA versions, build time, ptxas
@@ -121,6 +122,14 @@ Prints one JSON object per phase:
                 losses, peak memory, launches of rmsnorm (4 L + 1 a step),
                 fused_ce and wagg_fused
   lm_train_profile device busy time, idle share and top kernels of a round
+  dryrun        the dry run (repro_torch.launch.dryrun, a meta-device trace
+                on the host) of lm_train's round on a one-card mesh: the
+                predicted state and batch bytes equal to the trainer's
+                (1%), the predicted peak within [0.5, 2] of lm_train's and
+                at or above the arguments, the predicted compute seconds
+                under lm_train_profile's device busy time; input_specs of
+                all 40 (arch, shape) combinations; no device byte
+                allocated, no kernel launched
   lm_pipeline   gemma3-1b, lm_train's settings, Trainer(pipeline="parity")
                 from the same seed and data for 2 + 8 rounds: bitwise
                 lm_train's rounds and params, the same launches a round,
@@ -2972,6 +2981,121 @@ def phase_lm_train_profile(cfg, tr, ds, batches):
     return {"phase": "lm_train_profile", "rounds": rounds,
             "wall_ms": wall * 1e3, "wall_ms_profiled": wall_prof * 1e3,
             **device_summary(prof, wall, 15)}
+
+
+def distinct_bytes(tree):
+    """Bytes of the tensors of ``tree`` (dicts, tuples, NamedTuples),
+    each storage counted once."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+    seen = {}
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[(t.device, st.data_ptr())] = st.nbytes()
+    return sum(seen.values())
+
+
+def phase_dryrun(cfg, tr, lm, lm_prof, dev):
+    """The dry run (``repro_torch.launch.dryrun``: a trace on the meta
+    device, on the host) of lm_train's round, on a one-card mesh with p
+    workers, against what lm_train measured on this card: the predicted
+    state and batch bytes equal to the trainer's state tensors' and its
+    batch's (distinct storages, 1%); the predicted peak (the plain
+    versions' temporaries) at or above the arguments and within [0.5, 2]
+    of lm_train's peak; the predicted compute seconds (FLOPs / 989e12)
+    under lm_train_profile's device busy time a round, beside its wall.
+    Then ``input_specs`` alone for all 40 (arch, shape) combinations. The
+    dry run allocates no device byte and launches no kernel."""
+    import torch
+    from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, InputShape,
+                                     TrainConfig, WASGDConfig, get_config)
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
+    from repro_torch.kernels.wagg import wagg_fused
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.parallel.sharding import MeshShape, leaves_with_axes
+    st = LM
+    shape = InputShape("lm_train", st["seq_len"],
+                       st["p"] * st["tau"] * st["b_local"], "train")
+    tcfg = TrainConfig(learning_rate=st["lr"], optimizer="sgd",
+                       wasgd=WASGDConfig(tau=st["tau"], beta=st["beta"],
+                                         backend=st["backend"]))
+    counters = (rmsnorm_fwd, add_rmsnorm_fwd, fused_ce_fwd, wagg_fused)
+    before = [c.launches for c in counters]
+    allocated = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(cfg.name, shape, False, tcfg, verbose=False,
+                         mesh=MeshShape({"data": 1}), workers=st["p"])
+    trace_s = time.perf_counter() - t0
+    if [c.launches for c in counters] != before:
+        raise AssertionError("dryrun: the meta trace launched a kernel")
+    if torch.cuda.memory_allocated(dev) != allocated:
+        raise AssertionError("dryrun: the meta trace allocated on the card")
+    pm = rec["port_memory"]
+    state_pred, batch_pred = pm["per_argument"]
+    state_bytes = distinct_bytes(tr.state)
+    first = next(iter(lm_dataset(cfg, st).batches()))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in first.items()}
+    batch_bytes = distinct_bytes(batch)
+    del batch
+    for name, pred, real in (("state", state_pred, state_bytes),
+                             ("batch", batch_pred, batch_bytes)):
+        if abs(pred - real) > 0.01 * real:
+            raise AssertionError(f"dryrun: predicted {name} bytes {pred}, "
+                                 f"the trainer's {real}")
+    gib = 2 ** 30
+    peak_ratio = pm["peak"] / (lm["peak_mem_gib"] * gib)
+    if pm["peak"] < pm["arguments"] or not 0.5 <= peak_ratio <= 2.0:
+        raise AssertionError(f"dryrun: predicted peak {pm['peak']} B, "
+                             f"arguments {pm['arguments']} B, lm_train's "
+                             f"peak {lm['peak_mem_gib']} GiB")
+    busy_s = lm_prof["device_busy_ms"] / 1e3 / lm_prof["rounds"]
+    wall_s = lm_prof["wall_ms"] / 1e3 / lm_prof["rounds"]
+    compute_s = rec["roofline"]["compute_s"]
+    if not 0 < compute_s <= busy_s:
+        raise AssertionError(f"dryrun: predicted compute {compute_s} s a "
+                             f"round, device busy {busy_s} s")
+    t1 = time.perf_counter()
+    combos = {}
+    for arch in ARCH_IDS:
+        acfg = get_config(arch)
+        for shp in INPUT_SHAPES:
+            wl = input_specs(acfg, shp, 16, TrainConfig(
+                wasgd=WASGDConfig(tau=1)))
+            leaves = [t for s, a in zip(wl.arg_shapes, wl.arg_axes)
+                      for t, _ in leaves_with_axes(s, a)]
+            if not all(t.is_meta for t in leaves):
+                raise AssertionError(f"dryrun: {arch} x {shp.name}: a "
+                                     f"leaf off the meta device")
+            combos[f"{arch}/{shp.name}"] = len(leaves)
+    specs_s = time.perf_counter() - t1
+    if torch.cuda.memory_allocated(dev) != allocated:
+        raise AssertionError("dryrun: input_specs allocated on the card")
+    return {"phase": "dryrun", "arch": cfg.name, **st,
+            "trace_s": trace_s, "t_trace_s": rec["t_trace_s"],
+            "dispatched_ops": rec["dispatched_ops"],
+            "flops": rec["hlo_flops_per_chip"],
+            "model_flops": rec["model_flops"],
+            "predicted": {"state_bytes": state_pred,
+                          "batch_bytes": batch_pred,
+                          "peak_bytes": pm["peak"],
+                          "peak_gib": pm["peak"] / gib,
+                          "compute_s": compute_s,
+                          "memory_s": rec["roofline"]["memory_s"],
+                          "op_bytes": rec["hlo_bytes_per_chip"]},
+            "measured": {"state_bytes": state_bytes,
+                         "batch_bytes": batch_bytes,
+                         "peak_gib": lm["peak_mem_gib"],
+                         "device_busy_s_per_round": busy_s,
+                         "wall_s_per_round": wall_s,
+                         "seconds_per_round": lm["seconds_per_round"]},
+            "peak_ratio": peak_ratio,
+            "compute_over_busy": compute_s / busy_s,
+            "compute_over_wall": compute_s / wall_s,
+            "input_specs": {"combinations": len(combos), "seconds": specs_s,
+                            "leaves": combos}}
 
 
 EVAL = {"n_batches": 4, "b": 4, "seq": 128, "seed": 999}
@@ -6489,6 +6613,7 @@ def main():
     lm = run_phase(phase_lm_train, cfg, tr, ds, batches)
     lm_ref = lm_snapshot(tr)
     lm_prof = run_phase(phase_lm_train_profile, cfg, tr, ds, batches)
+    run_phase(phase_dryrun, cfg, tr, lm, lm_prof, dev)
     done = LM["warmup_rounds"] + LM["rounds"] + 2 * LM_PROFILE_ROUNDS
     t2s = run_phase(phase_train_to_serve, cfg, tr, ds, batches, done, dev)
     tele_lm = telemetry_lm(cfg, tr, ds, batches,

@@ -1,7 +1,8 @@
 """The port's configs, with the same names, fields and defaults as
 ``repro/configs/base.py``: ``MoEConfig``, ``SSMConfig``, ``ModelConfig``
 (the fields and predicates the serving and training paths read),
-``WASGDConfig`` and ``TrainConfig``.
+``WASGDConfig``, ``TrainConfig`` and the dry run's four
+``INPUT_SHAPES``.
 
 The cross-attention fields (``cross_attn_every``, ``n_media_tokens``)
 and ``n_codebooks`` drive the vision and audio archs, as in JAX.
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -254,3 +255,23 @@ class TrainConfig:
     seq_len: int = 4096
     wasgd: WASGDConfig = WASGDConfig()
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned (seq_len, global_batch) workload."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+    window_override: Optional[int] = None   # sub-quadratic override for dense archs
+
+
+INPUT_SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4096, 256, "train"),
+    InputShape("prefill_32k", 32768, 32, "prefill"),
+    InputShape("decode_32k", 32768, 128, "decode"),
+    InputShape("long_500k", 524288, 1, "decode", window_override=8192),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}

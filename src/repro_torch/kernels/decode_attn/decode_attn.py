@@ -82,10 +82,10 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"inputs lie on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return decode_attn_ref(q, k, v, cache_len, window=window)
     if dev.type != "cuda":
-        raise ValueError(f"decode_attn runs on cpu or cuda, not {dev}")
+        raise ValueError(f"decode_attn runs on cpu, meta or cuda, not {dev}")
     _check(q, k, v)
     if isinstance(cache_len, torch.Tensor):
         if cache_len.shape != () or cache_len.dtype != torch.int32:

@@ -109,11 +109,12 @@ def paged_decode_attn(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"inputs lie on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return paged_decode_attn_ref(q, k_pool, v_pool, block_table, index,
                                      ring=ring, window=window)
     if dev.type != "cuda":
-        raise ValueError(f"paged_decode_attn runs on cpu or cuda, not {dev}")
+        raise ValueError(
+            f"paged_decode_attn runs on cpu, meta or cuda, not {dev}")
     _check(q, k_pool, v_pool, block_table, index)
     b, kv, g, hd = q.shape
     bs = k_pool.shape[1]

@@ -62,10 +62,10 @@ def fused_ce_fwd(logits: torch.Tensor, labels: torch.Tensor
         raise ValueError(f"logits on {logits.device}, labels on "
                          f"{labels.device}")
     dev = logits.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return fused_ce_fwd_ref(logits, labels)
     if dev.type != "cuda":
-        raise ValueError(f"fused_ce runs on cpu or cuda, not {dev}")
+        raise ValueError(f"fused_ce runs on cpu, meta or cuda, not {dev}")
     _check(logits, labels)
     v = logits.shape[-1]
     x = logits.contiguous()

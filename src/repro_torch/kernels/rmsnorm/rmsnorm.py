@@ -95,8 +95,8 @@ def _device_of(**tensors: torch.Tensor) -> torch.device:
         raise ValueError(", ".join(f"{name} on {t.device}"
                                    for name, t in tensors.items()))
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"rmsnorm runs on cpu or cuda, not {dev}")
+    if dev.type not in ("cpu", "meta", "cuda"):
+        raise ValueError(f"rmsnorm runs on cpu, meta or cuda, not {dev}")
     return dev
 
 
@@ -137,7 +137,7 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     """x: (..., d) float32/bfloat16; scale: (d,), or (G, d) with x
     (G, ..., d) (group g's rows take scale[g]). Returns (y in x's dtype,
     rstd (...,) float32)."""
-    if _device_of(x=x, scale=scale).type == "cpu":
+    if _device_of(x=x, scale=scale).type in ("cpu", "meta"):
         return rmsnorm_fwd_ref(x, scale, eps)
     _, y, rstd = _launch(x, None, scale, eps)
     return y, rstd
@@ -154,7 +154,7 @@ def add_rmsnorm_fwd(x: torch.Tensor, delta: torch.Tensor,
     once to x's dtype as torch's add; y = the norm of s; rstd). The
     launch counts in ``rmsnorm_fwd.launches`` (every launch of the kernel)
     and in ``add_rmsnorm_fwd.launches`` (the fused ones)."""
-    if _device_of(x=x, delta=delta, scale=scale).type == "cpu":
+    if _device_of(x=x, delta=delta, scale=scale).type in ("cpu", "meta"):
         return add_rmsnorm_fwd_ref(x, delta, scale, eps)
     return _launch(x, delta, scale, eps)
 

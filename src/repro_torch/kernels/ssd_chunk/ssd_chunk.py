@@ -87,10 +87,10 @@ def ssd_chunk(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"inputs lie on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return ssd_chunk_ref(xs, dt, a, B, C)
     if dev.type != "cuda":
-        raise ValueError(f"ssd_chunk runs on cpu or cuda, not {dev}")
+        raise ValueError(f"ssd_chunk runs on cpu, meta or cuda, not {dev}")
     _check(xs, dt, a, B, C)
     b, nc, L, nh, hd = xs.shape
     ds = B.shape[-1]

@@ -81,10 +81,10 @@ def wagg_fused(x: torch.Tensor, theta: torch.Tensor, beta: float,
         raise ValueError(f"inputs lie on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return wagg_fused_ref(x, theta, beta, payload=payload, active=active)
     if dev.type != "cuda":
-        raise ValueError(f"wagg_fused runs on cpu or cuda, not {dev}")
+        raise ValueError(f"wagg_fused runs on cpu, meta or cuda, not {dev}")
     theta = theta.to(torch.float32)
     _check(x, theta, payload, active)
     p, n = x.shape

@@ -5,7 +5,9 @@ names: the WASGD worker axis is ``("data",)``, or ``("pod", "data")``
 across pods (``core/shardmap_agg.py``).
 
 JAX's ``make_production_mesh`` lays TPU pods out as (pod, data, model)
-slices of 256 or 512 chips; it has no counterpart (ROADMAP.md queue 1.9).
+slices of 256 or 512 chips; it has no counterpart: the dry run
+(``launch/dryrun.py``) takes the production meshes' shapes alone
+(``dryrun.production_mesh``), since it places nothing.
 A ``"model"`` dimension holds replicas: as in JAX's Trainer, whose
 shard_map specs name only the worker axes, each index on it runs the whole
 round of its worker rows (no tensor parallelism).

@@ -23,10 +23,14 @@ NEG_INF = -1e30
 def attention_init(b: ParamBuilder, name: str, d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: int):
     s = b.scope(name)
-    s.param("wq", (d_model, n_heads, head_dim))
-    s.param("wk", (d_model, n_kv_heads, head_dim))
-    s.param("wv", (d_model, n_kv_heads, head_dim))
-    s.param("wo", (n_heads, head_dim, d_model))
+    s.param("wq", (d_model, n_heads, head_dim),
+            ("embed", "heads", "head_dim"))
+    s.param("wk", (d_model, n_kv_heads, head_dim),
+            ("embed", "kv_heads", "head_dim"))
+    s.param("wv", (d_model, n_kv_heads, head_dim),
+            ("embed", "kv_heads", "head_dim"))
+    s.param("wo", (n_heads, head_dim, d_model),
+            ("heads", "head_dim", "embed"))
 
 
 class KVCache(NamedTuple):

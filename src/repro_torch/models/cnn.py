@@ -24,12 +24,13 @@ from repro_torch.models.param import ParamBuilder, build
 
 def cnn6_init(b: ParamBuilder, n_classes: int = 10, in_ch: int = 1):
     """(1,28)C(16,24)M(16,12)C(32,8)M(32,4) + FC head (paper Sec. 5.2.1)."""
-    b.param("conv1_w", (16, in_ch, 5, 5), scale=0.1)
-    b.param("conv1_b", (16,), init="zeros")
-    b.param("conv2_w", (32, 16, 5, 5), scale=0.05)
-    b.param("conv2_b", (32,), init="zeros")
-    b.param("fc_w", (32 * 4 * 4, n_classes), scale=0.05)
-    b.param("fc_b", (n_classes,), init="zeros")
+    b.param("conv1_w", (16, in_ch, 5, 5), (None, None, None, None), scale=0.1)
+    b.param("conv1_b", (16,), (None,), init="zeros")
+    b.param("conv2_w", (32, 16, 5, 5), (None, None, None, None),
+            scale=0.05)
+    b.param("conv2_b", (32,), (None,), init="zeros")
+    b.param("fc_w", (32 * 4 * 4, n_classes), (None, None), scale=0.05)
+    b.param("fc_b", (n_classes,), (None,), init="zeros")
 
 
 def cnn6_apply(params: Dict, images: torch.Tensor) -> torch.Tensor:
@@ -45,13 +46,13 @@ def cnn6_apply(params: Dict, images: torch.Tensor) -> torch.Tensor:
 
 def mlp_init(b: ParamBuilder, d_in: int, d_hidden: int, n_classes: int,
              n_hidden_layers: int = 2):
-    b.param("w_in", (d_in, d_hidden))
-    b.param("b_in", (d_hidden,), init="zeros")
+    b.param("w_in", (d_in, d_hidden), (None, None))
+    b.param("b_in", (d_hidden,), (None,), init="zeros")
     for i in range(n_hidden_layers - 1):
-        b.param(f"w_{i}", (d_hidden, d_hidden))
-        b.param(f"b_{i}", (d_hidden,), init="zeros")
-    b.param("w_out", (d_hidden, n_classes))
-    b.param("b_out", (n_classes,), init="zeros")
+        b.param(f"w_{i}", (d_hidden, d_hidden), (None, None))
+        b.param(f"b_{i}", (d_hidden,), (None,), init="zeros")
+    b.param("w_out", (d_hidden, n_classes), (None, None))
+    b.param("b_out", (n_classes,), (None,), init="zeros")
 
 
 def mlp_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:

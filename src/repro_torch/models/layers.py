@@ -21,7 +21,7 @@ NormFn = Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
 # -- RMSNorm -------------------------------------------------------------------
 
 def rmsnorm_init(b: ParamBuilder, name: str, dim: int):
-    b.scope(name).param("scale", (dim,), init="ones")
+    b.scope(name).param("scale", (dim,), ("embed",), init="ones")
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6,
@@ -86,9 +86,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def mlp_init(b: ParamBuilder, name: str, d_model: int, d_ff: int):
     s = b.scope(name)
-    s.param("w_gate", (d_model, d_ff))
-    s.param("w_up", (d_model, d_ff))
-    s.param("w_down", (d_ff, d_model))
+    s.param("w_gate", (d_model, d_ff), ("embed", "ffn"))
+    s.param("w_up", (d_model, d_ff), ("embed", "ffn"))
+    s.param("w_down", (d_ff, d_model), ("ffn", "embed"))
 
 
 def mlp(params, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -102,9 +102,13 @@ def mlp(params, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
 def embed_init(b: ParamBuilder, name: str, vocab: int, d_model: int,
                n_codebooks: int = 0):
     """``tok`` is (V, d), or (n_q, V, d) with ``n_codebooks`` (audio)."""
-    shape = ((n_codebooks, vocab, d_model) if n_codebooks > 0
-             else (vocab, d_model))
-    b.scope(name).param("tok", shape, scale=d_model ** -0.5)
+    s = b.scope(name)
+    if n_codebooks > 0:
+        s.param("tok", (n_codebooks, vocab, d_model), (None, "vocab", "embed"),
+                scale=d_model ** -0.5)
+    else:
+        s.param("tok", (vocab, d_model), ("vocab", "embed"),
+                scale=d_model ** -0.5)
 
 
 def embed(params, tokens: torch.Tensor,
@@ -125,9 +129,11 @@ def embed(params, tokens: torch.Tensor,
 def head_init(b: ParamBuilder, name: str, d_model: int, vocab: int,
               n_codebooks: int = 0):
     """``w`` is (d, V), or (n_q, d, V) with ``n_codebooks`` (audio)."""
-    shape = ((n_codebooks, d_model, vocab) if n_codebooks > 0
-             else (d_model, vocab))
-    b.scope(name).param("w", shape)
+    s = b.scope(name)
+    if n_codebooks > 0:
+        s.param("w", (n_codebooks, d_model, vocab), (None, "embed", "vocab"))
+    else:
+        s.param("w", (d_model, vocab), ("embed", "vocab"))
 
 
 def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:

@@ -88,11 +88,14 @@ class ExpertMatmul(torch.autograd.Function):
 
 def moe_init(b: ParamBuilder, name: str, d_model: int, m: MoEConfig):
     s = b.scope(name)
-    s.param("router", (d_model, m.n_experts), scale=0.02)
+    s.param("router", (d_model, m.n_experts), ("embed", None), scale=0.02)
     e = s.scope("experts")
-    e.param("w_gate", (m.n_experts, d_model, m.d_ff_expert))
-    e.param("w_up", (m.n_experts, d_model, m.d_ff_expert))
-    e.param("w_down", (m.n_experts, m.d_ff_expert, d_model))
+    e.param("w_gate", (m.n_experts, d_model, m.d_ff_expert),
+            ("experts", "embed", "expert_ffn"))
+    e.param("w_up", (m.n_experts, d_model, m.d_ff_expert),
+            ("experts", "embed", "expert_ffn"))
+    e.param("w_down", (m.n_experts, m.d_ff_expert, d_model),
+            ("experts", "expert_ffn", "embed"))
 
 
 def _capacity(n_tokens: int, m: MoEConfig) -> int:

@@ -38,14 +38,14 @@ def ssm_init(b: ParamBuilder, name: str, d_model: int, cfg: SSMConfig):
     nh = cfg.n_heads(d_model)
     ds = cfg.d_state
     s = b.scope(name)
-    s.param("in_proj", (d_model, 2 * di + 2 * ds + nh))
-    s.param("conv_w", (cfg.conv_width, di + 2 * ds))
-    s.param("conv_b", (di + 2 * ds,), init="zeros")
-    s.param("A_log", (nh,), init="uniform", scale=1.0)
-    s.param("D", (nh,), init="ones")
-    s.param("dt_bias", (nh,), init="zeros")
-    s.param("norm_scale", (di,), init="ones")
-    s.param("out_proj", (di, d_model))
+    s.param("in_proj", (d_model, 2 * di + 2 * ds + nh), ("embed", "ssm_heads"))
+    s.param("conv_w", (cfg.conv_width, di + 2 * ds), ("conv", "ssm_heads"))
+    s.param("conv_b", (di + 2 * ds,), ("ssm_heads",), init="zeros")
+    s.param("A_log", (nh,), ("ssm_heads",), init="uniform", scale=1.0)
+    s.param("D", (nh,), ("ssm_heads",), init="ones")
+    s.param("dt_bias", (nh,), ("ssm_heads",), init="zeros")
+    s.param("norm_scale", (di,), ("ssm_heads",), init="ones")
+    s.param("out_proj", (di, d_model), ("ssm_heads", "embed"))
 
 
 def _split_proj(proj: torch.Tensor, di: int, ds: int, nh: int):

@@ -81,7 +81,7 @@ from repro_torch.models.attention import (KVCache, attention_init,
                                          flash_attention,
                                          flash_attention_windowed,
                                          merge_heads, proj_heads)
-from repro_torch.models.param import ParamBuilder, build
+from repro_torch.models.param import ParamBuilder, build, build_abstract
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -108,7 +108,7 @@ def _init_layer(b: ParamBuilder, cfg: ModelConfig, i: int):
             L.rmsnorm_init(s, "cross_norm", d)
             cross_attention_init(s, "cross", d, cfg.n_heads, cfg.n_kv_heads,
                                  cfg.head_dim)
-            s.param("cross_gate", (1,), init="zeros")
+            s.param("cross_gate", (1,), (None,), init="zeros")
     if cfg.layer_is_ssm(i):
         L.rmsnorm_init(s, "ssm_norm", d)
         SSM.ssm_init(s, "ssm", d, cfg.ssm)
@@ -139,6 +139,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     dtype = dtype_of(param_dtype or cfg.param_dtype)
     return build(functools.partial(_init_model, cfg=cfg), seed, dtype,
                  resolve_device(device))
+
+
+def abstract_params(cfg: ModelConfig, param_dtype=None) -> Tuple[Dict, Dict]:
+    """(the parameter tree as meta tensors, its logical-axes tree), as
+    JAX's ``abstract_params``: no byte is allocated."""
+    dtype = dtype_of(param_dtype or cfg.param_dtype)
+    return build_abstract(functools.partial(_init_model, cfg=cfg), dtype)
 
 
 def param_axes(params: Dict, _path: Tuple[str, ...] = ()) -> Dict:
@@ -394,7 +401,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     kv, hd)`` in ``dtype``, where ``size`` is the window for sliding-window
     layers (ring layout, slot ``p % size``) and ``max_len`` otherwise, and
     cross layers a second one, ``cross``, of ``(batch, n_media_tokens, kv,
-    hd)`` for the media's K/V; SSM layers an ``SSMState`` in float32."""
+    hd)`` for the media's K/V; SSM layers an ``SSMState`` in float32.
+    ``device="meta"`` gives the abstract cache (shapes only), the dry
+    run's counterpart of JAX's ``eval_shape`` of ``init_cache``."""
     dev = resolve_device(device)
     cache: Dict[str, Dict] = {}
     for i in range(cfg.n_layers):
@@ -417,6 +426,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                               torch.float32, dev)
         cache[f"L{i}"] = entry
     return cache
+
+
+def cache_axes(cfg: ModelConfig, long_context: bool = False) -> Dict:
+    """The logical-axes tree of ``init_cache``'s output, as JAX's
+    (``long_context`` is accepted and, as there, changes nothing: the
+    long-context rule table shards ``kv_seq``)."""
+    ax: Dict[str, Dict] = {}
+    for i in range(cfg.n_layers):
+        entry: Dict = {}
+        if cfg.layer_is_attn(i):
+            spec = ("batch", "kv_seq", "kv_heads", "head_dim")
+            entry["kv"] = KVCache(k=spec, v=spec)
+            if cfg.layer_is_cross_attn(i):
+                mspec = ("batch", "media", "kv_heads", "head_dim")
+                entry["cross"] = KVCache(k=mspec, v=mspec)
+        if cfg.layer_is_ssm(i):
+            entry["ssm"] = SSM.SSMState(
+                s=("batch", "ssm_heads", "ssm_state", None),
+                conv=("batch", None, "ssm_heads"))
+        ax[f"L{i}"] = entry
+    return ax
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
@@ -492,7 +522,8 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                cache: Dict, index: int, *, attn: Callable = decode_attn,
+                cache: Dict, index: int, media: Optional[torch.Tensor] = None,
+                *, attn: Callable = decode_attn,
                 norm: L.NormFn = rmsnorm_kernel
                 ) -> Tuple[torch.Tensor, Dict]:
     """One new token per sequence against the monolithic cache, as JAX's
@@ -505,7 +536,9 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     window; cross layers then attend over all ``n_media_tokens`` media
     positions of their ``cross`` cache with ``attn`` too; SSM layers step
     their state. The cache is written in place. Returns (logits (b, 1, V)
-    or (b, 1, n_q, V), cache)."""
+    or (b, 1, n_q, V), cache). ``media`` is taken and not read, as in
+    JAX's signature: the cross layers read the media's K/V that
+    ``prefill`` left in the cache."""
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, dt)
     rope = _rope(cfg, torch.full((x.shape[0], 1), index, device=x.device))

@@ -146,6 +146,7 @@ def test_vmap_rule_matches_a_loop_over_workers(labels_mapped):
 
 
 def test_wrapper_checks_and_devices():
+    from test_torch_dryrun import other_device
     with pytest.raises(TypeError, match="float32"):
         _check(torch.zeros(3, 5, dtype=torch.bfloat16),
                torch.zeros(3, dtype=torch.int32))
@@ -153,9 +154,9 @@ def test_wrapper_checks_and_devices():
         _check(torch.zeros(3, 5), torch.zeros(4, dtype=torch.int32))
     with pytest.raises(TypeError, match="int32 or int64"):
         _check(torch.zeros(3, 5), torch.zeros(3))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fused_ce_fwd(torch.zeros(3, 5, device="meta"),
-                     torch.zeros(3, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        fused_ce_fwd(other_device(torch.zeros(3, 5)),
+                     other_device(torch.zeros(3, dtype=torch.int32)))
     with pytest.raises(ValueError, match="labels on"):
         fused_ce_fwd(torch.zeros(3, 5),
                      torch.zeros(3, dtype=torch.int32, device="meta"))

@@ -143,13 +143,14 @@ def test_cpu_tensor_takes_plain_version_without_a_launch():
 
 
 def test_other_devices_never_take_the_plain_version():
+    from test_torch_dryrun import other_device
     q, kp, vp, tab = _torch(*_inputs(2, 1, 4, 32, 8, 4, seed=2))
     idx = torch.tensor([3, 30], dtype=torch.int32)
     with pytest.raises(ValueError, match="several devices"):
         paged_decode_attn(q.to("meta"), kp, vp, tab, idx)
-    meta = [t.to("meta") for t in (q, kp, vp, tab, idx)]
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        paged_decode_attn(*meta)
+    other = [other_device(t) for t in (q, kp, vp, tab, idx)]
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        paged_decode_attn(*other)
 
 
 def test_ring_capacity_must_match_table():

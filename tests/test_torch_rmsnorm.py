@@ -171,6 +171,7 @@ def test_vmap_rule_with_an_unmapped_x_and_nested_vmap():
 
 
 def test_wrapper_checks_and_devices():
+    from test_torch_dryrun import other_device
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="does not match"):
         _check(x, torch.zeros(7))
@@ -178,8 +179,8 @@ def test_wrapper_checks_and_devices():
         _check(x, torch.zeros(3, 8))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         _check(x.half(), torch.zeros(8))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        rmsnorm_fwd(x.to("meta"), torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        rmsnorm_fwd(other_device(x), other_device(torch.zeros(8)))
     with pytest.raises(ValueError, match="scale on"):
         rmsnorm_fwd(x, torch.zeros(8, device="meta"))
     assert vector_width(64, x) == 4
@@ -312,6 +313,7 @@ def test_fused_vmap_rule_matches_a_loop_over_workers(scale_mapped):
 
 
 def test_fused_wrapper_checks_and_devices():
+    from test_torch_dryrun import other_device
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="must match x"):
         _check(x, torch.zeros(8), torch.zeros(4, 7))
@@ -319,6 +321,6 @@ def test_fused_wrapper_checks_and_devices():
         _check(x, torch.zeros(8), x.bfloat16())
     with pytest.raises(ValueError, match="delta on"):
         add_rmsnorm_fwd(x, x.to("meta"), torch.zeros(8))
-    meta = x.to("meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        add_rmsnorm_fwd(meta, meta, torch.zeros(8, device="meta"))
+    other = other_device(x)
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        add_rmsnorm_fwd(other, other, other_device(torch.zeros(8)))

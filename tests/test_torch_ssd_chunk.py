@@ -154,6 +154,7 @@ def test_chunked_kernel_wrapper_takes_bf16_inputs():
 def test_wrapper_dispatch():
     """A CPU tensor takes the plain version without a launch; other devices
     and mixed devices raise; a sequence that is no chunk multiple raises."""
+    from test_torch_dryrun import other_device
     arrays = [torch.from_numpy(x)
               for x in _chunk_inputs(1, 2, 16, 2, 32, 16, seed=13)]
     before = ssd_chunk.launches
@@ -162,8 +163,8 @@ def test_wrapper_dispatch():
     assert ssd_chunk.launches == before
     with pytest.raises(ValueError, match="several devices"):
         ssd_chunk(arrays[0].to("meta"), *arrays[1:])
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ssd_chunk(*(x.to("meta") for x in arrays))
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        ssd_chunk(*(other_device(x) for x in arrays))
     (xs, dt, a, B, C), _ = _seq_inputs(1, 20, 2, 32, 16, seed=14)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_chunked_kernel(*(torch.from_numpy(x) for x in (xs, dt, a, B, C)),

@@ -131,11 +131,12 @@ def test_cpu_tensor_takes_plain_version_without_a_launch():
 
 
 def test_other_devices_never_take_the_plain_version():
+    from test_torch_dryrun import other_device
     x, theta, _, _ = _inputs(3, 10, "none", "none", seed=6)
     with pytest.raises(ValueError, match="several devices"):
         wagg_fused(_port(x).to("meta"), _port(theta), BETA)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        wagg_fused(_port(x).to("meta"), _port(theta).to("meta"), BETA)
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        wagg_fused(other_device(_port(x)), other_device(_port(theta)), BETA)
 
 
 @pytest.mark.parametrize("bad, match", [
