@@ -40,12 +40,16 @@ Prints one JSON object per phase:
                 g 8), jamba (kv 8, g 4) and olmoe (kv 16, g 1): b 4, hd 128,
                 528 of 1024 positions, bf16
   wagg_check    wagg_fused vs its plain version over x dtype x payload
-                (none, bf16, int8, int4 in int8) x mask x p x N
-  wagg_time     wagg_fused, plain version, two-call library reference and
-                bound at the CNN6 round's leaves and at a gemma3-1b MLP leaf;
-                the masked kernel at that leaf (one row inactive) against
-                GEMV + lerp + where; the int4 payload at a stablelm-3b MLP
-                leaf (p 3)
+                (none, bf16, int8, int4 in int8) x mask x p x N; grouped
+                wagg_fused_many calls over trees of mixed N with a
+                misaligned leaf and over 83 leaves (two launches), every
+                leaf bitwise the one-leaf call
+  wagg_time     wagg_fused, plain version, library call (torch.mm(M, x),
+                f32 without a payload), two-call reference and bound at
+                the CNN6 round's leaves (one grouped call) and at a
+                gemma3-1b MLP leaf; the masked kernel at that leaf (one row
+                inactive) against torch.mm and GEMV + lerp + where; the
+                int4 payload at a stablelm-3b MLP leaf (p 3)
   rmsnorm_check rmsnorm and the fused residual add (forward and backward)
                 vs their plain versions over dtype x d x rows x groups, and
                 unaligned rows; the fused sum bitwise equal to x + delta
@@ -108,7 +112,7 @@ Prints one JSON object per phase:
                 time; CNN6 with pallas_wagg:int4 through Trainer.run
   train         Trainer.run, WASGD+, CNN6 at its published width, p=8,
                 tau=8, 30 rounds: seconds per round, losses, peak memory,
-                launches == rounds x 6 worker leaves
+                launches == rounds (6 worker leaves in one launch)
   train_profile device busy time and idle share of 5 training rounds
   lm_agree      one local step of full-width gemma3-1b: per-worker losses
                 and gradients through the kernels vs the plain versions,
@@ -231,9 +235,10 @@ Prints one JSON object per phase:
   olmoe_serve   serve on olmoe-1b-7b at full width in bf16
   olmoe_train   Trainer.run, WASGD+, olmoe-1b-7b at full width and depth,
                 p=4, remat on, 1 round after 1: the experts one copy,
-                wagg_fused once per worker leaf and never on an expert
-                leaf; s/round, tokens/s, peak, one profiled round; round
-                0's h, theta and two leaves kept for mesh_olmoe
+                wagg_fused on every worker leaf once a round (grouped)
+                and never on an expert leaf; s/round, tokens/s, peak, one
+                profiled round; round 0's h, theta and two leaves kept for
+                mesh_olmoe
   mesh_olmoe    olmoe_train's round 0 again without a mesh (the run's own
                 spread), then olmoe-1b-7b at olmoe_train's settings
                 through rs_ag:f32 on a one-rank NCCL group (the experts
@@ -267,13 +272,13 @@ Prints one JSON object per phase:
                 48 decode_attn and 97 rmsnorm launches a step
   audio_train   Trainer.run, WASGD+, musicgen-large at full width and
                 depth, lm_train's settings at p 2 (remat on), 1 round
-                after 1: s/round, tokens/s, peak, launches (wagg_fused 435
-                a round), one profiled round
+                after 1: s/round, tokens/s, peak, launches (wagg_fused on
+                435 leaves a round in 6 launches), one profiled round
   vlm_train     the same on llama-3.2-vision-11b with n_layers cut from 40
                 to 5 (one period: 4 self layers, 1 cross layer; 2.18B
                 params) and a media leaf (n, 1600, 4096) float32 in the
                 dataset, riding the vmapped, rematerialised round
-                (wagg_fused 54 a round)
+                (wagg_fused on 54 leaves a round in 1 launch)
   mesh_agree    a one-rank NCCL group and a ("data",) DeviceMesh: one
                 aggregate of CNN6's worker-stacked params (p 8) through
                 shard_map:f32, rs_ag:{f32,bf16,int8,int4},
@@ -357,6 +362,9 @@ CNN6_LEAVES = 6
 # wagg_fused vs its plain version: relative to max|plain|
 WAGG_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 LM_LEAF = (4, 1152 * 6912)      # p=4 workers x one gemma3-1b MLP matrix
+# leaf sizes of wagg_check's grouped trees: one column, the vector path, and
+# two sizes not a multiple of 4
+WAGG_GROUP_N = (1, 1000, 4097, 2 ** 20 + 3)
 
 # WASGD+ training of gemma3-1b at full width and depth (the quickstart's
 # settings: SGD lr 0.03, beta 0.9, Boltzmann): seq_len 640 exceeds the
@@ -1090,11 +1098,120 @@ def rel_err(out, ref):
             / ref.float().abs().max().clamp_min(1e-30)).item()
 
 
+def wagg_group_tree(p, x_dtype, payload, mask, gen, dev, ns=None):
+    """A tree for the grouped wagg_fused_many: leaves of mixed sizes (``ns``,
+    default WAGG_GROUP_N) and one more of 1000 columns whose x and payload
+    rows start one element past an aligned address (a storage offset);
+    theta (p,) and the mask shared; an int payload's scale per leaf (float32,
+    the last one bfloat16)."""
+    import torch
+    ns = list(WAGG_GROUP_N if ns is None else ns)
+    xs, qs, scales = [], [], []
+    _, theta, _, act = wagg_inputs(p, 1, x_dtype, "none", mask, gen, dev)
+    for i, n in enumerate(ns + [1000]):
+        x, _, q, _ = wagg_inputs(p, n, x_dtype, payload, "none", gen, dev)
+        if i == len(ns):                    # misaligned rows
+            x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(p, n)
+            if q is not None:
+                q = torch.cat([q.new_zeros(1), q.reshape(-1)])[1:].view(p, n)
+        s = None
+        if payload in ("int8", "int4"):
+            s = torch.tensor((4.0 / (127 if payload == "int8" else 7))
+                             * (1 + 0.25 * i), device=dev)
+            if i == len(ns):
+                s = s.to(torch.bfloat16)
+        xs.append(x)
+        qs.append(q)
+        scales.append(s)
+    return xs, theta, qs, scales, act
+
+
+def wagg_group_case(xs, theta, beta, qs, scales, act, name):
+    """One wagg_fused_many call: every leaf bitwise equal to a one-leaf
+    wagg_fused call with the scale folded into theta (theta * scale, one
+    float32 rounding, as the kernel folds it) and within WAGG_TOL of the
+    plain version. Returns (launches, worst rel. err)."""
+    import torch
+    from repro_torch.kernels.wagg import (wagg_fused, wagg_fused_many,
+                                          wagg_fused_ref)
+    launches, leaves = wagg_fused.launches, wagg_fused.leaves
+    outs = wagg_fused_many(xs, theta, beta, payloads=qs, scales=scales,
+                           active=act)
+    launches = wagg_fused.launches - launches
+    if wagg_fused.leaves - leaves != len(xs):
+        raise AssertionError(f"wagg group {name}: leaves counter "
+                             f"{wagg_fused.leaves - leaves} for {len(xs)}")
+    worst = 0.0
+    for i, (x, q, s, out) in enumerate(zip(xs, qs, scales, outs)):
+        t = theta if s is None else theta * s.float()
+        one = wagg_fused(x, t, beta, payload=q, active=act)
+        ref = wagg_fused_ref(x, t, beta, payload=q, active=act)
+        torch.cuda.synchronize()
+        if out.shape != x.shape or out.dtype != x.dtype:
+            raise AssertionError(f"wagg group {name} leaf {i}: output "
+                                 f"{out.shape} {out.dtype}")
+        if not torch.equal(out, one):
+            raise AssertionError(f"wagg group {name} leaf {i} "
+                                 f"({tuple(x.shape)}): not bitwise the "
+                                 f"one-leaf call")
+        xname = str(x.dtype).split(".")[1]
+        rel = rel_err(out, ref)
+        if not rel <= WAGG_TOL[xname]:
+            raise AssertionError(f"wagg group {name} leaf {i}: rel_err "
+                                 f"{rel} > {WAGG_TOL[xname]}")
+        worst = max(worst, rel)
+    return launches, worst
+
+
+def wagg_group_cases(dev, beta):
+    """wagg_fused_many over trees of mixed leaf sizes plus a misaligned
+    leaf, over x dtype x payload x mask x p; and over MAX_LEAVES + 3
+    leaves (two launches)."""
+    import torch
+    from repro_torch.kernels.wagg import wagg as wagg_mod
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    worst, n_trees = {}, 0
+    for xd in (torch.float32, torch.bfloat16):
+        xname = str(xd).split(".")[1]
+        for payload in ("none", "bfloat16", "int8", "int4"):
+            for mask in ("none", "mixed", "one_active"):
+                for p in (1, 3, 8, 33):
+                    tree = wagg_group_tree(p, xd, payload, mask, gen, dev)
+                    name = f"{xname}/{payload}/{mask}/p{p}"
+                    launches, rel = wagg_group_case(*tree[:2], beta,
+                                                    *tree[2:], name)
+                    if launches != 1:
+                        raise AssertionError(f"wagg group {name}: "
+                                             f"{launches} launches, want 1")
+                    key = f"{xname}/{payload}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    n_trees += 1
+                    del tree
+            many = wagg_mod.MAX_LEAVES + 3
+            ns = [int(v) for v in torch.randint(1, 3000, (many - 1,),
+                                                generator=gen, device=dev)]
+            tree = wagg_group_tree(3, xd, payload, "mixed", gen, dev, ns=ns)
+            launches, _ = wagg_group_case(*tree[:2], beta, *tree[2:],
+                                          f"{xname}/{payload}/{many}")
+            if launches != 2:
+                raise AssertionError(f"wagg group of {many} leaves: "
+                                     f"{launches} launches, want 2")
+            n_trees += 1
+    return {"trees": n_trees, "leaf_n": list(WAGG_GROUP_N) + [1000],
+            "misaligned_leaf": "1000 columns, x and payload at a storage "
+                               "offset of one element",
+            "max_leaves_case": wagg_mod.MAX_LEAVES + 3,
+            "worst_rel_err": worst,
+            "bitwise": "every leaf equal to a one-leaf wagg_fused call"}
+
+
 def phase_wagg_check(dev):
     """wagg_fused against its plain version over x dtype x payload (none,
     bf16, int8, int4 values in [-7, 7] carried in int8) x mask x p x N
-    (N = 1000 takes the four-column path; 1, 4097 and 2^20 + 3,
-    which are not multiples of 4, the one-column path)."""
+    (N = 1000 takes the vector path; 1, 4097 and 2^20 + 3, which are not
+    multiples of 4, the strided path, or the vector path and a scalar tail
+    at p = 1); then the grouped cases (``wagg_group_cases``)."""
     import torch
     from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
     gen = torch.Generator(device=dev)
@@ -1134,6 +1251,7 @@ def phase_wagg_check(dev):
             "p": [1, 3, 8, 33], "n": [1, 1000, 4097, 2 ** 20 + 3],
             "masks": ["none", "mixed", "one_active"],
             "worst_rel_err": worst, "tol": WAGG_TOL,
+            "grouped": wagg_group_cases(dev, beta),
             "tol_reason": "rel. to max|plain|; f32: summation order over "
                           "<= 33 rows; bf16 output: one bf16 ulp (2^-8)"}
 
@@ -1147,14 +1265,30 @@ def wagg_work(p, n, x_bytes, q_bytes, masked=False):
             5 * p * n)
 
 
+def eq10_matrix(theta, beta, active=None):
+    """M (p, p) with out = M @ x for Eq. 10 on a float32 x that is its own
+    payload: (1 - beta) I + beta 1 theta^T, an inactive row theta^T."""
+    import torch
+    p = theta.shape[0]
+    m = ((1.0 - beta) * torch.eye(p, device=theta.device)
+         + beta * theta[None, :].expand(p, p))
+    if active is not None:
+        m = torch.where(active[:, None] != 0, m, theta[None, :].expand(p, p))
+    return m.contiguous()
+
+
 def phase_wagg_time(dev):
     """wagg_fused at the shapes of the CNN6 round (its 6 worker leaves at
-    p=8, one call = one round's aggregation), at one gemma3-1b MLP leaf
-    (p=4, N=1152*6912, f32 x: 127 MB, past the 50 MB L2) and, with the
-    int4 payload of the stablelm-3b run, at one stablelm-3b MLP leaf (p=3,
-    N=2560*6912)."""
+    p=8 in one wagg_fused_many call, as the schedule hands them over: one
+    call = one round's aggregation), at one gemma3-1b MLP leaf (p=4,
+    N=1152*6912, f32 x: 127 MB, past the 50 MB L2) and, with the int4
+    payload of the stablelm-3b run, at one stablelm-3b MLP leaf (p=3,
+    N=2560*6912). The library call, where one PyTorch call computes the
+    function (f32 x, no payload), is torch.mm(M, x) a leaf; the two-call
+    GEMV + lerp stays beside it."""
     import torch
-    from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
+    from repro_torch.kernels.wagg import (wagg_fused, wagg_fused_many,
+                                          wagg_fused_ref)
     from repro_torch.models import init_cnn6
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1171,29 +1305,34 @@ def phase_wagg_time(dev):
         for payload in payloads[shape_name]:
             sets = [wagg_inputs(p, n, torch.float32, payload, "none", gen,
                                 dev) for p, n in leaves]
+            xs, qs = [x for x, _, _, _ in sets], [q for _, _, q, _ in sets]
+            t = sets[0][1]                  # one theta for the tree
 
             def kern():
-                return [wagg_fused(x, t, beta, payload=q)
-                        for x, t, q, _ in sets]
+                return wagg_fused_many(xs, t, beta, payloads=qs)
 
             def plain():
                 return [wagg_fused_ref(x, t, beta, payload=q)
-                        for x, t, q, _ in sets]
+                        for x, q in zip(xs, qs)]
 
-            def library():              # two calls: GEMV, then lerp
+            def two_calls():            # GEMV, then lerp
                 return [torch.lerp(x, (t @ (x if q is None else q.float())
                                        )[None].expand_as(x), beta)
-                        for x, t, q, _ in sets]
+                        for x, q in zip(xs, qs)]
 
             reps = 32 if shape_name == "cnn6_round" else 4
+            launches = wagg_fused.launches
+            kern()
+            launches = wagg_fused.launches - launches
             ms = graph_ms([kern], reps)
             plain_ms = graph_ms([plain], reps)
-            library_ms = graph_ms([library], reps)
+            two_ms = graph_ms([two_calls], reps)
             pairs = list(zip(kern(), plain()))
             abs_err = max((o.float() - r.float()).abs().max().item()
                           for o, r in pairs)
             err = max(rel_err(o, r) for o, r in pairs)
-            lib_err = max(rel_err(o, r) for o, r in zip(library(), plain()))
+            two_err = max(rel_err(o, r) for o, r in zip(two_calls(),
+                                                        plain()))
             if not err <= WAGG_TOL["float32"]:
                 raise AssertionError(f"wagg_time {shape_name}/{payload}: "
                                      f"rel_err {err}")
@@ -1202,28 +1341,55 @@ def phase_wagg_time(dev):
                                                 for p, n in leaves)))
             t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
             t_o = flops / F32_FLOP_PER_S * 1e3
-            res[f"{shape_name}/{payload}"] = {
+            rec = {
                 "leaves": [list(lf) for lf in leaves], "x": "float32",
-                "payload": payload, "launches_per_call": len(leaves),
+                "payload": payload, "launches_per_call": launches,
                 "bytes": bytes_moved, "flops": flops,
                 "max_abs_err": abs_err, "max_rel_err": err,
-                "library_max_rel_err": lib_err,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "library": "two calls: m = theta @ src.float(), then "
-                           "torch.lerp(x, m, beta)",
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "library": None, "two_call_ms": two_ms,
+                "two_call_max_rel_err": two_err,
+                "two_call": "m = theta @ src.float(), then "
+                            "torch.lerp(x, m, beta)",
                 "bound_ms": max(t_b, t_o),
                 "bound_by": "bytes" if t_b >= t_o else "operations"}
-            del sets
+            if payload == "none":
+                rec.update(wagg_mm_time(xs, t, beta, None, plain, reps))
+            res[f"{shape_name}/{payload}"] = rec
+            del sets, xs, qs
     res["lm_mlp_leaf/none/masked"] = wagg_masked_time(dev, gen, beta)
+    # cuBLAS keeps a workspace for each stream it ran on, the graph
+    # captures' streams included: free them, or they stay allocated and
+    # count in every later phase's peak
+    held = torch.cuda.memory_allocated(dev)
+    torch._C._cuda_clearCublasWorkspaces()
     return {"phase": "wagg_time",
             "method": "CUDA graph of 32 (CNN6 round) or 4 (LM leaf) calls, "
-                      "10 replays, CUDA events; beta 0.9", **res}
+                      "10 replays, CUDA events; beta 0.9",
+            "cublas_workspaces_freed_bytes":
+                held - torch.cuda.memory_allocated(dev), **res}
+
+
+def wagg_mm_time(xs, theta, beta, active, plain, reps):
+    """The one-call yardstick of an f32 x without a payload: torch.mm(M, x)
+    a leaf, M from ``eq10_matrix`` (made once, outside the timing)."""
+    import torch
+    mat = eq10_matrix(theta, beta, active)
+
+    def library():
+        return [torch.mm(mat, x) for x in xs]
+
+    ms = graph_ms([library], reps)
+    err = max(rel_err(o, r) for o, r in zip(library(), plain()))
+    return {"library_ms": ms, "library_max_rel_err": err,
+            "library": "torch.mm(M, x) a leaf, M = (1 - beta) I + beta "
+                       "1 theta^T (an inactive row theta^T)"}
 
 
 def wagg_masked_time(dev, gen, beta):
     """The masked kernel (Alg. 4) at one gemma3-1b MLP leaf (p 4, f32 x,
-    the last row inactive), its plain version and three library calls
-    (GEMV, torch.lerp, torch.where)."""
+    the last row inactive), its plain version, torch.mm(M, x) and three
+    calls (GEMV, torch.lerp, torch.where)."""
     import torch
     from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
     p, n = LM_LEAF
@@ -1236,12 +1402,12 @@ def wagg_masked_time(dev, gen, beta):
     def plain():
         return [wagg_fused_ref(x, t, beta, active=act)]
 
-    def library():
+    def three_calls():
         m = (t @ x)[None].expand_as(x)
         return [torch.where(act[:, None] != 0, torch.lerp(x, m, beta), m)]
 
-    ms, plain_ms, library_ms = (graph_ms([f], 4) for f in (kern, plain,
-                                                            library))
+    ms, plain_ms, three_ms = (graph_ms([f], 4) for f in (kern, plain,
+                                                          three_calls))
     out, ref = kern()[0], plain()[0]
     err = rel_err(out, ref)
     if not err <= WAGG_TOL["float32"]:
@@ -1252,11 +1418,12 @@ def wagg_masked_time(dev, gen, beta):
     return {"leaves": [[p, n]], "x": "float32", "payload": "none",
             "mask": "one_inactive", "bytes": bytes_moved, "flops": flops,
             "max_abs_err": (out - ref).abs().max().item(),
-            "max_rel_err": err,
-            "library_max_rel_err": rel_err(library()[0], ref),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "three calls: m = theta @ x, torch.lerp(x, m, beta), "
-                       "torch.where(active != 0, ., m)",
+            "max_rel_err": err, "ms": ms, "plain_ms": plain_ms,
+            "three_call_ms": three_ms,
+            "three_call_max_rel_err": rel_err(three_calls()[0], ref),
+            "three_call": "m = theta @ x, torch.lerp(x, m, beta), "
+                          "torch.where(active != 0, ., m)",
+            **wagg_mm_time([x], t, beta, act, plain, 4),
             "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
@@ -1380,7 +1547,6 @@ def phase_int4_codec(dev):
     from repro_torch.core import backends
     from repro_torch.core.codecs import (get_codec, int4_key, int4_uniform,
                                          INT4_CHUNK)
-    from repro_torch.kernels.wagg import wagg_fused
     from repro_torch.train import Trainer
     codec = get_codec("int4")
     gen = torch.Generator(device=dev)
@@ -1470,18 +1636,19 @@ def phase_int4_codec(dev):
     tr = Trainer(loss_fn, params, shared_axes(params),
                  tcfg("pallas_wagg:int4"), TRAIN["p"], rule="wasgd+",
                  device=dev)
-    wagg_fused.launches = 0
+    reset_wagg()
     wall, _ = run_trainer(tr, dataset, INT4["cnn6_rounds"])
     losses = tr.losses()
-    launches = wagg_fused.launches
-    if not (launches == INT4["cnn6_rounds"] * CNN6_LEAVES
-            and np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"int4_codec: CNN6 int4 run, launches "
-                             f"{launches}, losses {losses}")
+    counts = wagg_counts("int4_codec", INT4["cnn6_rounds"], wagg_tree_plan(
+        tr.state.params, tr.axes, "pallas_wagg:int4"))
+    launches = counts["launches"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"int4_codec: CNN6 int4 run, losses {losses}")
     return {"phase": "int4_codec", "leaf": list(LM3B_LEAF), "draw": draw,
             "within_error_bound": bounds, "unbiased": unbiased,
             "cnn6": {"backend": "pallas_wagg:int4",
                      "rounds": INT4["cnn6_rounds"], "launches": launches,
+                     "leaves": counts["leaves"],
                      "seconds_per_round": wall / INT4["cnn6_rounds"],
                      "losses": [float(v) for v in losses]}}
 
@@ -1517,20 +1684,19 @@ def new_trainer(dev, p=TRAIN["p"], async_mode="host_sim", pipeline=None,
 def phase_train(dev):
     import torch
     from repro_torch.core.order import OrderState
-    from repro_torch.kernels.wagg import wagg_fused
     warm, dataset = new_trainer(dev)
     warm_s, _ = run_trainer(warm, dataset, 2)
     del warm
     tr, dataset = new_trainer(dev)
     torch.cuda.reset_peak_memory_stats()
-    wagg_fused.launches = 0
+    reset_wagg()
     wall, ds = run_trainer(tr, dataset, TRAIN["rounds"])
-    launches = wagg_fused.launches
-    want = TRAIN["rounds"] * CNN6_LEAVES
-    if launches != want:
-        raise AssertionError(f"train: {launches} wagg_fused launches, want "
-                             f"{TRAIN['rounds']} rounds x {CNN6_LEAVES} "
-                             f"worker leaves = {want}")
+    plan = wagg_tree_plan(tr.state.params, tr.axes, TRAIN["backend"])
+    if plan != (CNN6_LEAVES, 1):
+        raise AssertionError(f"train: CNN6's aggregate plan {plan}, want "
+                             f"{CNN6_LEAVES} leaves in one launch")
+    counts = wagg_counts("train", TRAIN["rounds"], plan)
+    launches = counts["launches"]
     losses = tr.losses()
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"train: losses {losses}")
@@ -1542,6 +1708,7 @@ def phase_train(dev):
                         TRAIN["order_seed"]).seeds
     return {"phase": "train", "model": "cnn6", **TRAIN,
             "rule": "wasgd+", "launches": launches,
+            "leaves": counts["leaves"],
             "seconds_per_round": wall / TRAIN["rounds"], "wall_s": wall,
             "warmup_2_rounds_s": warm_s,
             "samples_per_s": TRAIN["rounds"] * TRAIN["p"] * TRAIN["tau"]
@@ -1875,6 +2042,99 @@ def worker_grad_fn(loss_fn):
     return grad_fn
 
 
+def wagg_tree_plan(params, axes, spec):
+    """(worker leaves, wagg_fused launches) of one meshless aggregate of
+    this tree under a ``pallas_wagg`` spec (``core.backends.
+    pallas_wagg_plan``: f32 payloads in one call, grouped by dtype pair,
+    at most MAX_LEAVES leaves a launch)."""
+    from repro_torch.core.aggregate import is_worker_leaf
+    from repro_torch.core.backends import resolve_spec
+    from repro_torch.tree import tree_leaves
+    return wagg_leaves_plan([x for x, ax in zip(tree_leaves(params),
+                                                tree_leaves(axes))
+                             if is_worker_leaf(ax)],
+                            resolve_spec(spec)[1] or "f32")
+
+
+def wagg_leaves_plan(leaves, codec="f32"):
+    """(leaves, wagg_fused launches) of one meshless aggregate of these
+    worker leaves with the codec named."""
+    from repro_torch.core.backends import pallas_wagg_plan
+    return len(leaves), len(pallas_wagg_plan(
+        [(x.numel(), x.dtype) for x in leaves], codec))
+
+
+def wagg_counts(name, aggregates, plan, masked=0, prof=None):
+    """wagg_fused's counters, zeroed before the run, against ``aggregates``
+    aggregates of ``plan`` = (worker leaves, launches) each, ``masked`` of
+    them masked; with a profile, its wagg_fused device kernels (all,
+    masked) against the launches. Returns the counts."""
+    from repro_torch.kernels.wagg import wagg_fused
+    leaves, launches = plan
+    got = {"launches": wagg_fused.launches, "leaves": wagg_fused.leaves,
+           "masked_launches": wagg_fused.masked_launches}
+    want = {"launches": aggregates * launches,
+            "leaves": aggregates * leaves,
+            "masked_launches": masked * launches}
+    if prof is not None:
+        got["device_kernels"], got["device_kernels_masked"] = \
+            wagg_device_kernels(prof)
+        want["device_kernels"] = want["launches"]
+        want["device_kernels_masked"] = want["masked_launches"]
+    if got != want:
+        raise AssertionError(f"{name}: wagg_fused {got}, want {want}")
+    return got
+
+
+def wagg_payload_cap(params, axes, spec):
+    """Payload bytes a batch of the grouped aggregate of this tree may hold
+    (``core.backends.payload_batches``): the cap, or the largest leaf's
+    payload where that is larger."""
+    from repro_torch.core import get_codec, is_worker_leaf
+    from repro_torch.core.backends import (WAGG_PAYLOAD_CAP, payload_bytes,
+                                           resolve_spec)
+    from repro_torch.tree import tree_leaves
+    name = resolve_spec(spec)[1] or "f32"
+    wire = get_codec(name).wire_dtype
+    return max([WAGG_PAYLOAD_CAP] + [
+        payload_bytes(x.numel(), name, wire)
+        for x, ax in zip(tree_leaves(params), tree_leaves(axes))
+        if is_worker_leaf(ax)])
+
+
+def reset_wagg():
+    from repro_torch.kernels.wagg import wagg_fused
+    wagg_fused.launches = wagg_fused.leaves = wagg_fused.masked_launches = 0
+
+
+@contextlib.contextmanager
+def wagg_watched(on_leaf):
+    """Calls ``on_leaf(x, out, ref, payload)`` for every leaf of every
+    grouped call the ``pallas_wagg`` schedule makes inside the block:
+    ``ref`` the plain version on the same inputs (the scale folded into
+    theta as the kernel folds it)."""
+    from repro_torch.kernels.wagg import ops as wagg_ops
+    from repro_torch.kernels.wagg import wagg_fused_ref
+    real = wagg_ops.wagg_fused_many
+
+    def watched(xs, theta, beta, payloads=None, scales=None, active=None):
+        outs = real(xs, theta, beta, payloads=payloads, scales=scales,
+                    active=active)
+        for i, (x, out) in enumerate(zip(xs, outs)):
+            q = None if payloads is None else payloads[i]
+            s = None if scales is None else scales[i]
+            t = theta if s is None else theta * s.float()
+            on_leaf(x, out, wagg_fused_ref(x, t, beta, payload=q,
+                                           active=active), q)
+        return outs
+
+    wagg_ops.wagg_fused_many = watched
+    try:
+        yield
+    finally:
+        wagg_ops.wagg_fused_many = real
+
+
 def wagg_device_kernels(prof):
     """wagg_fused device kernels of a profile: (all, masked). The masked
     instantiation carries MASKED=true (``...true>`` demangled, ``Lb1E``
@@ -1947,23 +2207,20 @@ def phase_async_agree(dev):
     run goes through the masked wagg_fused, counted by its wrapper and by
     the profiler."""
     import torch
-    from repro_torch.kernels.wagg import wagg_fused
     out = {}
     for strategy in ("boltzmann", "best"):
         cpu, sched = mlp_async_run(None, strategy)
         spread_run, _ = mlp_async_run(None, strategy, perturb=1e-7)
-        wagg_fused.launches = wagg_fused.masked_launches = 0
+        reset_wagg()
         with device_profile() as prof:
             card, _ = mlp_async_run(dev, strategy)
             torch.cuda.synchronize()
-        launches = (wagg_fused.launches, wagg_fused.masked_launches)
-        kernels = wagg_device_kernels(prof)
-        want = ASYNC_AGREE["rounds"] * len(card.params)
-        if launches != (want, want) or kernels != (want, want):
-            raise AssertionError(f"async_agree/{strategy}: wagg_fused "
-                                 f"(launches, masked) {launches}, device "
-                                 f"kernels (all, masked) {kernels}; want "
-                                 f"{want} masked")
+        counts = wagg_counts(f"async_agree/{strategy}",
+                             ASYNC_AGREE["rounds"],
+                             wagg_leaves_plan(list(card.params.values())),
+                             masked=ASYNC_AGREE["rounds"], prof=prof)
+        launches = (counts["launches"], counts["masked_launches"])
+        kernels = (counts["device_kernels"], counts["device_kernels_masked"])
 
         def dev_of(a, b):
             return (max((a.params[k].cpu() - b.params[k]).abs().max().item()
@@ -1989,6 +2246,7 @@ def phase_async_agree(dev):
                          "sim_wall": card.wall,
                          "dropped_worker_rounds": card.dropped_rounds,
                          "wagg_launches_masked": launches[1],
+                         "wagg_leaves": counts["leaves"],
                          "wagg_device_kernels_masked": kernels[1]}
     return {"phase": "async_agree", "model": "mlp", "mlp": MLP,
             **ASYNC_AGREE, "backend": "pallas_wagg (card), einsum host "
@@ -2003,7 +2261,6 @@ def async_train_run(dev, regime, sync):
     checked; returns the trainer, the schedule and the record."""
     import torch
     from repro_torch.core.async_sim import StepTimeModel, make_schedule
-    from repro_torch.kernels.wagg import wagg_fused
     p, b, rounds = ASYNC["p"], ASYNC["b"], ASYNC["rounds"]
     w = p + b
     name = f"async_train/{regime}/{'alg1' if sync else 'alg4'}"
@@ -2014,13 +2271,12 @@ def async_train_run(dev, regime, sync):
     kw = {} if sync else {"straggler_schedule": sched}
     tr, dataset = new_trainer(dev, w, "host_sim" if sync else "on_device")
     torch.cuda.reset_peak_memory_stats()
-    wagg_fused.launches = wagg_fused.masked_launches = 0
+    reset_wagg()
     wall, _ = run_trainer(tr, dataset, rounds, **kw)
-    launches = (wagg_fused.launches, wagg_fused.masked_launches)
-    want = (rounds * CNN6_LEAVES, 0 if sync else rounds * CNN6_LEAVES)
-    if launches != want:
-        raise AssertionError(f"{name}: wagg_fused (launches, masked) "
-                             f"{launches}, want {want}")
+    counts = wagg_counts(name, rounds, wagg_tree_plan(
+        tr.state.params, tr.axes, TRAIN["backend"]),
+        masked=0 if sync else rounds)
+    launches = (counts["launches"], counts["masked_launches"])
     for r, h in enumerate(tr.history):
         act = sched.active[r]
         rec = h.get("active", np.ones(w, np.float32))
@@ -2077,13 +2333,15 @@ def phase_async_train(dev):
                     and len(runs["alg4"]) == 2:
                 prof_rounds, kw = 5, {"straggler_schedule": sched}
                 wall5, _ = run_trainer(tr, dataset, prof_rounds, **kw)
+                reset_wagg()
                 with device_profile() as prof:
                     run_trainer(tr, dataset, prof_rounds, **kw)
-                kernels = wagg_device_kernels(prof)
-                if kernels != (prof_rounds * CNN6_LEAVES,) * 2:
-                    raise AssertionError(f"async_train profile: wagg "
-                                         f"device kernels (all, masked) "
-                                         f"{kernels}")
+                counts = wagg_counts(
+                    "async_train profile", prof_rounds, wagg_tree_plan(
+                        tr.state.params, tr.axes, TRAIN["backend"]),
+                    masked=prof_rounds, prof=prof)
+                kernels = (counts["device_kernels"],
+                           counts["device_kernels_masked"])
                 rec["profile"] = {
                     "rounds": prof_rounds, "wall_ms": wall5 * 1e3,
                     "wagg_device_kernels_masked": kernels[1],
@@ -2118,7 +2376,6 @@ def phase_async_measured(dev):
     import torch
     from repro_torch.core.async_device import run_parallel_sgd_on_device
     from repro_torch.data import make_images
-    from repro_torch.kernels.wagg import wagg_fused
     from repro_torch.models import init_cnn6
     loss_fn, _, _ = cnn6_setup()
     p, b, rounds = ASYNC["p"], ASYNC["b"], MEASURED["rounds"]
@@ -2132,7 +2389,7 @@ def phase_async_measured(dev):
             yield {"x": X[idx], "y": y[idx]}
 
     params = init_cnn6(0, device=dev)
-    wagg_fused.launches = wagg_fused.masked_launches = 0
+    reset_wagg()
     t0 = time.perf_counter()
     res = run_parallel_sgd_on_device(
         worker_grad_fn(loss_fn), params,
@@ -2142,11 +2399,13 @@ def phase_async_measured(dev):
         device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (wagg_fused.launches, wagg_fused.masked_launches)
+    counts = wagg_counts("async_measured", rounds,
+                         wagg_leaves_plan(list(params.values())),
+                         masked=rounds)
+    launches = (counts["launches"], counts["masked_launches"])
     times = res.round_times
     equal = bool((times == times[:, :1]).all())
-    if not (equal and launches == (rounds * CNN6_LEAVES,) * 2
-            and np.isfinite(res.losses).all()
+    if not (equal and np.isfinite(res.losses).all()
             and res.dropped_rounds == rounds * b):
         raise AssertionError(f"async_measured: times equal per round "
                              f"{equal}, launches {launches}, losses "
@@ -2159,7 +2418,8 @@ def phase_async_measured(dev):
             "measured_wall_s": res.wall, "seconds_per_round": wall / rounds,
             "losses": res.losses.tolist(),
             "dropped_worker_rounds": res.dropped_rounds,
-            "wagg_launches": launches[0], "wagg_masked_launches": launches[1]}
+            "wagg_launches": launches[0], "wagg_masked_launches": launches[1],
+            "wagg_leaves": counts["leaves"]}
 
 
 def check_resize(tr, events):
@@ -2200,11 +2460,10 @@ def elastic_run(dev, sched):
     """A CNN6 trainer (``TRAIN``'s settings, an OrderedDataset) through
     ``run(membership_schedule=sched)``: per-round seconds by p, each
     resize checked and timed."""
-    from repro_torch.kernels.wagg import wagg_fused
     tr, dataset = new_trainer(dev, sched.p0)
     events, stamps = [], []
     check_resize(tr, events)
-    wagg_fused.launches = 0
+    reset_wagg()
     t0 = time.perf_counter()
     wall, _ = run_trainer(tr, dataset, ELASTIC["rounds"],
                           membership_schedule=sched,
@@ -2217,17 +2476,18 @@ def elastic_run(dev, sched):
     ps = [int(h["p"]) for h in tr.history]
     want = [sched.p_of(r) for r in range(ELASTIC["rounds"])]
     losses = tr.losses()
-    if ps != want or wagg_fused.launches != ELASTIC["rounds"] * CNN6_LEAVES \
-            or not np.isfinite(losses).all():
+    counts = wagg_counts("elastic", ELASTIC["rounds"], wagg_tree_plan(
+        tr.state.params, tr.axes, TRAIN["backend"]))
+    if ps != want or not np.isfinite(losses).all():
         raise AssertionError(f"elastic: p by round {ps}, want {want}; "
-                             f"launches {wagg_fused.launches}; losses "
-                             f"{losses}")
+                             f"losses {losses}")
     return {"events": events, "wall_s": wall,
             "median_s_per_round_by_p": {p: float(np.median(v))
                                         for p, v in sorted(by_p.items())},
             "rounds_by_p": {p: len(v) for p, v in sorted(by_p.items())},
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-            "wagg_launches": wagg_fused.launches}
+            "wagg_launches": counts["launches"],
+            "wagg_leaves": counts["leaves"]}
 
 
 def phase_elastic(dev, fixed_p_loss_last):
@@ -2933,18 +3193,22 @@ def phase_lm_train(cfg, tr, ds, batches):
     warm, rounds, tau = LM["warmup_rounds"], LM["rounds"], LM["tau"]
     warm_s = run_lm_rounds(tr, ds, batches, warm, 0)
     torch.cuda.reset_peak_memory_stats()
-    rmsnorm_fwd.launches = fused_ce_fwd.launches = wagg_fused.launches = 0
+    rmsnorm_fwd.launches = fused_ce_fwd.launches = 0
     add_rmsnorm_fwd.launches = 0
+    reset_wagg()
     wall = run_lm_rounds(tr, ds, batches, rounds, warm)
     launches = {"rmsnorm": rmsnorm_fwd.launches,
                 "rmsnorm_fused": add_rmsnorm_fwd.launches,
                 "fused_ce": fused_ce_fwd.launches,
-                "wagg_fused": wagg_fused.launches}
-    n_leaves = len(tree_leaves(tr.state.params))
+                "wagg_fused": wagg_fused.launches,
+                "wagg_leaves": wagg_fused.leaves}
+    n_leaves, n_groups = wagg_tree_plan(tr.state.params, tr.axes,
+                                        LM["backend"])
     norms, fused = norms_per_step(cfg)
     want = {"rmsnorm": rounds * tau * norms,
             "rmsnorm_fused": rounds * tau * fused,
-            "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves}
+            "fused_ce": rounds * tau, "wagg_fused": rounds * n_groups,
+            "wagg_leaves": rounds * n_leaves}
     if launches != want:
         raise AssertionError(f"lm_train: launches {launches}, want {want}")
     losses = tr.losses()
@@ -2961,7 +3225,8 @@ def phase_lm_train(cfg, tr, ds, batches):
             "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, **LM,
             "rule": "wasgd+",
             "optimizer": "sgd", "launches": launches,
-            "worker_leaves": n_leaves, "seconds_per_round": wall / rounds,
+            "worker_leaves": n_leaves, "wagg_launches_per_round": n_groups,
+            "seconds_per_round": wall / rounds,
             "wall_s": wall, "warmup_s": warm_s, "tokens_per_s": tokens / wall,
             "loss_first": float(measured[0]), "loss_last": float(measured[-1]),
             "losses": [float(x) for x in losses],
@@ -2976,11 +3241,14 @@ def phase_lm_train_profile(cfg, tr, ds, batches):
     rounds = LM_PROFILE_ROUNDS
     done = LM["warmup_rounds"] + LM["rounds"]
     wall = run_lm_rounds(tr, ds, batches, rounds, done)
+    reset_wagg()
     with device_profile() as prof:
         wall_prof = run_lm_rounds(tr, ds, batches, rounds, done + rounds)
+    wagg = wagg_counts("lm_train_profile", rounds, wagg_tree_plan(
+        tr.state.params, tr.axes, LM["backend"]), prof=prof)
     return {"phase": "lm_train_profile", "rounds": rounds,
             "wall_ms": wall * 1e3, "wall_ms_profiled": wall_prof * 1e3,
-            **device_summary(prof, wall, 15)}
+            "wagg": wagg, **device_summary(prof, wall, 15)}
 
 
 def distinct_bytes(tree):
@@ -3119,14 +3387,15 @@ def phase_train_to_serve(cfg, tr, ds, batches, done, dev):
     from repro_torch.kernels.wagg import wagg_fused
     from repro_torch.serve import ContinuousEngine, HotSwapBridge
     from repro_torch.train.evaluate import consensus_params, evaluate_lm
-    from repro_torch.tree import tree_leaves
     rounds, tau = TRAIN_TO_SERVE_ROUNDS, LM["tau"]
     n_norms, n_attn = 2 * cfg.n_layers + 1, cfg.n_layers
     train_norms = norms_per_step(cfg)[0]
-    n_leaves = len(tree_leaves(tr.state.params))
+    n_leaves, n_groups = wagg_tree_plan(tr.state.params, tr.axes,
+                                        LM["backend"])
     torch.cuda.reset_peak_memory_stats()
     paged_decode_attn.launches = rmsnorm_fwd.launches = 0
-    fused_ce_fwd.launches = wagg_fused.launches = 0
+    fused_ce_fwd.launches = 0
+    reset_wagg()
     eng = ContinuousEngine(cfg, consensus_params(tr.state.params, tr.axes),
                            n_slots=N_SLOTS, max_len=MAX_LEN,
                            block_size=BLOCK, chunk=CHUNK, device=dev)
@@ -3155,6 +3424,7 @@ def phase_train_to_serve(cfg, tr, ds, batches, done, dev):
         with open(mpath) as f:
             lines = [json.loads(line) for line in f]
     train_launches = {"wagg_fused": wagg_fused.launches,
+                      "wagg_leaves": wagg_fused.leaves,
                       "fused_ce": fused_ce_fwd.launches}
     t0 = time.perf_counter()
     outs = eng.run()
@@ -3166,7 +3436,8 @@ def phase_train_to_serve(cfg, tr, ds, batches, done, dev):
     want = {"paged_decode_attn": n_attn * steps,
             "rmsnorm": rounds * tau * train_norms
             + n_norms * (steps + prefills),
-            "wagg_fused": rounds * n_leaves, "fused_ce": rounds * tau}
+            "wagg_fused": rounds * n_groups, "wagg_leaves": rounds * n_leaves,
+            "fused_ce": rounds * tau}
     swaps = bridge.swaps
     keys = {"loss", "loss_last", "h", "theta", "scores", "theta_entropy",
             "omega", "round"}
@@ -3235,11 +3506,9 @@ def phase_lm_async(cfg, dev):
     from repro_torch.core.async_sim import StepTimeModel, make_schedule
     from repro_torch.kernels.fused_ce import fused_ce_fwd
     from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
-    from repro_torch.kernels.wagg import ops as wagg_ops
-    from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
+    from repro_torch.kernels.wagg import wagg_fused
     from repro_torch.models import init_params, param_axes
     from repro_torch.train import Trainer, make_lm_loss
-    from repro_torch.tree import tree_leaves
     a = LM_ASYNC
     w, warm, rounds, tau = a["p"] + a["b"], a["warmup_rounds"], a["rounds"], \
         LM["tau"]
@@ -3258,22 +3527,13 @@ def phase_lm_async(cfg, dev):
     ds = lm_dataset(cfg)
     batches = ds.batches()
     errs = []
-    real = wagg_ops.wagg_fused
-
-    def held(x, theta, beta, payload=None, active=None):
-        out = real(x, theta, beta, payload=payload, active=active)
-        ref = wagg_fused_ref(x, theta, beta, payload=payload, active=active)
-        errs.append((out.float() - ref.float()).abs().max())
-        return out
-
-    wagg_ops.wagg_fused = held
-    try:
+    with wagg_watched(lambda x, out, ref, q: errs.append(
+            (out.float() - ref.float()).abs().max())):
         warm_s = run_lm_rounds(tr, ds, batches, 1, 0,
                                straggler_schedule=sched.active[:1])
-    finally:
-        wagg_ops.wagg_fused = real
     err = torch.stack(errs).max().item()
-    n_leaves = len(tree_leaves(tr.state.params))
+    n_leaves, n_groups = wagg_tree_plan(tr.state.params, tr.axes,
+                                        LM["backend"])
     if not (len(errs) == n_leaves and err <= a["atol"]):
         raise AssertionError(f"lm_async: first masked round, {len(errs)} "
                              f"leaves held, wagg_fused vs plain max_abs_err "
@@ -3283,19 +3543,21 @@ def phase_lm_async(cfg, dev):
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_fwd.launches = fused_ce_fwd.launches = 0
     add_rmsnorm_fwd.launches = 0
-    wagg_fused.launches = wagg_fused.masked_launches = 0
+    reset_wagg()
     wall = run_lm_rounds(tr, ds, batches, rounds, warm,
                          straggler_schedule=sched.active[warm:])
     launches = {"rmsnorm": rmsnorm_fwd.launches,
                 "rmsnorm_fused": add_rmsnorm_fwd.launches,
                 "fused_ce": fused_ce_fwd.launches,
                 "wagg_fused": wagg_fused.launches,
-                "wagg_fused_masked": wagg_fused.masked_launches}
+                "wagg_fused_masked": wagg_fused.masked_launches,
+                "wagg_leaves": wagg_fused.leaves}
     norms, fused = norms_per_step(cfg)
     want = {"rmsnorm": rounds * tau * norms,
             "rmsnorm_fused": rounds * tau * fused,
-            "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves,
-            "wagg_fused_masked": rounds * n_leaves}
+            "fused_ce": rounds * tau, "wagg_fused": rounds * n_groups,
+            "wagg_fused_masked": rounds * n_groups,
+            "wagg_leaves": rounds * n_leaves}
     if launches != want:
         raise AssertionError(f"lm_async: launches {launches}, want {want}")
     for r, h in enumerate(tr.history):
@@ -3334,8 +3596,7 @@ def phase_lm3b_train(dev):
     from repro_torch.core import backends
     from repro_torch.kernels.fused_ce import fused_ce_fwd
     from repro_torch.kernels.rmsnorm import add_rmsnorm_fwd, rmsnorm_fwd
-    from repro_torch.kernels.wagg import ops as wagg_ops
-    from repro_torch.kernels.wagg import wagg_fused, wagg_fused_ref
+    from repro_torch.kernels.wagg import wagg_fused
     from repro_torch.tree import tree_leaves
     gib = 2 ** 30
     st = LM3B
@@ -3346,14 +3607,11 @@ def phase_lm3b_train(dev):
     init_peak = torch.cuda.max_memory_allocated() / gib
     warm, rounds, tau = st["warmup_rounds"], st["rounds"], st["tau"]
     errs, payloads, split = [], set(), {}
-    real_wagg, real_agg = wagg_ops.wagg_fused, backends.aggregate_from_config
+    real_agg = backends.aggregate_from_config
 
-    def held(x, theta, beta, payload=None, active=None):
-        out = real_wagg(x, theta, beta, payload=payload, active=active)
-        ref = wagg_fused_ref(x, theta, beta, payload=payload, active=active)
+    def held(x, out, ref, payload):
         errs.append((out.float() - ref.float()).abs().max())
         payloads.add((str(payload.dtype), int(payload.abs().max()) <= 7))
-        return out
 
     def split_peak(*args, **kw):
         torch.cuda.synchronize()
@@ -3364,15 +3622,17 @@ def phase_lm3b_train(dev):
         split["aggregate_peak_gib"] = torch.cuda.max_memory_allocated() / gib
         return out
 
-    wagg_ops.wagg_fused, backends.aggregate_from_config = held, split_peak
+    backends.aggregate_from_config = split_peak
     torch.cuda.reset_peak_memory_stats()
     try:
-        warm_s = run_lm_rounds(tr, ds, batches, 1, 0)
+        with wagg_watched(held):
+            warm_s = run_lm_rounds(tr, ds, batches, 1, 0)
     finally:
-        wagg_ops.wagg_fused, backends.aggregate_from_config = (real_wagg,
-                                                               real_agg)
+        backends.aggregate_from_config = real_agg
     err = torch.stack(errs).max().item()
-    n_leaves = len(tree_leaves(tr.state.params))
+    n_leaves, n_groups = wagg_tree_plan(tr.state.params, tr.axes,
+                                        st["backend"])
+    cap = wagg_payload_cap(tr.state.params, tr.axes, st["backend"])
     if not (len(errs) == n_leaves and err <= 1e-4
             and payloads == {("torch.int8", True)}):
         raise AssertionError(f"lm3b_train: first round, {len(errs)} leaves "
@@ -3380,23 +3640,29 @@ def phase_lm3b_train(dev):
     warm_s += run_lm_rounds(tr, ds, batches, warm - 1, 1)
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_fwd.launches = add_rmsnorm_fwd.launches = 0
-    fused_ce_fwd.launches = wagg_fused.launches = 0
+    fused_ce_fwd.launches = 0
+    reset_wagg()
     wall = run_lm_rounds(tr, ds, batches, rounds, warm)
     peak = torch.cuda.max_memory_allocated() / gib
     launches = {"rmsnorm": rmsnorm_fwd.launches,
                 "rmsnorm_fused": add_rmsnorm_fwd.launches,
                 "fused_ce": fused_ce_fwd.launches,
-                "wagg_fused": wagg_fused.launches}
+                "wagg_fused": wagg_fused.launches,
+                "wagg_leaves": wagg_fused.leaves}
     norms, fused = norms_per_step(cfg)
     want = {"rmsnorm": rounds * tau * norms,
             "rmsnorm_fused": rounds * tau * fused,
-            "fused_ce": rounds * tau, "wagg_fused": rounds * n_leaves}
+            "fused_ce": rounds * tau, "wagg_fused": rounds * n_groups,
+            "wagg_leaves": rounds * n_leaves}
     if launches != want:
         raise AssertionError(f"lm3b_train: launches {launches}, want {want}")
     done = warm + rounds
     wall1 = wall / rounds
+    reset_wagg()
     with device_profile() as prof:
         wall_prof = run_lm_rounds(tr, ds, batches, 1, done)
+    wagg_prof = wagg_counts("lm3b_train profile", 1, (n_leaves, n_groups),
+                            prof=prof)
     losses = tr.losses()
     if not np.isfinite(losses).all():
         raise AssertionError(f"lm3b_train: losses {losses}")
@@ -3411,7 +3677,9 @@ def phase_lm3b_train(dev):
     return {"phase": "lm3b_train", "arch": cfg.name, "params": n_params,
             "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, **st,
             "rule": "wasgd+", "optimizer": "sgd", "launches": launches,
-            "worker_leaves": n_leaves, "first_round_wagg_max_abs_err": err,
+            "worker_leaves": n_leaves, "wagg_launches_per_round": n_groups,
+            "wagg_payload_cap_bytes": cap,
+            "first_round_wagg_max_abs_err": err,
             "first_round_payloads": sorted(map(list, payloads)),
             "first_round_peak_split": split, "init_peak_gib": init_peak,
             "seconds_per_round": wall / rounds, "wall_s": wall,
@@ -3420,7 +3688,7 @@ def phase_lm3b_train(dev):
             "theta_min": float(theta.min()), "theta_max": float(theta.max()),
             "peak_mem_gib": peak,
             "profile": {"rounds": 1, "wall_ms": wall1 * 1e3,
-                        "wall_ms_profiled": wall_prof * 1e3,
+                        "wall_ms_profiled": wall_prof * 1e3, "wagg": wagg_prof,
                         **device_summary(prof, wall1, 12)}}
 
 
@@ -3434,8 +3702,6 @@ def phase_lm3b_f32(dev, int4_s_per_round):
     timed round, s/round beside int4's, peak, launches."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.wagg import wagg_fused
-    from repro_torch.tree import tree_leaves
     st = LM3B_F32
     cfg = get_config(LM3B_ARCH)
     tr, ds = new_lm_trainer(cfg, dev, st), lm_dataset(cfg, st)
@@ -3443,19 +3709,20 @@ def phase_lm3b_f32(dev, int4_s_per_round):
     warm, rounds = st["warmup_rounds"], st["rounds"]
     warm_s = run_lm_rounds(tr, ds, batches, warm, 0)
     torch.cuda.reset_peak_memory_stats()
-    wagg_fused.launches = 0
+    reset_wagg()
     wall = run_lm_rounds(tr, ds, batches, rounds, warm)
-    n_leaves = len(tree_leaves(tr.state.params))
-    launches = wagg_fused.launches
+    counts = wagg_counts("lm3b_f32", rounds, wagg_tree_plan(
+        tr.state.params, tr.axes, st["backend"]))
+    launches = counts["launches"]
     losses = tr.losses()
-    if not (launches == rounds * n_leaves and np.isfinite(losses).all()):
-        raise AssertionError(f"lm3b_f32: wagg_fused launches {launches}, "
-                             f"want {rounds * n_leaves}; losses {losses}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"lm3b_f32: losses {losses}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del tr, batches
     torch.cuda.empty_cache()
     return {"phase": "lm3b_f32", "arch": cfg.name, **st,
-            "wagg_fused_launches": launches, "warmup_s": warm_s,
+            "wagg_fused_launches": launches, "wagg_leaves": counts["leaves"],
+            "warmup_s": warm_s,
             "seconds_per_round": wall / rounds,
             "int4_seconds_per_round": int4_s_per_round,
             "int4_over_f32": int4_s_per_round / (wall / rounds),
@@ -3736,9 +4003,11 @@ def lm_train_run(cfg, st, phase, dev, round0=None):
     trainer, random weights from seed 0, f32 params): ``warmup_rounds``,
     then ``rounds`` timed rounds (s/round, tokens/s, peak memory; launches
     of rmsnorm, fused_ce, wagg_fused and ssd_chunk against the round's
-    counts: wagg_fused once per worker leaf and on nothing else, the
-    shapes it was handed recorded), then 1 profiled round (device busy
-    time, idle share against the timed rounds' wall, top kernels). ``round0`` (a
+    counts: wagg_fused on every worker leaf once a round, in the grouped
+    launches of ``wagg_tree_plan``, and on nothing else, the shapes it
+    was handed recorded), then 1 profiled round (device busy time, idle
+    share against the timed rounds' wall, top kernels, wagg_fused device
+    kernels = its launches). ``round0`` (a
     dict) receives round 0's h, theta and the params of the flat keys
     ``MESH_OLMOE_KEYS`` on the host (``mesh_olmoe`` holds its round to
     them)."""
@@ -3772,28 +4041,32 @@ def lm_train_run(cfg, st, phase, dev, round0=None):
         round0.update(round0_of(tr, leaves0))
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_fwd.launches = add_rmsnorm_fwd.launches = 0
-    fused_ce_fwd.launches = wagg_fused.launches = ssd_chunk.launches = 0
-    handed, real = [], wagg_ops.wagg_fused
+    fused_ce_fwd.launches = ssd_chunk.launches = 0
+    reset_wagg()
+    handed, real = [], wagg_ops.wagg_fused_many
 
-    def recording(x, *args, **kw):
-        handed.append((x.shape[0], x[0].numel()))
-        return real(x, *args, **kw)
+    def recording(xs, *args, **kw):
+        handed.extend((x.shape[0], x[0].numel()) for x in xs)
+        return real(xs, *args, **kw)
 
-    wagg_ops.wagg_fused = recording
+    wagg_ops.wagg_fused_many = recording
     try:
         wall = run_lm_rounds(tr, ds, batches, rounds, warm)
     finally:
-        wagg_ops.wagg_fused = real
+        wagg_ops.wagg_fused_many = real
     peak = torch.cuda.max_memory_allocated() / gib
     launches = {"rmsnorm": rmsnorm_fwd.launches,
                 "rmsnorm_fused": add_rmsnorm_fwd.launches,
                 "fused_ce": fused_ce_fwd.launches,
                 "wagg_fused": wagg_fused.launches,
+                "wagg_leaves": wagg_fused.leaves,
                 "ssd_chunk": ssd_chunk.launches}
     norms, fused = norms_per_step(cfg)
+    n_groups = wagg_tree_plan(tr.state.params, tr.axes, st["backend"])[1]
     want = {"rmsnorm": rounds * tau * norms,
             "rmsnorm_fused": rounds * tau * fused,
-            "fused_ce": rounds * tau, "wagg_fused": rounds * len(worker),
+            "fused_ce": rounds * tau, "wagg_fused": rounds * n_groups,
+            "wagg_leaves": rounds * len(worker),
             "ssd_chunk": rounds * tau * ssm_layers(cfg)
             * (2 if cfg.remat else 1)}
     if launches != want:
@@ -3803,8 +4076,11 @@ def lm_train_run(cfg, st, phase, dev, round0=None):
                              f"than the worker leaves")
     done = warm + rounds
     wall1 = wall / rounds
+    reset_wagg()
     with device_profile() as prof:
         wall_prof = run_lm_rounds(tr, ds, batches, 1, done)
+    wagg_prof = wagg_counts(f"{phase} profile", 1, (len(worker), n_groups),
+                            prof=prof)
     losses = tr.losses()
     if not np.isfinite(losses).all():
         raise AssertionError(f"{phase}: losses {losses}")
@@ -3819,7 +4095,8 @@ def lm_train_run(cfg, st, phase, dev, round0=None):
     return {"phase": phase, "arch": cfg.name, "params": n_params,
             "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, **st,
             "rule": "wasgd+", "optimizer": "sgd", "launches": launches,
-            "worker_leaves": len(worker), "shared_leaves": len(shared),
+            "worker_leaves": len(worker), "wagg_launches_per_round": n_groups,
+            "shared_leaves": len(shared),
             "shared_leaf_shapes": sorted(set(shared)),
             "init_peak_gib": init_peak,
             "seconds_per_round": wall / rounds, "wall_s": wall,
@@ -3830,7 +4107,7 @@ def lm_train_run(cfg, st, phase, dev, round0=None):
             "theta_min": float(theta.min()), "theta_max": float(theta.max()),
             "peak_mem_gib": peak,
             "profile": {"rounds": 1, "wall_ms": wall1 * 1e3,
-                        "wall_ms_profiled": wall_prof * 1e3,
+                        "wall_ms_profiled": wall_prof * 1e3, "wagg": wagg_prof,
                         **device_summary(prof, wall1, 12)}}
 
 
@@ -3953,8 +4230,8 @@ def phase_olmoe_serve(cfg, eng):
 def phase_olmoe_train(cfg, dev, round0):
     """WASGD+ on olmoe-1b-7b at full width and depth (6.92B params: 6.44B
     in the experts, one copy; f32 params, bf16 compute, remat on),
-    ``OLMOE_TRAIN``'s settings: wagg_fused once per worker leaf a round
-    and never on an expert leaf. ``round0`` receives round 0's h, theta
+    ``OLMOE_TRAIN``'s settings: wagg_fused on every worker leaf once a
+    round and never on an expert leaf. ``round0`` receives round 0's h, theta
     and two leaves (``mesh_olmoe``'s reference)."""
     return lm_train_run(cfg, OLMOE_TRAIN, "olmoe_train", dev, round0)
 
@@ -4339,8 +4616,8 @@ def phase_audio_train(dev):
     """WASGD+ on musicgen-large at full width and depth (3.26B params,
     f32 params, bf16 compute, remat on), ``MEDIA_TRAIN``'s settings (p 2):
     codebook tokens and labels (n, 640, 4), the CE over (p, b, 640, 4,
-    2048) logits in one fused_ce launch a step; wagg_fused once per leaf
-    (435 a round)."""
+    2048) logits in one fused_ce launch a step; wagg_fused on 435 leaves
+    a round in 6 launches."""
     from repro_torch.configs import get_config
     rec = lm_train_run(get_config(AUDIO_ARCH), MEDIA_TRAIN, "audio_train",
                        dev)
@@ -4353,8 +4630,8 @@ def phase_vlm_train(dev):
     (n_layers cut from 40 to 5: 4 self-attention layers, then a cross
     layer; 2.18B params), ``MEDIA_TRAIN``'s settings with a ``media``
     leaf (n, 1600, 4096) float32 in the dataset: the media ride through
-    the vmapped, rematerialised round; cross gates opened; wagg_fused
-    once per leaf (54 a round)."""
+    the vmapped, rematerialised round; cross gates opened; wagg_fused on
+    54 leaves a round in one launch."""
     from repro_torch.configs import get_config
     full = get_config(VLM_ARCH)
     cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
@@ -5313,13 +5590,14 @@ def pipe_run(dev, pipeline, p=TRAIN["p"], async_mode="host_sim", beta=0.9,
         return end(segment)
 
     ds.order.end_segment = counted_end
-    wagg_fused.launches = wagg_fused.masked_launches = 0
+    reset_wagg()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.run(ds, PIPE["rounds"], **kw)
     torch.cuda.synchronize()
     return tr, {"wall_s": time.perf_counter() - t0,
                 "launches": wagg_fused.launches,
+                "leaves": wagg_fused.leaves,
                 "masked_launches": wagg_fused.masked_launches,
                 "decisions": decisions, "seeds": ds.order.seeds.copy()}
 
@@ -5388,10 +5666,14 @@ def phase_pipeline_agree(dev):
         "beta0_params_bitwise_parity": params_bitwise(
             beta0[0][0].state.params, beta0[1][0].state.params)}
     masked = alg4[1][1]["masked_launches"]
+    n_leaves, n_groups = wagg_tree_plan(sync[2][0].state.params,
+                                        sync[2][0].axes, TRAIN["backend"])
     ok = (all(all(v.values()) for v in checks.values())
           and all(spec_checks.values())
-          and masked == PIPE["rounds"] * CNN6_LEAVES
-          and sync[2][1]["launches"] == PIPE["rounds"] * CNN6_LEAVES
+          and masked == PIPE["rounds"] * n_groups
+          and sync[2][1]["launches"] == PIPE["rounds"] * n_groups
+          and sync[2][1]["leaves"] == PIPE["rounds"] * n_leaves
+          and alg4[1][1]["leaves"] == PIPE["rounds"] * n_leaves
           and len(sync[2][1]["decisions"]) >= 1)
     rec = {"phase": "pipeline_agree", "model": "cnn6", **TRAIN,
            "rounds": PIPE["rounds"],
@@ -5476,8 +5758,9 @@ def phase_lm_pipeline(cfg, dev, ref, lm):
     tr = new_lm_trainer(cfg, dev, pipeline="parity")
     ds = lm_dataset(cfg, boundary_delay=RoundPrefetcher.run_ahead())
     torch.cuda.reset_peak_memory_stats()
-    rmsnorm_fwd.launches = fused_ce_fwd.launches = wagg_fused.launches = 0
+    rmsnorm_fwd.launches = fused_ce_fwd.launches = 0
     add_rmsnorm_fwd.launches = 0
+    reset_wagg()
     stamps = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5489,7 +5772,8 @@ def phase_lm_pipeline(cfg, dev, ref, lm):
     launches = {"rmsnorm": rmsnorm_fwd.launches,
                 "rmsnorm_fused": add_rmsnorm_fwd.launches,
                 "fused_ce": fused_ce_fwd.launches,
-                "wagg_fused": wagg_fused.launches}
+                "wagg_fused": wagg_fused.launches,
+                "wagg_leaves": wagg_fused.leaves}
     want = {k: v * total // rounds for k, v in lm["launches"].items()}
     hist_eq = [history_bitwise([a], [b]) for a, b in
                zip(ref["history"][:total], tr.history)]
@@ -5811,7 +6095,7 @@ def mesh_cnn6_run(dev, mesh, spec, rounds, pipeline=None):
 
     trainer().run(dataset(), 1)
     tr = trainer()
-    wagg_fused.launches = 0
+    reset_wagg()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.run(dataset(), rounds)
@@ -5840,7 +6124,7 @@ def phase_mesh_agree(dev, mesh):
     theta_m = torch.where(active, theta, 0.0)
     theta_m = theta_m / theta_m.sum()
     agree, ok = {}, True
-    wagg_fused.launches = 0
+    reset_wagg()
     for spec, masked in MESH_AGREE:
         th = theta_m if masked else theta
         act = active if masked else None
@@ -5883,15 +6167,18 @@ def phase_mesh_agree(dev, mesh):
     nccl = {k: v for k, v in {**agg_ops, **round_ops}.items()
             if "nccl" in k.lower()}
     # s/round of each spec under the group, and the meshless references
-    timed, launches = {}, {}
+    timed, launches, leaves = {}, {}, {}
     for spec in MESH_TIMED:
         _, wall, n = mesh_cnn6_run(dev, mesh, spec, MESH["time_rounds"])
         timed[spec] = wall / MESH["time_rounds"]
-        launches[spec] = n
+        launches[spec], leaves[spec] = n, wagg_fused.leaves
     for spec in ("einsum:f32", "pallas_wagg:f32"):
         _, wall, n = mesh_cnn6_run(dev, None, spec, MESH["time_rounds"])
         timed[f"{spec} (meshless)"] = wall / MESH["time_rounds"]
         launches[f"{spec} (meshless)"] = n
+        leaves[f"{spec} (meshless)"] = wagg_fused.leaves
+    # under the mesh each gathered leaf is a launch of its own; meshless,
+    # the tree is one grouped launch
     want_wagg = MESH["time_rounds"] * CNN6_LEAVES
     # pipelined rs_ag against unpipelined, deterministic cuDNN
     cudnn = torch.backends.cudnn
@@ -5908,7 +6195,12 @@ def phase_mesh_agree(dev, mesh):
                                                runs[1].state.params)}
     checks = {"agree": ok, "parity": all(parity.values()),
               "wagg_launches_gathered": agg_launches == CNN6_LEAVES
-              and launches["pallas_wagg:f32"] == want_wagg,
+              and launches["pallas_wagg:f32"] == want_wagg
+              and leaves["pallas_wagg:f32"] == want_wagg,
+              "wagg_grouped_meshless":
+                  launches["pallas_wagg:f32 (meshless)"]
+                  == MESH["time_rounds"]
+                  and leaves["pallas_wagg:f32 (meshless)"] == want_wagg,
               "wagg_none_through_rs_ag": launches["rs_ag:f32"] == 0,
               "finite": all(bool(np.isfinite(r.losses()).all())
                             for r in runs)}
@@ -5918,6 +6210,7 @@ def phase_mesh_agree(dev, mesh):
            "parity_rounds": MESH["parity_rounds"],
            "seconds_per_round": timed, "time_rounds": MESH["time_rounds"],
            "wagg_launches": {"aggregates": agg_launches, **launches},
+           "wagg_leaves": leaves,
            "nccl_ops": nccl,
            "device_ops_rs_ag_aggregate": agg_ops,
            "device_ops_rs_ag_round_count": sum(
@@ -6738,15 +7031,21 @@ def main():
         "name": "wagg_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/wagg/csrc/wagg_fused.cu",
         "replaces": "src/repro/kernels/wagg/wagg.py:88",
-        "launches": train["launches"], "max_abs_err": w["max_abs_err"],
+        "launches": train["launches"], "leaves": train["leaves"],
+        "max_abs_err": w["max_abs_err"],
         "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
         "bound_by": w["bound_by"], "library_ms": w["library_ms"],
-        "library": w["library"], "shape": w["leaves"],
-        "note": "one call = one CNN6 round's aggregation (6 launches, "
-                "f32 x, no payload); lm_mlp_leaf: p=4 x 1152*6912 f32",
-        "lm_mlp_leaf": {k: lm_leaf[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")},
+        "library": w["library"], "two_call_ms": w["two_call_ms"],
+        "shape": w["leaves"],
+        "launches_per_call": w["launches_per_call"],
+        "note": "one call = one CNN6 round's aggregation (6 leaves in one "
+                "wagg_fused_many call, f32 x, no payload); lm_mlp_leaf: "
+                "p=4 x 1152*6912 f32",
+        "lm_mlp_leaf": {k: lm_leaf[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "two_call_ms")},
         "lm_train_launches": lm["launches"]["wagg_fused"],
+        "lm_train_leaves": lm["launches"]["wagg_leaves"],
         "lm_pipeline_launches": lm_pipe["launches"]["wagg_fused"],
         "pipeline_agree_launches": pipe["wagg_launches"],
         "mesh_agree_launches": {
@@ -6765,7 +7064,7 @@ def main():
             "bound_by", "library_ms")},
         "lm_mlp_leaf_masked": {k: lm_leaf_masked[k] for k in (
             "mask", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library")},
+            "library_ms", "library", "three_call_ms")},
         "masked_launches": {
             "async_train": async_train["masked_launches"],
             "lm_async": lm_async["launches"]["wagg_fused_masked"],

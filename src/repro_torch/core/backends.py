@@ -25,7 +25,9 @@ Schedules:
 ``pallas_wagg``   the fused kernel (``kernels/wagg``): codec decode, the
                   Alg. 4 mask and the Eq. 10 FMA in one pass, by the CUDA
                   kernel on a CUDA tensor (its plain version on the CPU).
-                  The name is the JAX package's, so configs carry over.
+                  Meshless, a tree's worker leaves go to the kernel
+                  together, in grouped launches. The name is the JAX
+                  package's, so configs carry over.
 
 Under a mesh (``ctx.mesh``, a ``torch.distributed`` ``DeviceMesh``) each
 rank's worker leaves hold the rows of its shard, while theta and
@@ -38,7 +40,11 @@ derived collective does on JAX's sharded array.
 Every schedule runs ``prepare -> reduce_phase(i) for i < n_phases ->
 finalize`` for each worker leaf. Without an ``overlap=`` thunk the
 backend takes one leaf through all of that before the next, so one leaf's
-reduce state is alive at a time. With a thunk it runs as the JAX package
+reduce state is alive at a time; meshless ``pallas_wagg`` instead encodes
+leaf by leaf and hands its grouped kernel the leaves in batches whose
+payloads stay within ``WAGG_PAYLOAD_CAP`` (f32: no payload, one batch for
+the tree; ``payload_batches``), and ``PhaseMajor.finalize`` hands it every
+leaf. With a thunk it runs as the JAX package
 does: every leaf's prepare and phase 0, then the thunk (between the two
 collectives of ``rs_ag`` and the two hops of ``hierarchical``; after the
 one phase of the others), then the later phases and every finalize. Each
@@ -251,10 +257,17 @@ class _RsAgSchedule:
         return out[:, :n].reshape(x.shape)
 
 
+# payload bytes a batch of the grouped pallas_wagg aggregate may hold (or
+# the largest leaf's payload, if that is larger)
+WAGG_PAYLOAD_CAP = 256 << 20
+
+
 class _PallasWaggSchedule:
     """The fused kernel: the codec's payload rides into it as-is (its
-    per-leaf scale folded into theta by ``wagg_fused_leaf``) and is widened
-    to float32 in the same pass as the mask and the FMA."""
+    per-leaf scale folded into theta inside the kernel) and is widened to
+    float32 in the same pass as the mask and the FMA. Meshless, every
+    worker leaf of a tree goes to ``finalize_many`` at once
+    (``aggregate_leaves``), which runs them in grouped launches."""
     name = "pallas_wagg"
     needs_mesh = False
     n_phases = 1
@@ -271,9 +284,75 @@ class _PallasWaggSchedule:
         return state               # the fused kernel is the reduce
 
     def finalize(self, state, x, theta, beta, codec, ctx):
-        from repro_torch.kernels.wagg.ops import wagg_fused_leaf
-        return wagg_fused_leaf(x, state["payload"], state["aux"], theta,
-                               beta, active=ctx.active)
+        return self.finalize_many([state], [x], theta, beta, codec, ctx)[0]
+
+    def finalize_many(self, states, xs, theta, beta, codec, ctx):
+        from repro_torch.kernels.wagg.ops import wagg_fused_leaves
+        return wagg_fused_leaves(xs, [st["payload"] for st in states],
+                                 [st["aux"] for st in states], theta, beta,
+                                 active=ctx.active)
+
+    def aggregate_leaves(self, xs, ctxs, theta, beta, codec):
+        """Every worker leaf, encoded one by one in the flatten order
+        (``ctxs[i].leaf_index``) and handed to ``finalize_many`` a batch
+        at a time (``payload_batches``): the f32 codec has no payload, so
+        one call takes the whole tree."""
+        sizes = [payload_bytes(x.numel(), codec.name, codec.wire_dtype)
+                 for x in xs]
+        outs = []
+        for batch in payload_batches(sizes):
+            states = [self.prepare(xs[i], theta, codec, ctxs[i])
+                      for i in batch]
+            outs.extend(self.finalize_many(states, [xs[i] for i in batch],
+                                           theta, beta, codec, ctxs[0]))
+            del states                  # one batch's payloads at a time
+        return outs
+
+
+def payload_bytes(numel: int, codec_name: str, wire_dtype) -> int:
+    """Bytes of a leaf's ``pallas_wagg`` payload (0 for f32: x is its own
+    payload)."""
+    return 0 if codec_name == "f32" else numel * wire_dtype.itemsize
+
+
+def payload_batches(sizes) -> list:
+    """The leaves of a meshless ``pallas_wagg`` aggregate cut, in the
+    flatten order, into runs whose payload bytes (``sizes``) stay within
+    ``WAGG_PAYLOAD_CAP``, or within the largest leaf's payload where that
+    is larger: what the grouped aggregate may hold beyond the leaf-by-leaf
+    one."""
+    cap = max([WAGG_PAYLOAD_CAP, *sizes])
+    batches, held = [], cap + 1
+    for i, nbytes in enumerate(sizes):
+        if held + nbytes > cap:
+            batches.append([])
+            held = 0
+        batches[-1].append(i)
+        held += nbytes
+    return batches
+
+
+def pallas_wagg_plan(leaves, codec_name: str) -> list:
+    """The kernel launches of one meshless ``pallas_wagg:<codec_name>``
+    aggregate, as lists of worker-leaf positions: ``leaves`` the worker
+    leaves' (numel, dtype) in the flatten order. Each payload batch goes to
+    ``wagg_fused_many``, which groups its leaves by (x dtype, payload)
+    into launches of at most ``MAX_LEAVES`` (``group_plan``); a payload is
+    x itself for f32, and for bf16 on bfloat16 x."""
+    from repro_torch.kernels.wagg.wagg import group_plan
+    codec = get_codec(codec_name)
+    out = []
+    for batch in payload_batches([payload_bytes(n, codec_name,
+                                                codec.wire_dtype)
+                                  for n, _ in leaves]):
+        keys = []
+        for i in batch:
+            dtype = leaves[i][1]
+            same = codec_name == "f32" or (not codec.quantizing
+                                           and codec.wire_dtype == dtype)
+            keys.append((dtype, None if same else codec.wire_dtype))
+        out.extend([batch[j] for j in group] for group in group_plan(keys))
+    return out
 
 
 class _Gathered:
@@ -465,6 +544,13 @@ class ComposedBackend:
             for phase in range(1, sched.n_phases):
                 run.reduce(phase)
             return run.finalize(beta), overlap_out
+        if hasattr(sched, "aggregate_leaves"):   # every leaf at once
+            index, xs = _worker_items(params, axes)
+            outs = sched.aggregate_leaves(
+                xs, [dataclasses.replace(ctx, leaf_index=i) for i in index],
+                theta, beta, codec)
+            return _replace_worker_leaves(params, axes, dict(zip(index,
+                                                                 outs)))
         position = itertools.count()
 
         def leaf(x, ax):
@@ -501,18 +587,11 @@ class PhaseMajor:
 
     def __init__(self, sched, codec, params, axes, theta, ctx):
         self.sched, self.codec, self.theta = sched, codec, theta
-        self.params, self.axes = params, axes
-        self.ctxs, self.xs = {}, {}
-        position = itertools.count()
-
-        def index(x, ax):
-            i = next(position)              # the flatten order: sorted keys
-            if is_worker_leaf(ax):
-                self.ctxs[i] = dataclasses.replace(ctx, leaf_index=i)
-                self.xs[i] = x
-            return x
-
-        tree_map(index, params, axes)
+        self.params, self.axes, self.ctx = params, axes, ctx
+        index, xs = _worker_items(params, axes)
+        self.xs = dict(zip(index, xs))
+        self.ctxs = {i: dataclasses.replace(ctx, leaf_index=i)
+                     for i in index}
         self.states: Dict[int, object] = {}
 
     def reduce(self, phase: int) -> None:
@@ -525,6 +604,14 @@ class PhaseMajor:
                        for i, st in self.states.items()}
 
     def finalize(self, beta) -> Dict:
+        many = getattr(self.sched, "finalize_many", None)
+        if many is not None:                # every leaf's state is alive
+            index = list(self.xs)
+            outs = many([self.states.pop(i) for i in index],
+                        [self.xs[i] for i in index], self.theta, beta,
+                        self.codec, self.ctx)
+            return _replace_worker_leaves(self.params, self.axes,
+                                          dict(zip(index, outs)))
         position = itertools.count()
 
         def leaf(x, ax):
@@ -535,6 +622,22 @@ class PhaseMajor:
                                        beta, self.codec, self.ctxs[i])
 
         return tree_map(leaf, self.params, self.axes)
+
+
+def _worker_items(params: Dict, axes: Dict):
+    """(flatten positions, leaves) of the worker leaves, in the flatten
+    order (sorted keys)."""
+    items = [(i, x) for i, (x, ax) in enumerate(zip(tree_leaves(params),
+                                                     tree_leaves(axes)))
+             if is_worker_leaf(ax)]
+    return [i for i, _ in items], [x for _, x in items]
+
+
+def _replace_worker_leaves(params: Dict, axes: Dict, new: Dict) -> Dict:
+    """``params`` with the worker leaf at each flatten position of ``new``
+    replaced."""
+    position = itertools.count()
+    return tree_map(lambda x, ax: new.get(next(position), x), params, axes)
 
 
 def get_backend(name: str):
@@ -670,8 +773,7 @@ def _load_auto_table(path: str):
 
 
 def _worker_leaves(params: Dict, axes: Dict):
-    return [x for x, ax in zip(tree_leaves(params), tree_leaves(axes))
-            if is_worker_leaf(ax)]
+    return _worker_items(params, axes)[1]
 
 
 def worker_leaf_bytes(params: Dict, axes: Dict) -> int:

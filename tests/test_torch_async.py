@@ -440,24 +440,25 @@ def test_async_rule_anneal_rides_comm_state_with_mask():
 
 
 def test_async_rule_casts_the_mask_once_a_round(monkeypatch):
-    """Every leaf's kernel call gets the same float32 mask: one cast a
-    round, not one a leaf."""
+    """The round's one grouped kernel call takes every leaf and the
+    rule's float32 mask: one cast a round, not one a leaf."""
     seen = []
-    real = wagg_ops.wagg_fused
+    real = wagg_ops.wagg_fused_many
 
-    def spy(x, theta, beta, payload=None, active=None):
-        seen.append(active)
-        return real(x, theta, beta, payload=payload, active=active)
+    def spy(xs, theta, beta, payloads=None, scales=None, active=None):
+        seen.append((len(xs), active))
+        return real(xs, theta, beta, payloads=payloads, scales=scales,
+                    active=active)
 
-    monkeypatch.setattr(wagg_ops, "wagg_fused", spy)
+    monkeypatch.setattr(wagg_ops, "wagg_fused_many", spy)
     params, axes = _stacked(4)
     rule = step_mod.async_wasgd_rule(WASGDConfig(async_mode="on_device",
                                                  backend="pallas_wagg:f32"))
     _, _, theta, m = rule(tree_map(torch.as_tensor, params), axes,
                           torch.tensor([0.5, 1.0, 2.0, 0.1]),
                           torch.tensor([True, False, True, True]))
-    assert len(seen) == 2 and all(a is seen[0] for a in seen)
-    assert seen[0].dtype == torch.float32 and seen[0] is m["active"]
+    assert len(seen) == 1 and seen[0][0] == 2
+    assert seen[0][1].dtype == torch.float32 and seen[0][1] is m["active"]
     assert float(theta[1]) == 0.0
 
 

@@ -338,7 +338,8 @@ def test_ordergen_decisions_are_the_jax_packages(n_segments, delay):
 def test_overlap_seam_leaves_params_and_runs_between_phases(spec, n_pods):
     """With a thunk the aggregate is bitwise the thunk-free one, returns
     the thunk's tree, and runs it after every leaf's phase 0 and before
-    any later phase or finalize."""
+    any later phase or finalize (a leaf handed to ``pallas_wagg``'s
+    grouped ``finalize_many`` counts as its finalize)."""
     rng = np.random.default_rng(0)
     params = {"a": torch.from_numpy(rng.normal(size=(4, 6)).astype(
                   np.float32)),
@@ -363,12 +364,21 @@ def test_overlap_seam_leaves_params_and_runs_between_phases(spec, n_pods):
         return real[1](*a)
 
     sched.reduce_phase, sched.finalize = reduce_phase, finalize
+    real_many = getattr(sched, "finalize_many", None)
+    if real_many is not None:
+        def finalize_many(states, xs, *a):
+            log.extend([("finalize",)] * len(xs))
+            return real_many(states, xs, *a)
+
+        sched.finalize_many = finalize_many
     try:
         out, seam = backend.aggregate(
             params, axes, theta, 0.9, ctx=ctx,
             overlap=lambda: log.append(("seam",)) or {"t": torch.ones(2)})
     finally:
         del sched.reduce_phase, sched.finalize
+        if real_many is not None:
+            del sched.finalize_many
     _assert_trees_bitwise(ref, out, spec)
     assert torch.equal(seam["t"], torch.ones(2))
     cut = log.index(("seam",))

@@ -157,10 +157,19 @@ def test_launch_checks_refuse_what_the_kernel_does_not_take(bad, match):
 
 
 def test_vector_width_needs_n_multiple_of_4_and_aligned_rows():
+    """16 bytes of x a thread: 4 float32 or 8 bfloat16 columns, on the
+    vector path only when every row starts on a vector boundary (one row
+    may end in a scalar tail)."""
     x = torch.zeros(3, 64)
-    assert wagg_mod.vector_width(64, x) == 4
-    assert wagg_mod.vector_width(63, x[:, :63].contiguous()) == 1
-    assert wagg_mod.vector_width(60, x.reshape(-1)[1:181]) == 1
+    assert wagg_mod.columns_per_thread(torch.float32) == 4
+    assert wagg_mod.columns_per_thread(torch.bfloat16) == 8
+    assert wagg_mod.rows_aligned(3, 64, 4, x)
+    assert not wagg_mod.rows_aligned(3, 63, 4, x[:, :63].contiguous())
+    assert not wagg_mod.rows_aligned(3, 60, 4, x.reshape(-1)[1:181])
+    assert wagg_mod.rows_aligned(1, 63, 4, x[:1, :63].contiguous())
+    xb = torch.zeros(3, 68, dtype=torch.bfloat16)
+    assert not wagg_mod.rows_aligned(3, 68, 8, xb)
+    assert wagg_mod.rows_aligned(3, 64, 8, xb[:, :64].contiguous())
 
 
 def test_build_knows_the_wagg_source():
