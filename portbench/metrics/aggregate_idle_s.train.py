@@ -1,0 +1,8 @@
+"""Seconds a round the card idles while the host is inside the
+aggregate: the idle gaps whose midpoint falls inside the program's
+``round.aggregate`` span in the unfenced span rounds, their mean."""
+
+
+def read(ctx):
+    spans = getattr(ctx, "spans", None)
+    return None if spans is None else spans.idle_per_round("round.aggregate")

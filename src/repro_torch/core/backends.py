@@ -72,6 +72,7 @@ from repro_torch.core import shardmap_agg as smagg
 from repro_torch.core.aggregate import fma_late_join, is_worker_leaf
 from repro_torch.core.codecs import (available_codecs, codec_for_dtype,
                                      get_codec)
+from repro_torch.obs.spans import span
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -134,6 +135,13 @@ class _FnBackend:
 # Built-in schedules
 # ---------------------------------------------------------------------------
 
+def _encode(codec, x, ctx):
+    """A leaf's payload and aux from the codec, under the ``agg.encode``
+    span."""
+    with span("agg.encode"):
+        return codec.encode(x, ctx)
+
+
 class _EinsumSchedule:
     name = "einsum"
     needs_mesh = False
@@ -142,7 +150,7 @@ class _EinsumSchedule:
     supports_mask = True
 
     def prepare(self, x, theta, codec, ctx):
-        payload, aux = codec.encode(x, ctx)
+        payload, aux = _encode(codec, x, ctx)
         return {"payload": payload, "aux": aux}
 
     def reduce_phase(self, i, state, theta, codec, ctx):
@@ -172,7 +180,7 @@ class _HierarchicalSchedule:
                 f"WASGDConfig.n_pods or use the 'einsum' schedule")
 
     def prepare(self, x, theta, codec, ctx):
-        payload, aux = codec.encode(x, ctx)
+        payload, aux = _encode(codec, x, ctx)
         w = payload.shape[0]
         xr = payload.reshape(ctx.n_pods, w // ctx.n_pods, *payload.shape[1:])
         return {"xr": xr, "aux": aux}
@@ -202,7 +210,7 @@ class _ShardMapSchedule:
     supports_mask = True
 
     def prepare(self, x, theta, codec, ctx):
-        payload, aux = codec.encode(x, ctx)
+        payload, aux = _encode(codec, x, ctx)
         return {"payload": payload, "aux": aux}
 
     def reduce_phase(self, i, state, theta, codec, ctx):
@@ -231,7 +239,7 @@ class _RsAgSchedule:
     def prepare(self, x, theta, codec, ctx):
         s = smagg.mesh_worker_shards(ctx.mesh)
         if codec.quantizing:
-            payload, aux = codec.encode(x, ctx)
+            payload, aux = _encode(codec, x, ctx)
             wire = codec.reduce_dtype
         else:
             payload, aux = x, None
@@ -277,7 +285,7 @@ class _PallasWaggSchedule:
     def prepare(self, x, theta, codec, ctx):
         if codec.name == "f32":
             return {"payload": None, "aux": None}    # the kernel reads x once
-        payload, aux = codec.encode(x, ctx)
+        payload, aux = _encode(codec, x, ctx)
         return {"payload": payload, "aux": aux}
 
     def reduce_phase(self, i, state, theta, codec, ctx):

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.param import ParamBuilder
+from repro_torch.obs.spans import span
 
 
 class MoEAux(NamedTuple):
@@ -117,52 +118,58 @@ def moe_ffn(params: Dict, x: torch.Tensor, m: MoEConfig,
     xf = x.reshape(T, d)
     dev = x.device
 
-    logits = xf.float() @ params["router"].float()               # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)         # (T, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)               # renormalize
+    with span("moe.route"):
+        logits = xf.float() @ params["router"].float()           # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_idx = torch.topk(probs, K, dim=-1)     # (T, K)
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)          # renormalize
 
-    # -- aux losses (Switch-style) ------------------------------------------
-    flat_e = expert_idx.reshape(-1)                              # (T K,)
-    counts = (flat_e[:, None] == torch.arange(E, device=dev)).sum(0)
-    me = probs.mean(dim=0)                                       # (E,)
-    ce = counts.float() / (T * K)
-    load_balance = E * torch.sum(me * ce) * m.load_balance_loss
-    z_loss = m.router_z_loss * torch.mean(
-        torch.square(torch.logsumexp(logits, dim=-1)))
+        # -- aux losses (Switch-style) --------------------------------------
+        flat_e = expert_idx.reshape(-1)                          # (T K,)
+        counts = (flat_e[:, None] == torch.arange(E, device=dev)).sum(0)
+        me = probs.mean(dim=0)                                   # (E,)
+        ce = counts.float() / (T * K)
+        load_balance = E * torch.sum(me * ce) * m.load_balance_loss
+        z_loss = m.router_z_loss * torch.mean(
+            torch.square(torch.logsumexp(logits, dim=-1)))
 
-    # -- rank the slots within their expert (stable sort, token-major) -----
-    order = torch.argsort(flat_e, stable=True)    # slots sorted by expert
-    seg_start = torch.cumsum(counts, 0) - counts                 # (E,)
-    rank_sorted = (torch.arange(T * K, device=dev)
-                   - seg_start[flat_e[order]])
-    rank = torch.empty_like(rank_sorted).scatter(0, order, rank_sorted)
-    keep = rank < C
-    slot = torch.where(keep, flat_e * C + rank,
-                       torch.full_like(rank, E * C))     # E*C: dropped
+        # -- rank the slots within their expert (stable sort, token-major) -
+        order = torch.argsort(flat_e, stable=True)  # slots sorted by expert
+        seg_start = torch.cumsum(counts, 0) - counts             # (E,)
+        rank_sorted = (torch.arange(T * K, device=dev)
+                       - seg_start[flat_e[order]])
+        rank = torch.empty_like(rank_sorted).scatter(0, order, rank_sorted)
+        keep = rank < C
+        slot = torch.where(keep, flat_e * C + rank,
+                           torch.full_like(rank, E * C))  # E*C: dropped
 
     # -- dispatch: place (e, c) holds the c-th slot of expert e's segment --
-    place = seg_start[:, None] + torch.arange(C, device=dev)     # (E, C)
-    filled = torch.arange(C, device=dev) < counts[:, None]
-    src = order[torch.clamp(place, max=T * K - 1)] // K          # token ids
-    buf = torch.where(filled[..., None], xf.to(compute_dtype)[src],
-                      torch.zeros((), dtype=compute_dtype, device=dev))
+    with span("moe.dispatch"):
+        place = seg_start[:, None] + torch.arange(C, device=dev)  # (E, C)
+        filled = torch.arange(C, device=dev) < counts[:, None]
+        src = order[torch.clamp(place, max=T * K - 1)] // K      # token ids
+        buf = torch.where(filled[..., None], xf.to(compute_dtype)[src],
+                          torch.zeros((), dtype=compute_dtype, device=dev))
 
     # -- expert computation (gated MLP over all experts) --------------------
-    ep = params["experts"]
-    g = ExpertMatmul.apply(buf, ep["w_gate"].to(compute_dtype))
-    u = ExpertMatmul.apply(buf, ep["w_up"].to(compute_dtype))
-    out_buf = ExpertMatmul.apply(F.silu(g) * u,
-                                 ep["w_down"].to(compute_dtype))
+    with span("moe.experts"):
+        ep = params["experts"]
+        g = ExpertMatmul.apply(buf, ep["w_gate"].to(compute_dtype))
+        u = ExpertMatmul.apply(buf, ep["w_up"].to(compute_dtype))
+        out_buf = ExpertMatmul.apply(F.silu(g) * u,
+                                     ep["w_down"].to(compute_dtype))
 
     # -- combine: gather back and weight by the gates -----------------------
-    out_flat = out_buf.reshape(E * C, d)
-    safe_slot = torch.clamp(slot, max=E * C - 1)
-    gathered = torch.where(keep[:, None], out_flat[safe_slot],
-                           torch.zeros((), dtype=compute_dtype, device=dev))
-    combined = (gathered.reshape(T, K, d)
-                * gate_vals[..., None].to(compute_dtype)).sum(dim=1)
+    with span("moe.combine"):
+        out_flat = out_buf.reshape(E * C, d)
+        safe_slot = torch.clamp(slot, max=E * C - 1)
+        gathered = torch.where(keep[:, None], out_flat[safe_slot],
+                               torch.zeros((), dtype=compute_dtype,
+                                           device=dev))
+        combined = (gathered.reshape(T, K, d)
+                    * gate_vals[..., None].to(compute_dtype)).sum(dim=1)
+        out = combined.reshape(b, s, d).to(x.dtype)
 
     aux = MoEAux(load_balance, z_loss, 1.0 - keep.float().mean())
-    return combined.reshape(b, s, d).to(x.dtype), aux
+    return out, aux

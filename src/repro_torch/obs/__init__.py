@@ -9,6 +9,11 @@ Producers: ``Trainer.run(telemetry=)`` (``RoundTrace``,
 ``WorkerAssessment``, ``MembershipChange``), ``AsyncCheckpointer``
 (``CheckpointSave``), ``ContinuousEngine(telemetry=)`` (``ServeSample``),
 ``HotSwapBridge`` (``HotSwap``).
+
+Spans (``obs/spans.py``): ``span(name)`` marks the round's phases, the
+aggregate's encodes and the MoE layer's parts as profiler ranges while
+``recording()`` is on (off by default: a site is then one flag read), for
+a profiler run to put the card's kernels and idle gaps down to them.
 """
 from repro_torch.obs.events import (CheckpointSave, HotSwap,
                                     MembershipChange, PHASE_NAMES,
@@ -17,10 +22,12 @@ from repro_torch.obs.events import (CheckpointSave, HotSwap,
                                     summarize_policy_state, to_record)
 from repro_torch.obs.sinks import (JsonlSink, NULL, NullSink, RingSink,
                                    Telemetry, read_events)
+from repro_torch.obs.spans import SPAN_NAMES, recording, span
 
 __all__ = [
     "CheckpointSave", "HotSwap", "JsonlSink", "MembershipChange", "NULL",
-    "NullSink", "PHASE_NAMES", "RingSink", "RoundTrace", "ServeSample",
-    "Telemetry", "WorkerAssessment", "event_from_record", "read_events",
-    "summarize_policy_state", "to_record",
+    "NullSink", "PHASE_NAMES", "RingSink", "RoundTrace", "SPAN_NAMES",
+    "ServeSample", "Telemetry", "WorkerAssessment", "event_from_record",
+    "read_events", "recording", "span", "summarize_policy_state",
+    "to_record",
 ]

@@ -50,6 +50,7 @@ from repro_torch.core.order import judge_scores
 from repro_torch.core.weights import (compute_theta, omega,
                                       policy_from_config, theta_entropy)
 from repro_torch.device import fence
+from repro_torch.obs.spans import span
 from repro_torch.optim import Optimizer
 from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_leaves, tree_map
@@ -314,24 +315,26 @@ def _round_parts(loss_fn: LossFn, optimizer: Optimizer, axes: Dict, wcfg,
         params, opt_state, energy = (state.params, state.opt_state,
                                      state.energy)
         step_means, step_losses, gnorm0 = [], [], None
-        for t in range(tau):
-            grads, losses = worker_grads(params,
-                                         tree_map(lambda x: x[t], mb))
-            if collect_gnorm and t == 0:
-                gnorm0 = worker_l2(grads)
-            opt_state = optimizer.apply(grads, opt_state, params)
-            del grads
-            if mask[t]:
-                energy = energy + losses
-            if mesh is None:
-                step_means.append(losses.mean())
-            step_losses.append(losses)
-        step_losses = torch.stack(step_losses)
-        if mesh is not None:                # every worker's, per step
-            step_means = [row.mean() for row in
-                          gather(step_losses.t().contiguous()).t()]
-        return (params, opt_state, energy), (torch.stack(step_means),
-                                             step_losses, gnorm0)
+        with span("round.local_steps"):
+            for t in range(tau):
+                grads, losses = worker_grads(params,
+                                             tree_map(lambda x: x[t], mb))
+                if collect_gnorm and t == 0:
+                    gnorm0 = worker_l2(grads)
+                opt_state = optimizer.apply(grads, opt_state, params)
+                del grads
+                if mask[t]:
+                    energy = energy + losses
+                if mesh is None:
+                    step_means.append(losses.mean())
+                step_losses.append(losses)
+            step_losses = torch.stack(step_losses)
+            if mesh is not None:            # every worker's, per step
+                step_means = [row.mean() for row in
+                              gather(step_losses.t().contiguous()).t()]
+            step_means = torch.stack(step_means)
+        return (params, opt_state, energy), (step_means, step_losses,
+                                             gnorm0)
 
     def assemble(state, params, opt_state, comm_state, round_losses, energy,
                  theta, rule_metrics, extra=None):
@@ -441,11 +444,12 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
         mb = parts.reshape_batch(batch)
         (params, opt_state, energy), (round_losses, _, _) = parts.run_scan(
             state, mb)
-        h = parts.gather(energy)
-        params, comm_state, theta, rule_metrics = rule(
-            params, axes, h, state.comm_state)
-        return parts.assemble(state, params, opt_state, comm_state,
-                              round_losses, h, theta, rule_metrics)
+        with span("round.aggregate"):
+            h = parts.gather(energy)
+            params, comm_state, theta, rule_metrics = rule(
+                params, axes, h, state.comm_state)
+            return parts.assemble(state, params, opt_state, comm_state,
+                                  round_losses, h, theta, rule_metrics)
 
     if pipeline is None:
         return train_step
@@ -478,17 +482,18 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, axes: Dict,
                     pre_agg, next_first)
             return staged
 
-        params, comm_state, theta, rule_metrics = rule(
-            pre_agg, axes, h, state.comm_state, overlap=seam)
-        seam_out = rule_metrics.pop("overlap")
-        carry_out = {"first": seam_out["first"]}
-        if speculative:
-            carry_out["spec_losses"] = seam_out["spec_losses"]
-            carry_out["comm_delta"] = parts.worker_l2(params, pre_agg)
-        del pre_agg
-        new_state, metrics = parts.assemble(
-            state, params, opt_state, comm_state, round_losses, h,
-            theta, rule_metrics, extra)
+        with span("round.aggregate"):
+            params, comm_state, theta, rule_metrics = rule(
+                pre_agg, axes, h, state.comm_state, overlap=seam)
+            seam_out = rule_metrics.pop("overlap")
+            carry_out = {"first": seam_out["first"]}
+            if speculative:
+                carry_out["spec_losses"] = seam_out["spec_losses"]
+                carry_out["comm_delta"] = parts.worker_l2(params, pre_agg)
+            del pre_agg
+            new_state, metrics = parts.assemble(
+                state, params, opt_state, comm_state, round_losses, h,
+                theta, rule_metrics, extra)
         return new_state, metrics, carry_out
 
     def primer(params: Dict, batch: Dict) -> Dict:

@@ -54,7 +54,7 @@ from repro_torch.data.pipeline import (OrderedDataset, RoundPrefetcher,
                                        rank_rows)
 from repro_torch.device import fence, resolve_device
 from repro_torch.obs import (NULL, MembershipChange, RoundTrace,
-                             WorkerAssessment, summarize_policy_state)
+                             WorkerAssessment, span, summarize_policy_state)
 from repro_torch.optim import make_optimizer
 from repro_torch.train import step as step_mod
 from repro_torch.train.state import TrainState, init_state
@@ -513,35 +513,37 @@ class Trainer:
         carry = None
         try:
             for r in range(start, n_rounds):
-                if membership_schedule is not None:
-                    target = membership_schedule.p_of(r)
-                    if target != self.n_workers:
-                        self.resize(target, round=r)
-                        ds.resize(target)
-                        gen = self._rank_batches(ds.batches(start_round=r))
-                        if prefetch is not None:
-                            prefetch.resize(
-                                smagg.local_workers(target, self._mesh), gen)
-                        else:
-                            batches = gen
-                        carry = None      # re-prime the pipelined seam
-                t_host = time.perf_counter() if obs_on else 0.0
-                if self.pipeline is not None:
-                    batch, next_first = next(batches)
-                else:
-                    batch = next(batches)
-                    batch = {k: torch.as_tensor(v).to(self.device)
-                             for k, v in batch.items()}
-                if masks is not None:
-                    cs = self.state.comm_state
-                    cs = ({**cs, "active": masks[r]} if isinstance(cs, dict)
-                          else masks[r])
-                    self.state = self.state._replace(comm_state=cs)
-                host_staging_s = (time.perf_counter() - t_host
-                                  if obs_on else 0.0)
-                phased = self._phased_step() if obs_on else None
-                phase_times = None
-                t_step = time.perf_counter() if obs_on else 0.0
+                with span("round.stage"):
+                    if membership_schedule is not None:
+                        target = membership_schedule.p_of(r)
+                        if target != self.n_workers:
+                            self.resize(target, round=r)
+                            ds.resize(target)
+                            gen = self._rank_batches(
+                                ds.batches(start_round=r))
+                            if prefetch is not None:
+                                prefetch.resize(smagg.local_workers(
+                                    target, self._mesh), gen)
+                            else:
+                                batches = gen
+                            carry = None      # re-prime the pipelined seam
+                    t_host = time.perf_counter() if obs_on else 0.0
+                    if self.pipeline is not None:
+                        batch, next_first = next(batches)
+                    else:
+                        batch = next(batches)
+                        batch = {k: torch.as_tensor(v).to(self.device)
+                                 for k, v in batch.items()}
+                    if masks is not None:
+                        cs = self.state.comm_state
+                        cs = ({**cs, "active": masks[r]}
+                              if isinstance(cs, dict) else masks[r])
+                        self.state = self.state._replace(comm_state=cs)
+                    host_staging_s = (time.perf_counter() - t_host
+                                      if obs_on else 0.0)
+                    phased = self._phased_step() if obs_on else None
+                    phase_times = None
+                    t_step = time.perf_counter() if obs_on else 0.0
                 if self.pipeline is not None:
                     if carry is None:
                         carry = self._primer(self.state.params, batch)
@@ -552,36 +554,40 @@ class Trainer:
                                                               batch)
                 else:
                     self.state, metrics = self._step(self.state, batch)
-                if obs_on:
-                    if phase_times is None:      # one fence for the round
-                        fence(self.device)
-                    total_s = time.perf_counter() - t_step
-                rec = {k: tree_map(_to_host, v) for k, v in metrics.items()}
-                rec["round"] = r
-                if membership_schedule is not None:
-                    rec["p"] = self.n_workers
-                self.history.append(rec)
-                if obs_on:
-                    self._emit_round(tele, r, rec, total_s, host_staging_s,
-                                     phase_times)
-                if order_state is not None:
-                    seg = segment_fn(r) if segment_fn else 0
-                    order_state.record_scores(seg, rec["scores"])
-                if mf is not None:
-                    mf.write(json.dumps(
-                        {k: (v.tolist() if isinstance(v, np.ndarray) else v)
-                         for k, v in rec.items()}) + "\n")
-                    mf.flush()
-                if serve_hook is not None \
-                        and (r + 1) % max(1, serve_every) == 0:
-                    serve_hook(r, self.state.params, self.axes)
-                if checkpoint_every and checkpoint_path \
-                        and (r + 1) % checkpoint_every == 0:
-                    self.save_checkpoint(
-                        os.path.join(checkpoint_path, f"round_{r+1}"), r + 1)
-                if log_every and (r + 1) % log_every == 0:
-                    print(f"round {r+1}/{n_rounds} loss={rec['loss']:.4f} "
-                          f"theta_entropy={rec['theta_entropy']:.3f}")
+                with span("round.readback"):
+                    if obs_on:
+                        if phase_times is None:  # one fence for the round
+                            fence(self.device)
+                        total_s = time.perf_counter() - t_step
+                    rec = {k: tree_map(_to_host, v)
+                           for k, v in metrics.items()}
+                    rec["round"] = r
+                    if membership_schedule is not None:
+                        rec["p"] = self.n_workers
+                    self.history.append(rec)
+                    if obs_on:
+                        self._emit_round(tele, r, rec, total_s,
+                                         host_staging_s, phase_times)
+                    if order_state is not None:
+                        seg = segment_fn(r) if segment_fn else 0
+                        order_state.record_scores(seg, rec["scores"])
+                    if mf is not None:
+                        mf.write(json.dumps(
+                            {k: (v.tolist() if isinstance(v, np.ndarray)
+                                 else v)
+                             for k, v in rec.items()}) + "\n")
+                        mf.flush()
+                    if serve_hook is not None \
+                            and (r + 1) % max(1, serve_every) == 0:
+                        serve_hook(r, self.state.params, self.axes)
+                    if checkpoint_every and checkpoint_path \
+                            and (r + 1) % checkpoint_every == 0:
+                        self.save_checkpoint(os.path.join(
+                            checkpoint_path, f"round_{r+1}"), r + 1)
+                    if log_every and (r + 1) % log_every == 0:
+                        print(f"round {r+1}/{n_rounds} "
+                              f"loss={rec['loss']:.4f} "
+                              f"theta_entropy={rec['theta_entropy']:.3f}")
         finally:
             if mf is not None:
                 mf.close()
